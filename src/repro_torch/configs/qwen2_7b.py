@@ -1,0 +1,16 @@
+"""Qwen2-7B [arXiv:2407.10671]: dense GQA decoder, QKV bias."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-7b",
+    family="dense",
+    num_layers=28,
+    d_model=3584,
+    num_heads=28,
+    num_kv_heads=4,
+    head_dim=128,
+    d_ff=18944,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1e6,
+)
