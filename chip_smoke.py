@@ -3,14 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-kernel to its plain PyTorch version at every shape the Qwen2-7B serving
-path gives it, checks the kernel path's logits against the plain chain at
-full width in f32, and then serves Qwen2-7B at full width and depth in
-bf16 (fresh seeded weights) through ``repro_torch.api.serve``, counting
-the kernel launches of that run. Every failure raises and exits non-zero.
-The last two lines of standard output are one JSON object with each
-kernel's numbers and one with the device.
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+per source, all started together) and drives both of the port's paths:
+
+- kernels: holds each kernel to its plain PyTorch version at every shape
+  its paths give it: ``xus``/``avt`` at the Qwen2-7B serving shapes,
+  ``atb`` at the llm-100m training shapes and at Qwen2-7B's;
+- backward: ``lowrank_apply``'s kernel-backed gradients against the plain
+  chain's at one llm-100m layer's full width, in f32;
+- f32 logits: the serving kernel path against the plain chain, Qwen2-7B at
+  full width and 2 layers;
+- serve: Qwen2-7B at full width and depth in bf16 (fresh seeded weights)
+  through ``repro_torch.api.serve``, counting the kernel launches;
+- train: three FeDLRT rounds of llm-100m at full width and depth in f32
+  through ``repro_torch.api.build(spec).run()``, counting the launches
+  against the counts the model's factors imply; one more round under
+  ``torch.profiler`` (device busy share, kernels by device time); then
+  one round from the same start with ``kernels="off"`` (held to the
+  kernel run) and the kernel round again (held to be bit-identical).
+
+Every failure raises and exits non-zero. The last two lines of standard
+output are one JSON object with each kernel's numbers and one with the
+device.
 
 Imports nothing of JAX. Needs one CUDA card.
 """
@@ -32,8 +46,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 ou
 REPLACES = {
     "xus": "src/repro/kernels/lowrank_matmul.py:58",
     "avt": "src/repro/kernels/lowrank_matmul.py:103",
+    "atb": "src/repro/kernels/coeff_grad.py:22",
 }
-SOURCE = "src/repro_torch/csrc/lowrank_matmul.cu"
+SOURCES = {
+    "xus": "src/repro_torch/csrc/lowrank_matmul.cu",
+    "avt": "src/repro_torch/csrc/lowrank_matmul.cu",
+    "atb": "src/repro_torch/csrc/coeff_grad.cu",
+}
 #: tolerance of a kernel against its plain version, with the reason
 TOL = {
     # both round once from f32 to bf16; f32 sums taken in different orders
@@ -330,7 +349,6 @@ def phase_serve(torch, counters):
     import numpy as np
 
     from repro_torch.api import ExperimentSpec, ModelSpec, ServeSpec, serve
-    from repro_torch.kernels.lowrank_matmul import avt, xus
     from repro_torch.launch.serve import synthetic_requests
 
     spec = ExperimentSpec(
@@ -370,13 +388,13 @@ def phase_serve(torch, counters):
     sched = session.scheduler
     steps0 = sched.decode_steps
     # the main path: counts at 0 just before, read just after
-    xus.launches = avt.launches = 0
+    _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     comps = session.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counters["xus"], counters["avt"] = xus.launches, avt.launches
+    counters["serve"] = got = _launch_counts()
     eng.step, eng.prefill = step_fn, prefill_fn
 
     steps = sched.decode_steps - steps0
@@ -388,12 +406,14 @@ def phase_serve(torch, counters):
     per_forward = 198  # 28 layers x 7 factorized linears + embedding + LM head
     for name in ("xus", "avt"):
         want = per_forward * (steps + prefills)
-        if counters[name] != want:
+        if got[name] != want:
             raise AssertionError(
-                f"{name}: {counters[name]} launches, expected {per_forward} x "
+                f"{name}: {got[name]} launches, expected {per_forward} x "
                 f"({steps} decode steps + {prefills} prefills) = {want}"
             )
-    log(f"[serve] launches: xus {counters['xus']}, avt {counters['avt']} = "
+    if got["atb"]:
+        raise AssertionError(f"serving (forward only) launched atb {got['atb']} times")
+    log(f"[serve] launches: xus {got['xus']}, avt {got['avt']} = "
         f"{per_forward} per forward x ({steps} decode steps + {prefills} prefills); "
         f"{per_forward} xus + {per_forward} avt per decode step")
     toks = sum(len(c.tokens) for c in comps)
@@ -432,9 +452,383 @@ def phase_serve(torch, counters):
                 floor_ms=floor_ms, peak_gib=peak / 2**30, aten_dispatches=dispatches)
 
 
-def kernel_summary(records, counters, cfg):
-    """Per kernel: the sum over one decode step's launches (M = 4) of each
-    measured number, and the worst error over every checked case."""
+# ---------------------------------------------------------------------------
+# the training path: atb, the backward, FeDLRT rounds
+# ---------------------------------------------------------------------------
+
+#: atb tolerance in f32, relative to the largest |C|: the sums of up to 8192
+#: products are taken in another order than the plain version's, so the
+#: error scales with the sum's magnitude, not with each entry's
+ATB_F32_RTOL = 1e-4
+
+
+def atb_shapes():
+    """(model, M values, Ka, Kb) of every ``atb`` call of the training path.
+
+    llm-100m (d = 640, d_ff = 2560, vocab 8192, r = 160, augmented 320):
+    dS 160² in the basis-gradient pass (and the embedding's coefficient
+    slot), dS 320² in the client loop, dU / dV with Ka = n_in / n_out. Also
+    Qwen2-7B's (d = 3584, d_ff = 18944, vocab 152064, r = 256, k/v 64), for
+    the slice that trains it: basis pass Kb in {256, 64}, client loop 512 /
+    128, Ka up to the vocab.
+    """
+    llm = [(160, 160), (320, 320), (640, 160), (2560, 160), (8192, 160)]
+    qwen = [(256, 256), (64, 64), (512, 512), (128, 128), (3584, 256), (3584, 64),
+            (18944, 256), (512, 64), (152064, 256)]
+    return ([("llm-100m", (512, 8192), ka, kb) for ka, kb in llm]
+            + [("qwen2-7b", (512,), ka, kb) for ka, kb in qwen])
+
+
+def _atb_bound_ms(dtype_name, M, Ka, Kb):
+    es = 2 if dtype_name == "bfloat16" else 4
+    nbytes = (M * Ka + M * Kb + Ka * Kb) * es
+    flops = 2 * M * Ka * Kb
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_atb(torch):
+    """``atb`` against its plain version at every training-path shape, f32
+    and bf16, with its time, bound, plain time and ``torch.matmul(A.T, B)``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.coeff_grad import atb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    records = []
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for model, Ms, Ka, Kb in atb_shapes():
+            for M in Ms:
+                set_bytes = M * (Ka + Kb) * dtype.itemsize
+                n_sets = max(2, min(64, math.ceil(L2_DEFEAT_BYTES / set_bytes)))
+                sets = [
+                    (torch.randn(M, Ka, generator=gen, device="cuda").to(dtype),
+                     torch.randn(M, Kb, generator=gen, device="cuda").to(dtype))
+                    for _ in range(n_sets)
+                ]
+                got, want = atb(*sets[0]), ref.atb_ref(*sets[0])
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                if dtype_name == "float32":
+                    ok = err <= ATB_F32_RTOL * want.abs().max().item()
+                    tol = f"{ATB_F32_RTOL:g} x max|C|"
+                else:
+                    ok = torch.allclose(got.float(), want.float(), **TOL[dtype_name])
+                    tol = str(TOL[dtype_name])
+                reps = max(n_sets, 8)
+                rec = dict(
+                    kernel="atb", model=model, dtype=dtype_name, M=M, Ka=Ka, Kb=Kb,
+                    max_abs_err=err, ok=ok,
+                    ms=graph_ms(torch, lambda i: atb(*sets[i]), n_sets, reps),
+                    plain_ms=graph_ms(torch, lambda i: ref.atb_ref(*sets[i]), n_sets, reps),
+                    library_ms=graph_ms(
+                        torch, lambda i: torch.matmul(sets[i][0].t(), sets[i][1]), n_sets, reps
+                    ),
+                )
+                rec["bound_ms"], rec["bound_by"] = _atb_bound_ms(dtype_name, M, Ka, Kb)
+                records.append(rec)
+                log(f"[atb] {model:8s} {dtype_name:8s} M={M:<5d} Ka={Ka:<6d} Kb={Kb:<3d} "
+                    f"max_abs_err={err:.3g} (max|C| {want.float().abs().max().item():.3g}) "
+                    f"tol={tol} {'ok' if ok else 'MISMATCH'}  kernel_ms={rec['ms']:.4f} "
+                    f"plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
+                    f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']})")
+                del sets, got, want
+    torch.cuda.empty_cache()
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} atb case(s) disagree with the plain version: {bad}")
+    return records
+
+
+def phase_backward(torch):
+    """``lowrank_apply``'s kernel-backed gradients against the plain
+    chain's (autograd of ``((x U) S) Vᵀ``), f32, at one llm-100m layer's
+    shapes (M = 512 = batch 4 x seq 128), for every ``needs_input_grad``
+    combination the training path uses."""
+    from repro_torch.kernels.ops import lowrank_apply
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    M, d, dff = 512, 640, 2560
+    cases = [
+        # (what, K, N, R, which of x, U, S, V need a gradient)
+        ("basis pass, up 640->2560", d, dff, 160, (1, 1, 1, 1)),
+        ("basis pass, down 2560->640", dff, d, 160, (1, 1, 1, 1)),
+        ("client loop, up (augmented)", d, dff, 320, (1, 0, 1, 0)),
+        ("client loop, down (augmented)", dff, d, 320, (1, 0, 1, 0)),
+        ("basis pass, embedding (U[tok] S) I V^T", 160, d, 160, (1, 1, 0, 1)),
+        ("client loop, embedding (augmented)", 320, d, 320, (0, 1, 0, 0)),
+    ]
+    worst = 0.0
+    for what, K, N, R, need in cases:
+        x = torch.randn(M, K, generator=gen, device="cuda")
+        U = torch.linalg.qr(torch.randn(K, R, generator=gen, device="cuda"))[0]
+        S = torch.randn(R, R, generator=gen, device="cuda") / math.sqrt(R)
+        V = torch.linalg.qr(torch.randn(N, R, generator=gen, device="cuda"))[0]
+        dy = torch.randn(M, N, generator=gen, device="cuda")
+        grads = []
+        for use_kernels in (True, False):
+            ins = [t.clone().requires_grad_(bool(n)) for t, n in zip((x, U, S, V), need)]
+            y = lowrank_apply(*ins, use_kernels)
+            grads.append(torch.autograd.grad(y, [t for t in ins if t.requires_grad], dy))
+        torch.cuda.synchronize()
+        names = [n for n, k in zip(("dx", "dU", "dS", "dV"), need) if k]
+        for name, g, w in zip(names, *grads):
+            rel = ((g - w).abs().max() / w.abs().max()).item()
+            worst = max(worst, rel)
+            log(f"[backward] {what:40s} {name}: max|kernel - plain| / max|plain| = {rel:.3g}")
+            if not rel <= 1e-4:
+                raise AssertionError(f"backward {what} {name} differs by {rel} (> 1e-4 relative)")
+    log(f"[backward] ok: worst relative difference {worst:.3g} <= 1e-4 (f32 sums in "
+        f"another order)")
+
+
+def _clone(tree):
+    from repro_torch.utils.tree import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def _factors(params):
+    """(path, factor) of every factor leaf, the path as the round's rank keys."""
+    from repro_torch.core.factorization import is_factor
+    from repro_torch.utils.tree import tree_map_with_path
+
+    out = []
+    tree_map_with_path(lambda p, x: out.append((p, x)) if is_factor(x) else None,
+                       params, is_leaf=is_factor)
+    return out
+
+
+def expected_launches(params, cfg):
+    """Kernel launches one FeDLRT round makes, from the model's factors.
+
+    Per factor slice, a forward is 1 ``xus`` + 1 ``avt``. The backward of a
+    linear layer in the basis-gradient pass (x, U, S, V all differentiated)
+    is 4 ``xus``, 1 ``avt``, 3 ``atb``; in the client loop (x and S̃) 3
+    ``xus``, 1 ``avt``, 1 ``atb``. The embedding runs the chain on
+    ``U[tok]`` with its S in the U slot: 2 ``xus``, 1 ``avt``, 2 ``atb`` in
+    the basis pass, plus 1 ``atb`` for the gather's backward into U
+    (``onehotᵀ · g``); 1 ``xus`` + 1 ``atb`` in the client loop. Each client
+    runs the basis pass once, s* client steps (one more with the full
+    correction) and, with ``eval_after``, one forward.
+    """
+    import math
+
+    n_emb = sum(math.prod(f.U.shape[:-2]) for p, f in _factors(params) if p == "['embed']")
+    n_lin = sum(math.prod(f.U.shape[:-2]) for p, f in _factors(params)) - n_emb
+    fwd = n_lin + n_emb
+    basis = dict(xus=fwd + 4 * n_lin + 2 * n_emb, avt=fwd + n_lin + n_emb,
+                 atb=3 * n_lin + 3 * n_emb)
+    step = dict(xus=fwd + 3 * n_lin + n_emb, avt=fwd + n_lin, atb=n_lin + n_emb)
+    steps = cfg.s_star + (1 if cfg.correction == "full" else 0)
+    C = cfg.num_clients
+    return {k: C * (basis[k] + steps * step[k] + (fwd if cfg.eval_after and k != "atb" else 0))
+            for k in basis}, (n_lin, n_emb)
+
+
+def train_atb_calls(params, cfg):
+    """(Ka, Kb) → ``atb`` launches of one FeDLRT round (as counted in
+    :func:`expected_launches`)."""
+    import math
+
+    calls = {}
+
+    def add(key, n):
+        calls[key] = calls.get(key, 0) + n
+
+    C, steps = cfg.num_clients, cfg.s_star + (1 if cfg.correction == "full" else 0)
+    for path, f in _factors(params):
+        n, r = math.prod(f.U.shape[:-2]), f.r_max
+        if path == "['embed']":
+            add((r, r), C * n)  # dU slot (the coefficient)
+            add((f.n_out, r), C * n)  # dV
+            add((f.n_in, r), C * n)  # the gather's backward into U: onehotᵀ g
+        else:
+            add((r, r), C * n)  # dS
+            add((f.n_in, r), C * n)  # dU
+            add((f.n_out, r), C * n)  # dV
+        add((2 * r, 2 * r), C * steps * n)  # dS̃ (embedding: its dU slot)
+    return calls
+
+
+def _launch_counts():
+    from repro_torch.kernels.coeff_grad import atb
+    from repro_torch.kernels.lowrank_matmul import avt, xus
+
+    return {"xus": xus.launches, "avt": avt.launches, "atb": atb.launches}
+
+
+def _zero_counts():
+    from repro_torch.kernels.coeff_grad import atb
+    from repro_torch.kernels.lowrank_matmul import avt, xus
+
+    xus.launches = avt.launches = atb.launches = 0
+
+
+def profile_round(torch, exp, wall: float):
+    """Where one more FeDLRT round of ``exp`` spends the card's time, under
+    ``torch.profiler``. Device busy time is the union of the kernels'
+    intervals, read against ``wall``, an unprofiled round's host time; the
+    breakdown sums each kernel name's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exp.run(rounds=1, log_every=0)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            start, end = e.time_range.start, e.time_range.end
+            spans.append((start, end))
+            by_name[e.name] = by_name.get(e.name, 0.0) + (end - start)
+    busy, reach = 0.0, float("-inf")  # length of the union of the intervals (µs)
+    for start, end in sorted(spans):
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    busy_s = busy / 1e6
+    log(f"[profile] one round: host wall {wall:.3f} s unprofiled ({wall_prof:.3f} s under the "
+        f"profiler); {len(spans)} kernels, device busy {busy_s:.3f} s = "
+        f"{100 * busy_s / wall:.1f} % of the unprofiled round (idle {100 * (1 - busy_s / wall):.1f} %)")
+    total = sum(by_name.values()) or 1.0
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        log(f"[profile] {us / 1e3:9.3f} ms  {100 * us / total:5.1f} %  {name[:110]}")
+    return dict(wall_s=wall, device_busy_s=busy_s, kernels=len(spans))
+
+
+def phase_train(torch, counters):
+    """llm-100m at full width and depth, f32: three FeDLRT rounds through
+    ``build(spec).run()`` with the spec defaults (fedlrt, simplified
+    correction, 4 clients, s* = 4, batch 4, seq 128, kernels auto), one
+    more under ``torch.profiler`` (where the round's device time goes);
+    then one round from the same start with kernels off, and the first
+    round again."""
+    import numpy as np
+
+    from repro_torch.api import ExperimentSpec, ModelSpec, build
+    from repro_torch.core.factorization import materialize
+    from repro_torch.utils.tree import tree_leaves
+
+    spec = ExperimentSpec(name="chip-train-llm-100m", seed=0, rounds=3, log_every=1,
+                          model=ModelSpec(preset="llm-100m"))
+    t0 = time.perf_counter()
+    exp = build(spec, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[train] built in {time.perf_counter() - t0:.1f} s")
+    log(exp.describe())
+    cfg = exp.engine.cfg
+    params0 = _clone(exp.params)
+    want, (n_lin, n_emb) = expected_launches(params0, cfg)
+    dense_elems = sum(
+        f.n_in * f.n_out * math.prod(f.U.shape[:-2]) for _, f in _factors(params0)
+    ) + sum(
+        t.numel() for t in tree_leaves(params0)
+    ) - sum(sum(t.numel() for t in (f.U, f.S, f.V, f.rank)) for _, f in _factors(params0))
+    fedavg_bytes = 2 * dense_elems * 4  # cost_model.dense_round_comm_bytes of the dense model
+    log(f"[train] {n_lin} linear factor slices + {n_emb} embedding; expected launches per "
+        f"round: {want} (C={cfg.num_clients}, s*={cfg.s_star}, correction={cfg.correction}, "
+        f"eval_after={cfg.eval_after})")
+
+    rounds, params_r1 = [], None
+    # the main path: counts at 0 just before, read just after
+    _zero_counts()
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    for r in range(spec.rounds):
+        before = _launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = exp.run(rounds=1)[-1]
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in _launch_counts().items()}
+        ranks = np.concatenate([np.ravel(v) for v in res.ranks.values()])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not (math.isfinite(res.loss_before) and math.isfinite(res.loss_after)):
+            raise AssertionError(f"round {r}: non-finite loss {res.loss_before} / {res.loss_after}")
+        if got != want:
+            raise AssertionError(f"round {r}: launches {got}, expected {want}")
+        log(f"[train] round {r}: loss_before {res.loss_before:.6f} loss_after "
+            f"{res.loss_after:.6f}; rank min/mean/max {ranks.min():.0f}/{ranks.mean():.2f}/"
+            f"{ranks.max():.0f} over {ranks.size} factor slices; host {res.seconds:.3f} s; "
+            f"comm per client static {res.comm_bytes_per_client / 1e6:.3f} MB, effective "
+            f"{res.comm_bytes_per_client_effective / 1e6:.3f} MB, FedAvg dense "
+            f"{fedavg_bytes / 1e6:.3f} MB; peak {peak:.2f} GiB; launches {got} = expected")
+        rounds.append(dict(loss_before=res.loss_before, loss_after=res.loss_after,
+                           rank_min=float(ranks.min()), rank_mean=float(ranks.mean()),
+                           rank_max=float(ranks.max()), host_s=res.seconds,
+                           comm_static_bytes=res.comm_bytes_per_client,
+                           comm_effective_bytes=res.comm_bytes_per_client_effective,
+                           fedavg_dense_bytes=fedavg_bytes, peak_gib=peak, launches=got))
+        if r == 0:
+            params_r1 = _clone(exp.params)
+            ranks_r1 = {k: np.asarray(v) for k, v in res.ranks.items()}
+    path_s = time.perf_counter() - t_path
+    counters["train"] = _launch_counts()
+    log(f"[train] {spec.rounds} rounds in {path_s:.1f} s; launches {counters['train']}")
+    profile = profile_round(torch, exp, rounds[-1]["host_s"])
+    del exp
+    torch.cuda.empty_cache()
+
+    # one round from the same start on the plain chain (kernels off)
+    off_spec = dataclasses.replace(spec, name="chip-train-off",
+                                   model=ModelSpec(preset="llm-100m", kernels="off"))
+    exp_off = build(off_spec, params=_clone(params0), device="cuda")
+    _zero_counts()
+    res_off = exp_off.run(rounds=1, log_every=0)[-1]
+    torch.cuda.synchronize()
+    if any(_launch_counts().values()):
+        raise AssertionError(f"kernels='off' launched kernels: {_launch_counts()}")
+    r0 = rounds[0]
+    for name in ("loss_before", "loss_after"):
+        a, b = r0[name], getattr(res_off, name)
+        rel = abs(a - b) / abs(b)
+        log(f"[train] kernels vs off, round 0 {name}: {a:.7f} vs {b:.7f} (rel {rel:.3g})")
+        if not rel <= 1e-4:
+            raise AssertionError(f"{name} differs between kernels and off by {rel} (> 1e-4)")
+    for k, v in res_off.ranks.items():
+        if not np.array_equal(np.asarray(v), ranks_r1[k]):
+            raise AssertionError(f"rank of {k} differs: kernels {ranks_r1[k]} vs off {v}")
+    worst = 0.0
+    for (path, f), (_, g) in zip(_factors(params_r1), _factors(exp_off.params)):
+        W, W_off = materialize(f), materialize(g)
+        rel = ((W - W_off).abs().max() / W_off.abs().max()).item()
+        worst = max(worst, rel)
+        if not rel <= 1e-3:
+            raise AssertionError(f"{path}: U S V^T differs between kernels and off by {rel}")
+    log(f"[train] kernels vs off: ranks identical; worst factor max|W - W_off| / max|W_off| "
+        f"= {worst:.3g} <= 1e-3")
+    del exp_off
+    torch.cuda.empty_cache()
+
+    # the first round again, kernels on: the same bits
+    exp_rep = build(spec, params=_clone(params0), device="cuda")
+    exp_rep.run(rounds=1, log_every=0)
+    torch.cuda.synchronize()
+    a_leaves, b_leaves = tree_leaves(params_r1), tree_leaves(exp_rep.params)
+    same = len(a_leaves) == len(b_leaves) and all(
+        torch.equal(a, b) for a, b in zip(a_leaves, b_leaves)
+    )
+    if not same:
+        n_diff = sum(not torch.equal(a, b) for a, b in zip(a_leaves, b_leaves))
+        raise AssertionError(f"repeat of round 0 is not bit-identical ({n_diff} tensors differ)")
+    log(f"[train] repeat of round 0: all {len(a_leaves)} tensors bit-identical (torch.equal)")
+    del exp_rep
+    torch.cuda.empty_cache()
+    return dict(rounds=rounds, path_s=path_s, profile=profile,
+                atb_calls=train_atb_calls(params0, cfg))
+
+
+def kernel_summary(records, atb_records, counters, cfg, atb_calls):
+    """Per kernel: ``xus``/``avt`` as the sum over one Qwen2-7B decode
+    step's launches (M = 4) of each measured number; ``atb`` as the sum over
+    one llm-100m FeDLRT round's launches (M = 512, f32). ``launches`` is
+    the count over the serve and train runs; the worst error is over every
+    checked case."""
     calls = decode_step_calls(cfg)
     out = []
     for name in ("xus", "avt"):
@@ -449,13 +843,31 @@ def kernel_summary(records, counters, cfg):
                 tot[k] += n * rec[k]
             bound_by.add(rec["bound_by"])
         out.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": counters[name],
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": counters["serve"][name] + counters["train"][name],
+            "launches_by_path": {p: counters[p][name] for p in ("serve", "train")},
             "max_abs_err": max(r["max_abs_err"] for r in records if r["kernel"] == name),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
-            "library_ms": tot["library_ms"],
+            "library_ms": tot["library_ms"], "unit": "one Qwen2-7B decode step (bf16, M=4)",
         })
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    bound_by = set()
+    for (Ka, Kb), n in atb_calls.items():
+        [rec] = [r for r in atb_records if (r["model"], r["dtype"], r["M"], r["Ka"], r["Kb"])
+                 == ("llm-100m", "float32", 512, Ka, Kb)]
+        for k in tot:
+            tot[k] += n * rec[k]
+        bound_by.add(rec["bound_by"])
+    out.append({
+        "name": "atb", "route": "cuda", "source": SOURCES["atb"], "replaces": REPLACES["atb"],
+        "launches": counters["serve"]["atb"] + counters["train"]["atb"],
+        "launches_by_path": {p: counters[p]["atb"] for p in ("serve", "train")},
+        "max_abs_err": max(r["max_abs_err"] for r in atb_records),
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
+        "library_ms": tot["library_ms"], "unit": "one llm-100m FeDLRT round (f32, M=512)",
+    })
     return out
 
 
@@ -470,16 +882,30 @@ def main() -> int:
 
     cfg = get_config("qwen2-7b")
     t_start = time.perf_counter()
+
+    def done(phase):
+        torch.cuda.empty_cache()
+        log(f"[time] {phase} phase done at {time.perf_counter() - t_start:.1f} s")
+
     smi = phase_environment(torch)
+    done("build")
     records = phase_kernels(torch, cfg)
-    log(f"[time] kernels phase done at {time.perf_counter() - t_start:.1f} s")
+    done("kernels")
+    atb_records = phase_atb(torch)
+    done("atb")
+    phase_backward(torch)
+    done("backward")
     phase_f32_check(torch)
-    log(f"[time] f32 phase done at {time.perf_counter() - t_start:.1f} s")
+    done("f32")
     counters = {}
     serve_stats = phase_serve(torch, counters)
-    log(f"[time] serve phase done at {time.perf_counter() - t_start:.1f} s")
-    log("[summary] " + json.dumps({"card": smi, **serve_stats}))
-    print(json.dumps({"kernels": kernel_summary(records, counters, cfg)}))
+    done("serve")
+    train = phase_train(torch, counters)
+    done("train")
+    log("[summary] " + json.dumps({"card": smi, "serve": serve_stats, "train": {
+        k: v for k, v in train.items() if k != "atb_calls"}}))
+    print(json.dumps({"kernels": kernel_summary(
+        records, atb_records, counters, cfg, train["atb_calls"])}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

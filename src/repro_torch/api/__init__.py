@@ -1,4 +1,19 @@
-"""The port's serving API: specs and ``serve(spec, device=...)``."""
-from repro_torch.api.experiment import ServeSession, resolve_device, serve  # noqa: F401
-from repro_torch.api.spec import ExperimentSpec, ModelSpec, ServeSpec  # noqa: F401
-from repro_torch.api.tasks import PRESETS, lm_model_config  # noqa: F401
+"""The port's experiment API: specs, ``build(spec, device=...)`` for
+training and ``serve(spec, device=...)`` for serving."""
+from repro_torch.api.experiment import (  # noqa: F401
+    Experiment,
+    ServeSession,
+    build,
+    resolve_device,
+    serve,
+)
+from repro_torch.api.spec import (  # noqa: F401
+    DataSpec,
+    EngineSpec,
+    ExperimentSpec,
+    FedSpec,
+    ModelSpec,
+    ParticipationSpec,
+    ServeSpec,
+)
+from repro_torch.api.tasks import PRESETS, lm_model_config, register_task  # noqa: F401

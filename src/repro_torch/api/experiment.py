@@ -1,5 +1,9 @@
-"""``serve(spec) → ServeSession``: the one place the port's serving stack is
-constructed (the serving half of the JAX package's ``repro.api.experiment``).
+"""``build(spec) → Experiment`` and ``serve(spec) → ServeSession``: the one
+place the port's training engine and serving stack are constructed (the
+JAX package's ``repro.api.experiment``).
+
+Both run on the card (``device="cuda"``) unless the caller asks for the
+CPU; asking for CUDA without a card raises.
 """
 from __future__ import annotations
 
@@ -12,10 +16,12 @@ import numpy as np
 import torch
 
 from repro_torch.api.spec import ExperimentSpec
-from repro_torch.api.tasks import lm_model_config
+from repro_torch.api.tasks import Task, build_task, lm_model_config
 from repro_torch.checkpoint import load_checkpoint
+from repro_torch.fed.engine import FederatedEngine
 from repro_torch.models import build_model
 from repro_torch.serve import ContinuousScheduler, Request, ServeEngine
+from repro_torch.utils.tree import tree_map
 
 
 def resolve_device(device) -> torch.device:
@@ -32,6 +38,89 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def build(spec: ExperimentSpec, *, params=None, device="cuda", telemetry=None) -> "Experiment":
+    """Resolve a validated spec into a runnable :class:`Experiment` on
+    ``device``. ``params`` (optional) replaces the task's fresh
+    initialization, e.g. parameters carried over from the JAX package by
+    :func:`repro_torch.checkpoint.params_from_numpy`; they are moved to
+    ``device``."""
+    dev = resolve_device(device)
+    task = build_task(spec, dev)
+    if params is not None:
+        task = dataclasses.replace(task, params=tree_map(lambda t: t.to(dev), params))
+    # repro-lint: disable=RPL001 -- this is the port's build() seam, the
+    # twin of repro.api.experiment.build(); the lint's path rules only know
+    # the JAX package's own tree, so the sanctioned home needs saying here
+    engine = FederatedEngine(
+        task.loss_fn, task.params, spec.fed.to_fed_config(),
+        method=spec.fed.method,
+        participation=spec.participation.build(seed=spec.seed),
+        client_weights=task.client_sizes if spec.fed.weighted else None,
+        telemetry=telemetry,
+    )
+    return Experiment(spec=spec, task=task, engine=engine, hub=telemetry)
+
+
+@dataclasses.dataclass
+class Experiment:
+    """A built experiment: spec + task + engine, ready to run.
+
+    ``run()`` trains ``spec.rounds`` rounds (overridable) and returns the
+    engine's round history; ``evaluate()`` is the task's holdout metric;
+    ``describe()`` renders the scenario for humans.
+    """
+
+    spec: ExperimentSpec
+    task: Task
+    engine: FederatedEngine
+    hub: Optional[object] = None
+
+    @property
+    def params(self):
+        return self.engine.params
+
+    @property
+    def history(self) -> List:
+        return self.engine.history
+
+    def run(self, rounds: Optional[int] = None, *, log_every: Optional[int] = None):
+        """Train ``rounds`` (default ``spec.rounds``) aggregation rounds."""
+        n = self.spec.rounds if rounds is None else rounds
+        le = self.spec.log_every if log_every is None else log_every
+        try:
+            return self.engine.train(self.task.batcher, n, log_every=le)
+        finally:
+            if self.hub is not None:
+                self.hub.flush()
+
+    def evaluate(self) -> float:
+        """The task's holdout metric (accuracy) on the current params."""
+        if self.task.eval_fn is None:
+            raise ValueError(f"the {self.spec.model.kind!r} task defines no holdout eval")
+        return self.task.eval_fn(self.engine.params)
+
+    def comm_total_bytes(self) -> float:
+        return self.engine.comm_total_bytes()
+
+    def describe(self) -> str:
+        s = self.spec
+        return "\n".join([
+            f"experiment {s.name or '(unnamed)'}  [device {self.engine.device}]",
+            f"  task           {s.model.kind}: {self.task.description}"
+            + f"  kernels={s.model.kernels}",
+            f"  fed            {s.fed.method}"
+            + (f"/{s.fed.correction_effective}" if s.fed.method.startswith("fedlrt") else "")
+            + f"  C={s.fed.clients}  s*={s.fed.s_star}  lr={s.fed.lr:g}  tau={s.fed.tau:g}"
+            + ("  weighted" if s.fed.weighted else ""),
+            f"  participation  {s.participation.to_string()}",
+            f"  engine         {s.engine.kind}",
+            f"  data           batch={s.data.batch}"
+            + (f"  seq={s.data.seq}" if s.model.kind == "lm" else "")
+            + f"  partition={s.data.partition}",
+            f"  rounds         {s.rounds}  (seed {s.seed})",
+        ])
+
+
 def serve(spec: ExperimentSpec, *, params=None, device="cuda", telemetry=None) -> "ServeSession":
     """Resolve a spec into a running :class:`ServeSession` on ``device``.
 
@@ -40,6 +129,11 @@ def serve(spec: ExperimentSpec, *, params=None, device="cuda", telemetry=None) -
     file written by the JAX package, or a directory whose latest round
     wins), or fresh initialization from ``spec.seed`` (smoke runs).
     """
+    if spec.model.kind != "lm":
+        raise ValueError(
+            f"serving decodes tokens; model.kind={spec.model.kind!r} has no "
+            f"decode path (use kind='lm')"
+        )
     dev = resolve_device(device)
     cfg = lm_model_config(spec.model)
     model = build_model(cfg)

@@ -5,7 +5,10 @@ joins nested keys with ``|`` (``"blocks|pos0|attn|q@U"``) and puts a JSON
 ``__meta__`` beside them. :func:`params_from_numpy` turns such a flat dict
 of numpy arrays into the port's tree of tensors and
 :class:`~repro_torch.core.factorization.LowRankFactor` leaves, so a model
-the JAX engine trained serves in the port.
+the JAX engine trained serves or trains on in the port. It takes the trees
+of all three tasks: the ``lm`` model's nested dict, the ``mlp`` head's
+``{"w1": factor, "b1", "w2", "b2"}``, and the ``lsq`` task's bare root
+factor (keys ``"@U"``, …) or bare dense matrix (key ``""``).
 """
 from __future__ import annotations
 
@@ -68,7 +71,7 @@ def params_from_numpy(flat: Dict[str, np.ndarray], device, dtype: Optional[torch
             V=_tensor(fields["V"], device, dtype),
             rank=_tensor(fields["rank"], device, torch.float32),
         ))
-    if set(tree) == {""}:  # bare root-level leaf (e.g. a single factor)
+    if set(tree) == {""}:  # bare root-level leaf (the lsq task's factor or matrix)
         return tree[""]
     return tree
 

@@ -1,0 +1,185 @@
+"""Dynamical low-rank (BUG splitting) primitives: augment and truncate —
+the server side of FeDLRT (paper §3.1), the JAX package's
+``repro.core.dlrt`` in PyTorch.
+
+- :func:`augment_basis`: Eq. (6). Orthonormalize ``[Uᵗ | G_U]`` /
+  ``[Vᵗ | G_V]`` and assemble ``S̃ = [[Sᵗ, 0], [0, 0]]`` (Lemma 1: no
+  projection product is needed).
+- :func:`truncate`: automatic compression. A ``2r × 2r`` SVD of the
+  aggregated coefficient, the rank chosen by the singular-value tail
+  ``‖[σ_{r₁}, …, σ_{2r}]‖₂ < ϑ``, the bases rotated by the singular vectors.
+
+Cholesky, the triangular solve, QR and SVD are ``torch.linalg`` calls, as
+the JAX package runs them outside any Pallas kernel. QR and SVD leave the
+signs of basis vectors free, so results agree with the JAX package's on
+spans, on ``U S Vᵀ``, on σ and on the chosen rank, not on raw bases.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.factorization import (
+    AugmentedFactor,
+    LowRankFactor,
+    augmented_mask,
+    mask_coeff,
+    rank_mask,
+)
+
+
+def _mT(a: torch.Tensor) -> torch.Tensor:
+    return a.transpose(-1, -2)
+
+
+def qr_pos(a: torch.Tensor) -> torch.Tensor:
+    """QR with the sign convention ``diag(R) ≥ 0`` (batched over leading dims).
+
+    When the leading columns of ``a`` are already orthonormal (as in
+    ``[Uᵗ | G_U]``), ``Q``'s leading columns then equal them up to roundoff,
+    not up to a sign, which is what makes Lemma 1 (``S̃`` without a
+    projection) valid.
+    """
+    q, r = torch.linalg.qr(a)
+    d = torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))
+    d = torch.where(d == 0, torch.ones_like(d), d).to(q.dtype)
+    return q * d[..., None, :]
+
+
+def _ortho_complement_cholqr2(U: torch.Tensor, G: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Orthonormalize ``G`` against the orthonormal ``U`` by CholeskyQR2.
+
+    The left block is already orthonormal, so the span of ``qr([U | G])`` is
+    had by projecting ``G`` off ``U`` and running CholeskyQR twice: batched
+    products and an ``r × r`` Cholesky. ``Q L⁻ᵀ`` uses an explicit
+    triangular inverse (a solve against the identity) and a product, as the
+    JAX package does.
+
+    A severely rank-deficient block can make the Cholesky fail. JAX then
+    returns a NaN factor; ``cholesky_ex`` does not raise, and its failed
+    batch members are set to NaN here so that both packages take the same
+    path: every non-finite column is zeroed, and a zero basis column is
+    inert in ``Ũ S̃ Ṽᵀ``.
+    """
+
+    def once(Q):
+        Q = Q - U @ (_mT(U) @ Q)
+        C = _mT(Q) @ Q
+        eye = torch.eye(C.shape[-1], dtype=C.dtype, device=C.device)
+        C = C + eps * eye
+        L, info = torch.linalg.cholesky_ex(C)
+        L = torch.where((info != 0)[..., None, None], torch.full_like(L, float("nan")), L)
+        L_inv = torch.linalg.solve_triangular(L, eye.expand(C.shape), upper=False, left=True)
+        return Q @ _mT(L_inv)
+
+    def finite(Q):
+        return torch.where(torch.isfinite(Q), Q, torch.zeros_like(Q))
+
+    return finite(once(finite(once(G))))
+
+
+def augment_basis(
+    f: LowRankFactor, G_U: torch.Tensor, G_V: torch.Tensor, *, method: str = "cholqr2"
+) -> AugmentedFactor:
+    """Paper Eq. (6) + Lemma 1: ``Ũ = qr([Uᵗ | G_U])`` (and likewise for V).
+
+    The gradient block is masked to the active rank first and normalized
+    (the span does not change). ``method``: ``"cholqr2"`` (default,
+    :func:`_ortho_complement_cholqr2`) or ``"householder"`` (the paper's
+    QR). Returns the augmented factor with ``S̃ = [[Sᵗ, 0], [0, 0]]``.
+    """
+    r_max = f.r_max
+    if 2 * r_max > min(f.n_in, f.n_out):
+        raise ValueError(
+            f"augmentation needs 2*r_max <= min(n_in, n_out); got r_max={r_max} "
+            f"for a {f.n_in}x{f.n_out} layer (init_factor caps this)"
+        )
+    m = rank_mask(f.rank, r_max)
+    gu = G_U.float() * m[..., None, :]
+    gv = G_V.float() * m[..., None, :]
+    gu = gu / (torch.linalg.norm(gu, dim=(-2, -1), keepdim=True) + 1e-12)
+    gv = gv / (torch.linalg.norm(gv, dim=(-2, -1), keepdim=True) + 1e-12)
+    U32, V32 = f.U.float(), f.V.float()
+    if method == "cholqr2":
+        # inactive columns come out (numerically) zero; mask exactly
+        ubar = _ortho_complement_cholqr2(U32, gu) * m[..., None, :]
+        vbar = _ortho_complement_cholqr2(V32, gv) * m[..., None, :]
+        U_t = torch.cat([U32, ubar], dim=-1)
+        V_t = torch.cat([V32, vbar], dim=-1)
+    elif method == "householder":
+        am = augmented_mask(f.rank, r_max)
+        U_t = qr_pos(torch.cat([U32, gu], dim=-1)) * am[..., None, :]
+        V_t = qr_pos(torch.cat([V32, gv], dim=-1)) * am[..., None, :]
+    else:
+        raise ValueError(method)
+    S_t = torch.zeros(
+        f.S.shape[:-2] + (2 * r_max, 2 * r_max), dtype=f.S.dtype, device=f.S.device
+    )
+    S_t[..., :r_max, :r_max] = f.S
+    return AugmentedFactor(U=U_t.to(f.U.dtype), S=S_t, V=V_t.to(f.V.dtype), rank=f.rank)
+
+
+def coeff_grad_mask(f: AugmentedFactor) -> torch.Tensor:
+    """Mask restricting coefficient updates to the paper's 2r active directions."""
+    return augmented_mask(f.rank, f.r_max, dtype=f.S.dtype)
+
+
+def pick_rank(sigma: torch.Tensor, theta, r_max: int) -> torch.Tensor:
+    """Smallest ``r₁`` with ``‖σ[r₁:]‖₂ < ϑ``, clipped to ``[1, r_max]``
+    (float32). ``sigma`` is descending, batched over leading dims, with
+    ``theta`` broadcasting accordingly."""
+    tail_sq = torch.flip(torch.cumsum(torch.flip(torch.square(sigma), [-1]), -1), [-1])
+    theta = torch.as_tensor(theta, dtype=sigma.dtype, device=sigma.device)
+    ok = tail_sq < torch.square(theta)[..., None]
+    first = torch.argmax(ok.to(torch.int8), dim=-1)  # first True
+    r1 = torch.where(ok.any(dim=-1), first, torch.full_like(first, sigma.shape[-1]))
+    return torch.clamp(r1, 1, r_max).to(torch.float32)
+
+
+def truncate(
+    f: AugmentedFactor, *, tau: float, theta_abs: Optional[float] = None
+) -> Tuple[LowRankFactor, dict]:
+    """Automatic compression (paper §3.1, rank truncation).
+
+    ``ϑ = τ·‖S̃*‖_F`` unless an absolute ``theta_abs`` is given. The SVD
+    runs on the ``2r_max × 2r_max`` coefficient only; the weight matrix is
+    never formed. Columns past the new rank are zeroed.
+    """
+    r_max = f.r_max
+    S32 = f.S.float()
+    P, sigma, Qt = torch.linalg.svd(S32, full_matrices=False)
+    if theta_abs is not None:
+        theta = torch.full(S32.shape[:-2], float(theta_abs), device=S32.device)
+    else:
+        theta = tau * torch.linalg.norm(S32, dim=(-2, -1))
+    r1 = pick_rank(sigma, theta, r_max)
+    keep = rank_mask(r1, r_max)
+    U_new = (f.U @ P[..., :, :r_max].to(f.U.dtype)) * keep[..., None, :]
+    V_new = (f.V @ _mT(Qt[..., :r_max, :]).to(f.V.dtype)) * keep[..., None, :]
+    diag_vals = sigma[..., :r_max] * keep
+    eye = torch.eye(r_max, dtype=torch.float32, device=S32.device)
+    S_new = (eye * diag_vals[..., None, :]).to(f.S.dtype)
+    out = LowRankFactor(U=U_new, S=S_new, V=V_new, rank=r1)
+    trunc_err = torch.sqrt(torch.clamp(
+        torch.sum(torch.square(sigma), -1) - torch.sum(torch.square(diag_vals), -1), min=0.0
+    ))
+    info = {"rank": r1, "trunc_err": trunc_err, "theta": theta, "sigma_max": sigma[..., 0]}
+    return out, info
+
+
+def bug_round_dense_loss(loss_fn, f: LowRankFactor, *, lr: float, tau: float):
+    """One non-federated rank-adaptive BUG step (Schotthöfer et al. '22):
+    basis-gradient augmentation, one Galerkin coefficient step, truncation.
+    The tests' cross-check of the federated scheme in the C = 1 limit."""
+    U, V = (t.detach().requires_grad_(True) for t in (f.U, f.V))
+    gU, gV = torch.autograd.grad(
+        loss_fn(LowRankFactor(U=U, S=f.S, V=V, rank=f.rank)), (U, V)
+    )
+    aug = augment_basis(f, gU, gV)
+    S_aug = aug.S.detach().requires_grad_(True)
+    (gS,) = torch.autograd.grad(
+        loss_fn(AugmentedFactor(U=aug.U, S=S_aug, V=aug.V, rank=aug.rank)), (S_aug,)
+    )
+    S_star = aug.S - lr * mask_coeff(gS, coeff_grad_mask(aug))
+    return truncate(AugmentedFactor(U=aug.U, S=S_star, V=aug.V, rank=aug.rank), tau=tau)

@@ -10,6 +10,11 @@ makes every operation exact under that padding is the JAX package's:
 
 Stacked factors (layer stacks) carry leading dims on every field, as in the
 JAX package, so parameters carry across as plain copies.
+
+Between basis augmentation and truncation a factor is an
+:class:`AugmentedFactor` of width ``2·r_max``, whose active directions are
+``[0, r) ∪ [r_max, r_max + r)`` (:func:`augmented_mask`). ``rank`` is a
+float32 tensor that never takes part in differentiation.
 """
 from __future__ import annotations
 
@@ -45,8 +50,40 @@ class LowRankFactor:
         return LowRankFactor(U=self.U[i], S=self.S[i], V=self.V[i], rank=self.rank[i])
 
 
+@dataclasses.dataclass
+class AugmentedFactor:
+    """Augmented state between basis augmentation and truncation.
+
+    ``U, V`` are ``(..., n, 2·r_max)``, ``S`` is ``(..., 2·r_max, 2·r_max)``.
+    The active directions are ``[0, r) ∪ [r_max, r_max + r)`` with ``r`` the
+    pre-augmentation rank: the original basis columns, then the
+    orthonormalized basis-gradient columns (rank r → 2r, paper Eq. (6)).
+    """
+
+    U: torch.Tensor
+    S: torch.Tensor
+    V: torch.Tensor
+    rank: torch.Tensor  # pre-augmentation rank
+
+    @property
+    def r_max(self) -> int:
+        return self.U.shape[-1] // 2
+
+    @property
+    def n_in(self) -> int:
+        return self.U.shape[-2]
+
+    @property
+    def n_out(self) -> int:
+        return self.V.shape[-2]
+
+    def __getitem__(self, i) -> "AugmentedFactor":
+        """One member of a stacked factor (a view)."""
+        return AugmentedFactor(U=self.U[i], S=self.S[i], V=self.V[i], rank=self.rank[i])
+
+
 def is_factor(x) -> bool:
-    return isinstance(x, LowRankFactor)
+    return isinstance(x, (LowRankFactor, AugmentedFactor))
 
 
 def rank_mask(rank: torch.Tensor, width: int, dtype=torch.float32) -> torch.Tensor:
@@ -56,13 +93,31 @@ def rank_mask(rank: torch.Tensor, width: int, dtype=torch.float32) -> torch.Tens
     return (i < rank[..., None]).to(dtype)
 
 
-def materialize(f: LowRankFactor) -> torch.Tensor:
+def augmented_mask(rank: torch.Tensor, r_max: int, dtype=torch.float32) -> torch.Tensor:
+    """Active-direction mask of the augmented basis, last dim ``2·r_max``:
+    the first ``rank`` original columns plus the first ``rank`` gradient
+    columns (which start at offset ``r_max``). Batched over ``rank``."""
+    rank = torch.as_tensor(rank)
+    i = torch.arange(2 * r_max, device=rank.device)
+    r = rank[..., None]
+    active = (i < r) | ((i >= r_max) & (i < r_max + r))
+    return active.to(dtype)
+
+
+def mask_coeff(S: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Zero S outside the active block: ``m ⊙ S ⊙ mᵀ`` (batched over ...)."""
+    return S * mask[..., :, None] * mask[..., None, :]
+
+
+def materialize(f) -> torch.Tensor:
     """The full ``n_in × n_out`` matrix (tests / tiny layers only)."""
     return torch.einsum("...ir,...rs,...js->...ij", f.U, f.S, f.V)
 
 
-def lr_matmul(x: torch.Tensor, f: LowRankFactor, *, kernels: str = "off") -> torch.Tensor:
-    """``y = x @ (U S Vᵀ)`` through the rank bottleneck; ``kernels``
+def lr_matmul(x: torch.Tensor, f, *, kernels: str = "off") -> torch.Tensor:
+    """``y = x @ (U S Vᵀ)`` through the rank bottleneck, for a
+    :class:`LowRankFactor` or an :class:`AugmentedFactor` (whose zero
+    inactive columns keep the chain equal to the masked one); ``kernels``
     ("auto" | "off") routes it through the kernel chain."""
     if kernels != "off":
         from repro_torch.kernels.ops import lowrank_apply_nd, use_kernels_for
@@ -124,3 +179,42 @@ def init_factor(
     rank = torch.full(tuple(batch_shape), float(init_rank), device=dev)
     # zero-columns invariant: inactive basis columns are exactly zero
     return LowRankFactor(U=U * m.to(dtype), S=S, V=V * m.to(dtype), rank=rank)
+
+
+def lr_rowlookup(idx: torch.Tensor, f: LowRankFactor, *, out_dtype=None) -> torch.Tensor:
+    """Row lookup ``W[idx, :]`` of a factorized table: a gather of the
+    ``r``-wide rows of U and two small products; the ``vocab × d`` table is
+    never formed."""
+    out = (f.U[idx] @ f.S) @ f.V.transpose(-1, -2)
+    return out.to(out_dtype) if out_dtype is not None else out
+
+
+def factor_param_count(f: LowRankFactor) -> int:
+    """Static parameter count of the communicated / stored factors."""
+    return f.U.numel() + f.S.numel() + f.V.numel()
+
+
+def effective_rank(f: LowRankFactor) -> torch.Tensor:
+    return f.rank
+
+
+def check_invariants(f: LowRankFactor, *, atol: float = 1e-4) -> dict:
+    """Diagnostics (tests): active-block orthonormality, zero inactive
+    columns, S-mask violation. Stacked factors report the max over the stack."""
+    m = rank_mask(f.rank, f.r_max)
+    eye = torch.eye(f.r_max, device=m.device)
+
+    def defect(B):
+        B = B.float()
+        gram = B.transpose(-1, -2) @ B
+        block = m[..., None, :] * m[..., :, None]
+        active_err = torch.linalg.norm((gram - eye * block) * block, dim=(-2, -1))
+        inactive_err = torch.linalg.norm(B * (1 - m)[..., None, :], dim=(-2, -1))
+        return torch.max(active_err + inactive_err)
+
+    s_violation = torch.linalg.norm(f.S - mask_coeff(f.S, m), dim=(-2, -1))
+    return {
+        "u_ortho_defect": defect(f.U),
+        "v_ortho_defect": defect(f.V),
+        "s_mask_violation": torch.max(s_violation),
+    }

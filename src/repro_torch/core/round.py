@@ -1,0 +1,338 @@
+"""Round programs: the shared skeleton of every federated aggregation round
+(the JAX package's ``repro.core.round``, in PyTorch).
+
+The paper's Algorithms 1–6 (FeDLRT full/simplified, FedAvg, FedLin, naive
+per-client low-rank) all run the same four phases::
+
+    broadcast   server-side prep at the shared point: global gradients,
+                basis augmentation, per-client correction terms
+    client_step one client's local work, run for each client of the cohort
+    aggregate   server reduction over the cohort (weighted mean)
+    finalize    truncation / metric assembly on the aggregated state
+
+:func:`run_round` executes any :class:`RoundProgram` through that skeleton.
+Where the JAX package ``vmap``s a phase over a leading client axis, the
+port loops over the clients in cohort order (``RoundContext.vmap_c``) and
+keeps the per-client results as a :class:`~repro_torch.utils.tree.Cohort`,
+one tree per client. Every aggregate is a weighted sum taken in that same
+order, so one card gives the same bits on every run.
+
+Gradients come from :func:`value_and_grad`: ``torch.autograd.grad`` over
+the floating tensor leaves of a parameter tree, a factor's ``U``, ``S``
+and ``V`` among them and never its ``rank``.
+
+The port has no wire layer yet (``fed/wire.py``, ROADMAP.md): the phase
+boundaries pass the payloads as they are.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Protocol, runtime_checkable
+
+import numpy as np
+import torch
+
+from repro_torch.core.factorization import is_factor
+from repro_torch.optim import make_optimizer
+from repro_torch.utils.tree import (
+    Cohort,
+    cohort_size,
+    cohort_slice,
+    tree_leaves,
+    tree_map,
+    tree_mean_leading_axis,
+)
+
+LossFn = Callable[[Any, Any], torch.Tensor]  # (params, batch) -> scalar
+
+
+@dataclasses.dataclass(frozen=True)
+class FedConfig:
+    """Hyperparameters of one federated optimization run.
+
+    ``num_clients`` is the size of the *active cohort* a round function
+    sees; with partial participation the engine rebuilds the config per
+    cohort size.
+    """
+
+    num_clients: int
+    s_star: int  # local iterations per round
+    lr: float = 1e-3
+    correction: str = "simplified"  # "none" | "simplified" | "full"
+    tau: float = 0.01  # relative singular-value truncation threshold
+    optimizer: str = "sgd"
+    momentum: float = 0.0
+    per_step_batches: bool = False  # batch leaves have a (C, s*, ...) layout
+    eval_after: bool = True  # compute the global loss after the round (extra fwd)
+    track_drift: bool = False  # record max_s ‖S̃_c^s − S̃‖ (Theorem-1 diagnostics)
+
+    def __post_init__(self):
+        if self.correction not in ("none", "simplified", "full"):
+            raise ValueError(
+                f"correction must be 'none', 'simplified' or 'full', "
+                f"got {self.correction!r}"
+            )
+        if self.num_clients <= 0:
+            raise ValueError(
+                f"num_clients must be a positive cohort size, got {self.num_clients}"
+            )
+        if self.s_star <= 0:
+            raise ValueError(
+                f"s_star (local iterations per round) must be positive, "
+                f"got {self.s_star}"
+            )
+        if self.lr <= 0:
+            raise ValueError(f"lr must be positive, got {self.lr}")
+        if not 0.0 <= self.tau < 1.0:
+            raise ValueError(
+                f"tau is a *relative* singular-value threshold and must lie "
+                f"in [0, 1), got {self.tau}"
+            )
+
+
+def vmap_c(fn: Callable, in_axes=0) -> Callable:
+    """The client "vmap": run ``fn`` once per client, in cohort order.
+
+    ``in_axes`` is ``0`` (every argument is per-client) or a tuple with
+    ``0`` for a per-client argument (a :class:`Cohort`, or a tree whose
+    leaves lead with the client axis, as batches do) and ``None`` for one
+    every client shares. Returns the results as a :class:`Cohort`.
+    """
+
+    def run(*args):
+        axes = (0,) * len(args) if in_axes == 0 else tuple(in_axes)
+        sliced = [a for a, ax in zip(args, axes) if ax == 0]
+        C = cohort_size(sliced[0])
+        return Cohort(
+            fn(*(cohort_slice(a, c) if ax == 0 else a for a, ax in zip(args, axes)))
+            for c in range(C)
+        )
+
+    return run
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundContext:
+    """Everything a phase needs beyond its own trees: ``aggregate`` reduces
+    a :class:`Cohort` to the server value (plain or ``client_weights``-
+    weighted mean), ``vmap_c`` runs a function per client."""
+
+    cfg: FedConfig
+    round_idx: int
+    aggregate: Callable[[Cohort], Any]
+    vmap_c: Callable = vmap_c
+    client_weights: Optional[np.ndarray] = None
+
+
+#: key under which ``broadcast`` stashes server-local state. Everything else
+#: in the shared dict is downlink payload, sent to every client.
+#: ``client_step`` never sees the server entry; ``aggregate``/``finalize``
+#: get the full shared dict.
+SERVER = "__server__"
+
+#: canonical phase names of a federated round, in execution order
+PHASES = ("broadcast", "client_step", "aggregate", "finalize")
+
+
+def split_server(shared):
+    """Split a broadcast ``shared`` dict into ``(downlink, server_state)``."""
+    if isinstance(shared, dict) and SERVER in shared:
+        return {k: v for k, v in shared.items() if k != SERVER}, shared[SERVER]
+    return shared, None
+
+
+@runtime_checkable
+class RoundProgram(Protocol):
+    """One federated algorithm, decomposed into the four round phases."""
+
+    def broadcast(self, loss_fn: LossFn, params, client_batches, ctx: RoundContext):
+        """Server-side prep. Returns ``(shared, per_client)``: ``shared`` is
+        sent to every client (server-only values under ``shared[SERVER]``),
+        ``per_client`` is a :class:`Cohort` (or None)."""
+        ...
+
+    def client_step(self, loss_fn: LossFn, shared, per_client, batches, ctx: RoundContext):
+        """One client's local work (``shared`` without its SERVER entry)."""
+        ...
+
+    def aggregate(self, shared, client_out, ctx: RoundContext):
+        """Server reduction over the cohort's client outputs."""
+        ...
+
+    def finalize(self, loss_fn: LossFn, params, shared, agg, client_batches, ctx: RoundContext):
+        """Post-aggregation server work. Returns ``(new_params, metrics)``."""
+        ...
+
+
+def make_aggregator(client_weights) -> Callable[[Cohort], Any]:
+    """Cohort reduction: plain mean, or the normalized ``w``-weighted sum
+    (the paper's §2 non-uniform |X_c| extension), taken in f32 in cohort
+    order and cast back to each leaf's dtype."""
+    if client_weights is None:
+        return tree_mean_leading_axis
+    w = np.asarray(client_weights, np.float32)
+    w = w / np.sum(w, dtype=np.float32)
+
+    def aggregate(cohort: Cohort):
+        if len(cohort) != len(w):
+            raise ValueError(f"{len(cohort)} client results for {len(w)} weights")
+
+        def wsum(*xs):
+            total = float(w[0]) * xs[0].float()
+            for wc, x in zip(w[1:], xs[1:]):
+                total = total + float(wc) * x.float()
+            return total.to(xs[0].dtype)
+
+        return tree_map(wsum, cohort[0], *cohort[1:])
+
+    return aggregate
+
+
+def make_context(cfg: FedConfig, *, round_idx: int = 0, client_weights=None) -> RoundContext:
+    return RoundContext(
+        cfg=cfg,
+        round_idx=int(round_idx),
+        aggregate=make_aggregator(client_weights),
+        client_weights=client_weights,
+    )
+
+
+def run_client_phases(program: RoundProgram, loss_fn: LossFn, params, client_batches,
+                      ctx: RoundContext):
+    """The data-plane half of a round: ``broadcast``, then ``client_step``
+    for each client. Returns ``(shared, client_out)``: the server-side
+    broadcast dict (SERVER entry intact) and the cohort's outputs."""
+    shared, per_client = program.broadcast(loss_fn, params, client_batches, ctx)
+    client_shared, _ = split_server(shared)
+    client_out = ctx.vmap_c(
+        lambda pc, b: program.client_step(loss_fn, client_shared, pc, b, ctx),
+        in_axes=(None if per_client is None else 0, 0),
+    )(per_client, client_batches)
+    return shared, client_out
+
+
+def run_round(program: RoundProgram, loss_fn: LossFn, params, client_batches, cfg: FedConfig,
+              *, round_idx: int = 0, client_weights=None):
+    """Execute one round of ``program``. Returns ``(new_params, metrics)``."""
+    ctx = make_context(cfg, round_idx=round_idx, client_weights=client_weights)
+    shared, client_out = run_client_phases(program, loss_fn, params, client_batches, ctx)
+    agg = program.aggregate(shared, client_out, ctx)
+    return program.finalize(loss_fn, params, shared, agg, client_batches, ctx)
+
+
+# ---------------------------------------------------------------------------
+# gradients over parameter trees
+# ---------------------------------------------------------------------------
+
+
+def _leaf(t) -> bool:
+    return torch.is_tensor(t) and t.is_floating_point()
+
+
+def value_and_grad(fn: Callable, tree, *args):
+    """``(fn(tree, *args), ∂fn/∂tree)`` by ``torch.autograd.grad``.
+
+    The differentiable leaves are the floating tensors of ``tree``; a
+    factor contributes ``U``, ``S`` and ``V``, and its ``rank`` gets a zero
+    cotangent without ever being a leaf of the graph. The gradient tree has
+    ``tree``'s structure. The value comes back detached.
+    """
+    leaves = []
+
+    def live(t):
+        t = t.detach().requires_grad_(True)
+        leaves.append(t)
+        return t
+
+    def make(x):
+        if is_factor(x):
+            return dataclasses.replace(x, U=live(x.U), S=live(x.S), V=live(x.V))
+        return live(x) if _leaf(x) else x
+
+    with torch.enable_grad():
+        tree_live = tree_map(make, tree, is_leaf=is_factor)
+        value = fn(tree_live, *args)
+        grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    it = iter(torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads))
+
+    def back(x):
+        if is_factor(x):
+            return dataclasses.replace(
+                x, U=next(it), S=next(it), V=next(it), rank=torch.zeros_like(x.rank)
+            )
+        return next(it) if _leaf(x) else x
+
+    return value.detach(), tree_map(back, tree, is_leaf=is_factor)
+
+
+def grad(fn: Callable, tree, *args):
+    return value_and_grad(fn, tree, *args)[1]
+
+
+# ---------------------------------------------------------------------------
+# shared building blocks
+# ---------------------------------------------------------------------------
+
+
+def first_step_batch(client_batches, cfg: FedConfig):
+    """The cohort's step-0 batch: ``x[:, 0]`` under the per-step layout."""
+    if cfg.per_step_batches:
+        return tree_map(lambda x: x[:, 0], client_batches)
+    return client_batches
+
+
+def last_step_batch(client_batches, cfg: FedConfig):
+    if cfg.per_step_batches:
+        return tree_map(lambda x: x[:, -1], client_batches)
+    return client_batches
+
+
+def select_step_batch(batches, s: int, cfg: FedConfig):
+    """One client's batch for local step ``s``."""
+    if cfg.per_step_batches:
+        return tree_map(lambda x: x[s], batches)
+    return batches
+
+
+def variance_correction(g_global, g_clients: Cohort) -> Cohort:
+    """Control-variate term ``corr_c = ḡ − g_c`` (paper Eq. (4) / Eq. (8)),
+    one tree per client: each local step adds it to ``∇L_c(w)`` so the
+    expected client update follows the global gradient."""
+    return Cohort(tree_map(torch.sub, g_global, gc) for gc in g_clients)
+
+
+def local_sgd_scan(
+    loss_fn: LossFn,
+    params0,
+    corr,
+    batches,
+    cfg: FedConfig,
+    *,
+    transform_grads: Optional[Callable[[Any], Any]] = None,
+    project: Optional[Callable[[Any], Any]] = None,
+    drift_fn: Optional[Callable[[Any], torch.Tensor]] = None,
+):
+    """One client's s* local (optionally corrected) SGD steps, as a loop.
+
+    FeDLRT passes ``transform_grads``/``project`` to keep coefficient
+    updates in the 2r active directions; the dense baselines use it bare.
+    ``corr=None`` means uncorrected. ``drift_fn`` accumulates
+    ``max_s drift_fn(params_s)``. Returns ``(params_s*, max_drift)``.
+    """
+    opt = make_optimizer(cfg.optimizer, cfg.lr, momentum=cfg.momentum)
+    p, ost = params0, opt.init(params0)
+    drift = torch.zeros((), device=tree_leaves(params0)[0].device)
+    for s in range(cfg.s_star):
+        g = grad(loss_fn, p, select_step_batch(batches, s, cfg))
+        if corr is not None:
+            g = tree_map(torch.add, g, corr)
+        if transform_grads is not None:
+            g = transform_grads(g)
+        upd, ost = opt.update(g, ost, s, p)
+        # cast: a f32 lr × bf16 grad promotes; the carried dtype stays put
+        p = tree_map(lambda t, u: t + u.to(t.dtype), p, upd)
+        if project is not None:
+            p = project(p)
+        if drift_fn is not None:
+            drift = torch.maximum(drift, drift_fn(p))
+    return p, drift

@@ -31,6 +31,11 @@
 //   3. xus_epilogue: multiplies the f32 x.U rows by S, the R terms of each
 //      column split over 16 threads and added back in a fixed order, and
 //      rounds once to the output type.
+//   Without S (a null pointer: the backward's x.U and dy.V, which the JAX
+//   package computes with S = I) step 3 is skipped and xus_reduce_out adds
+//   the splits in the same fixed order and rounds once, straight to A. A
+//   product with the identity in f32 is exact, so the bits are those of the
+//   S = I chain.
 //   (A first version summed the splits inside the epilogue: every block
 //   re-read all partials with one thread walking all splits in sequence,
 //   and that dependent chain of L2 loads made xus 2.5-5.5x slower than
@@ -158,6 +163,22 @@ xus_reduce_kernel(float* __restrict__ work, int G, int M, int R, int nsplit) {
   w[0] = s;
 }
 
+// A = x.U without an S: the splits added in split order (as in
+// xus_reduce) and rounded once to the output type.
+template <typename T>
+__global__ void __launch_bounds__(RED_THREADS)
+xus_reduce_out_kernel(const float* __restrict__ work, T* __restrict__ out, int G, int M,
+                      int R, int nsplit) {
+  const long long e = (long long)blockIdx.x * RED_THREADS + threadIdx.x;
+  const long long per_g = (long long)M * R;
+  if (e >= (long long)G * per_g) return;
+  const float* w = work + (e / per_g) * nsplit * per_g + e % per_g;
+  float s = 0.f;
+#pragma unroll 8
+  for (int p = 0; p < nsplit; ++p) s += w[(size_t)p * per_g];
+  out[e] = from_f32<T>(s);
+}
+
 // A = (x.U) S for this block's columns and rows. The R terms of each
 // column are split over EPI_ILANES threads and added back in a fixed order.
 template <typename T, typename TS>
@@ -226,6 +247,12 @@ int launch_xus(const void* x, const void* U, const void* S, void* out, void* wor
   dim3 grid1(cdiv(R, XUS_COLS), nsplit, G * mtiles);
   xus_partial_kernel<T><<<grid1, XUS_THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(U), w, M, K, R, kc, nsplit);
+  if (S == nullptr) {
+    const unsigned blocks = (unsigned)((elems + RED_THREADS - 1) / RED_THREADS);
+    xus_reduce_out_kernel<T><<<blocks, RED_THREADS, 0, stream>>>(
+        w, static_cast<T*>(out), G, M, R, nsplit);
+    return (int)cudaGetLastError();
+  }
   if (nsplit > 1) {
     const unsigned blocks = (unsigned)((elems + RED_THREADS - 1) / RED_THREADS);
     xus_reduce_kernel<<<blocks, RED_THREADS, 0, stream>>>(w, G, M, R, nsplit);
@@ -326,8 +353,9 @@ long long lr_xus_workspace(int G, int M, int K, int R) {
   return (long long)G * cdiv(K, xus_kc(G, M, K, R)) * M * R;
 }
 
-// A = (x U) S.  x (G, M, K), U (G, K, R) in dtype dt; S (G, R, R) in dt_s;
-// A (G, M, R) in dt; work holds lr_xus_workspace(G, M, K, R) floats.
+// A = (x U) S.  x (G, M, K), U (G, K, R) in dtype dt; S (G, R, R) in dt_s,
+// or a null S for A = x U; A (G, M, R) in dt; work holds
+// lr_xus_workspace(G, M, K, R) floats.
 int lr_xus(int dt, int dt_s, const void* x, const void* U, const void* S, void* out,
            void* work, int G, int M, int K, int R, void* stream) {
   if (G < 1 || M < 1 || K < 1 || R < 1) return (int)cudaErrorInvalidValue;

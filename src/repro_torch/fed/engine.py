@@ -1,0 +1,304 @@
+"""Federated training engine: the multi-round loop over any round method
+(the synchronous engine of the JAX package's ``repro.fed.engine``).
+
+The engine owns the host-side loop: cohort selection through a
+:class:`~repro_torch.fed.participation.Participation` policy, batches from
+a :class:`~repro_torch.data.FederatedBatcher` moved to the params' device,
+the round call, the metric history and evaluation. ``dropout``
+participation, the one policy whose cohort size varies, is padded to the
+population size with zero-weight repeats of active clients, as in the JAX
+package (there it keeps one jit executable; here it keeps the round's
+shapes and work the same as the reference's).
+
+Not ported yet (ROADMAP.md): the wire layer (``fed/wire.py``: codecs and
+measured bytes; :meth:`FederatedEngine.comm_total_bytes` reports the
+analytic cost-model figure), checkpoints (``checkpoint_dir``) and the
+simulated async / hierarchical engines.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.baselines import (
+    FedAvgProgram,
+    FedLinProgram,
+    FedLRTNaiveProgram,
+    fedavg_round,
+    fedlin_round,
+    fedlrt_naive_round,
+)
+from repro_torch.core.fedlrt import FedLRTProgram, fedlrt_round
+from repro_torch.core.round import FedConfig
+from repro_torch.fed.participation import Participation
+from repro_torch.telemetry import default_hub, perf_seconds
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+#: round-method registry: name → round function. Extend via
+#: :func:`register_round_method`, never by editing this module.
+ROUND_METHODS: Dict[str, Callable] = {}
+
+#: name → zero-arg factory of the method's RoundProgram (None for methods
+#: registered without one)
+ROUND_PROGRAMS: Dict[str, Optional[Callable]] = {}
+
+
+def register_round_method(name: str, fn: Callable, *, program=None, overwrite=False):
+    """Register a federated round method under ``name``: ``fn(loss_fn,
+    params, client_batches, cfg, *, round_idx, client_weights) →
+    (new_params, metrics)``, and optionally a zero-arg ``program`` factory
+    of its RoundProgram. Re-registration needs ``overwrite=True``."""
+    if not overwrite and name in ROUND_METHODS:
+        raise ValueError(
+            f"round method {name!r} is already registered "
+            f"(pass overwrite=True to replace it)"
+        )
+    ROUND_METHODS[name] = fn
+    ROUND_PROGRAMS[name] = program
+
+
+def round_program_for(method: str):
+    """Instantiate the registered RoundProgram for ``method``."""
+    factory = ROUND_PROGRAMS.get(method)
+    if factory is None:
+        raise ValueError(
+            f"round method {method!r} has no registered RoundProgram; "
+            f"register_round_method(..., program=...) to enable phase-level "
+            f"engines"
+        )
+    return factory()
+
+
+register_round_method("fedlrt", fedlrt_round, program=FedLRTProgram)
+register_round_method("fedavg", fedavg_round, program=FedAvgProgram)
+register_round_method("fedlin", fedlin_round, program=FedLinProgram)
+register_round_method("fedlrt_naive", fedlrt_naive_round, program=FedLRTNaiveProgram)
+
+
+@dataclasses.dataclass
+class RoundResult:
+    """One round's record: the JAX package's fields, less those of the wire
+    and the virtual clock, which the port does not have yet."""
+
+    round_idx: int
+    loss_before: float
+    loss_after: Optional[float]
+    comm_bytes_per_client: float
+    ranks: Dict[str, np.ndarray]
+    seconds: float
+    cohort_size: int = 0
+    cohort: Optional[np.ndarray] = None
+    comm_bytes_per_client_effective: float = 0.0
+
+
+#: version tag of the JAX package's checkpoint state sidecar, whose history
+#: format these helpers write and read
+STATE_VERSION = 1
+
+
+def history_to_state(history: List[RoundResult]) -> List[dict]:
+    """``history`` as JSON-safe dicts (the v1 sidecar representation)."""
+    out = []
+    for r in history:
+        d = dataclasses.asdict(r)
+        d["ranks"] = {k: np.asarray(v).tolist() for k, v in r.ranks.items()}
+        d["cohort"] = None if r.cohort is None else np.asarray(r.cohort).tolist()
+        out.append(d)
+    return out
+
+
+def history_from_state(rounds: List[dict]) -> List[RoundResult]:
+    """Inverse of :func:`history_to_state`, tolerant of field drift: keys
+    the dataclass lacks (the JAX package's wire and clock fields) are
+    dropped, missing fields take their defaults."""
+    fields = {f.name for f in dataclasses.fields(RoundResult)}
+    out = []
+    for d in rounds:
+        d = {k: v for k, v in d.items() if k in fields}
+        if d.get("ranks") is not None:
+            d["ranks"] = {k: np.asarray(v) for k, v in d["ranks"].items()}
+        if d.get("cohort") is not None:
+            d["cohort"] = np.asarray(d["cohort"])
+        out.append(RoundResult(**d))
+    return out
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported to PyTorch yet; see ROADMAP.md")
+
+
+class FederatedEngine:
+    def __init__(
+        self,
+        loss_fn: Callable,
+        params,
+        cfg: FedConfig,
+        *,
+        method: str = "fedlrt",
+        participation: Optional[Participation] = None,
+        eval_fn: Optional[Callable] = None,
+        checkpoint_dir: Optional[str] = None,
+        client_weights=None,
+        telemetry=None,
+    ):
+        if method not in ROUND_METHODS:
+            raise ValueError(f"method must be one of {list(ROUND_METHODS)}")
+        if checkpoint_dir is not None:
+            raise _not_ported("checkpointing (the checkpoint writer and resume)")
+        self.cfg = cfg
+        self.method = method
+        self.params = params
+        self.participation = participation if participation is not None else Participation()
+        self.eval_fn = eval_fn
+        self.history: List[RoundResult] = []
+        self.round_idx = 0
+        self.client_weights = (
+            None if client_weights is None else np.asarray(client_weights, np.float32)
+        )
+        # the engine only ever reads state into the hub: instrumentation
+        # cannot perturb a run
+        self.telemetry = telemetry if telemetry is not None else default_hub()
+        self._loss_fn = loss_fn
+        self._round_fn = ROUND_METHODS[method]
+
+    @property
+    def device(self) -> torch.device:
+        return tree_leaves(self.params)[0].device
+
+    def _to_device(self, batch):
+        dev = self.device
+        return tree_map(
+            lambda a: (a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))).to(dev),
+            batch,
+        )
+
+    def run_round(self, client_batches, *, cohort=None) -> RoundResult:
+        """One aggregation round on ``client_batches`` (numpy or tensors,
+        leading axis = the active cohort). ``cohort`` (optional index
+        array) attributes the rows to population clients: it slices
+        ``client_weights`` and is recorded in the history.
+
+        Under ``dropout`` participation the batch is padded to the
+        population size with repeats of active clients that carry zero
+        aggregation weight: inert in every (weight-normalized) aggregate.
+        Comm accounting and ``cohort_size`` stay at the true cohort size.
+        """
+        t0 = perf_seconds()
+        client_batches = self._to_device(client_batches)
+        k = tree_leaves(client_batches)[0].shape[0]
+        cohort = np.arange(k) if cohort is None else np.asarray(cohort)
+        pad_to = self.participation.padded_size(self.cfg.num_clients)
+        with self.telemetry.span("round.step", round=int(self.round_idx), cohort=int(k)):
+            if pad_to is not None:
+                w = (
+                    np.asarray(self.client_weights[cohort], np.float32)
+                    if self.client_weights is not None
+                    else np.ones(k, np.float32)
+                )
+                if k < pad_to:
+                    fill = np.arange(pad_to - k) % k  # repeat active clients
+                    idx = torch.as_tensor(np.concatenate([np.arange(k), fill]))
+                    client_batches = tree_map(
+                        lambda a: a[idx.to(a.device)], client_batches
+                    )
+                w = np.concatenate([w, np.zeros(pad_to - k, np.float32)])
+                size = pad_to
+            else:
+                w = None if self.client_weights is None else self.client_weights[cohort]
+                size = k
+            cfg_k = dataclasses.replace(self.cfg, num_clients=size)
+            self.params, metrics = self._round_fn(
+                self._loss_fn, self.params, client_batches, cfg_k,
+                round_idx=self.round_idx, client_weights=w,
+            )
+            metrics = _to_host(metrics)
+        ranks = metrics.get("rank", {})
+        if not isinstance(ranks, dict):  # single-factor methods (naive)
+            ranks = {"": ranks}
+        res = RoundResult(
+            round_idx=self.round_idx,
+            loss_before=float(metrics["loss_before"]),
+            loss_after=float(metrics["loss_after"]) if "loss_after" in metrics else None,
+            comm_bytes_per_client=float(metrics.get("comm_bytes_per_client", 0.0)),
+            ranks={k_: np.asarray(v) for k_, v in ranks.items()},
+            seconds=perf_seconds() - t0,
+            cohort_size=k,
+            cohort=cohort,
+            comm_bytes_per_client_effective=float(
+                metrics.get("comm_bytes_per_client_effective", 0.0)
+            ),
+        )
+        self.history.append(res)
+        self._publish_round(res, metrics)
+        self.round_idx += 1
+        return res
+
+    def _publish_round(self, res: RoundResult, metrics: dict) -> None:
+        """Per-round gauges (effective rank, coefficient drift). Read-only."""
+        hub = self.telemetry
+        if not hub.enabled:
+            return
+        r = int(res.round_idx)
+        if res.ranks:
+            hub.gauge(
+                "rank.effective_mean",
+                float(np.mean([np.mean(v) for v in res.ranks.values()])),
+                round=r,
+            )
+        if "max_coeff_drift" in metrics:
+            hub.gauge("correction.coeff_drift_max", float(metrics["max_coeff_drift"]), round=r)
+
+    def train(self, batcher, num_rounds: int, *, log_every: int = 10):
+        num_clients = self.cfg.num_clients
+        for _ in range(num_rounds):
+            cohort = self.participation.cohort(self.round_idx, num_clients)
+            if self.participation.mode == "full":
+                batch = batcher.next_round()
+            else:
+                batch = batcher.next_round(cohort)
+            res = self.run_round(batch, cohort=cohort)
+            if log_every and res.round_idx % log_every == 0:
+                extra = ""
+                if res.ranks:
+                    mean_rank = np.mean([np.mean(v) for v in res.ranks.values()])
+                    extra = f" mean_rank={mean_rank:.1f}"
+                if res.cohort_size != num_clients:
+                    extra += f" cohort={res.cohort_size}/{num_clients}"
+                self.telemetry.progress(
+                    f"[{self.method}] round {res.round_idx:4d} "
+                    f"loss {res.loss_before:.4f}"
+                    + (f" → {res.loss_after:.4f}" if res.loss_after is not None else "")
+                    + f" comm {res.comm_bytes_per_client/1e6:.2f} MB/client"
+                    + extra,
+                    round=int(res.round_idx),
+                )
+        return self.history
+
+    def evaluate(self, batch) -> float:
+        assert self.eval_fn is not None
+        return float(self.eval_fn(self.params, self._to_device(batch)))
+
+    def comm_total_bytes(self) -> float:
+        """Total server-side bytes so far: each round's per-client volume
+        times its active cohort. The port has no wire layer yet, so this is
+        the analytic cost-model figure (:meth:`comm_total_bytes_analytic`),
+        not a measurement."""
+        return self.comm_total_bytes_analytic()
+
+    def comm_total_bytes_analytic(self) -> float:
+        """Total bytes under the analytic cost model (static ``r_max``
+        protocol volumes, :mod:`repro_torch.core.cost_model`)."""
+        return float(sum(r.comm_bytes_per_client * r.cohort_size for r in self.history))
+
+
+def _to_host(metrics):
+    """Round metrics as python floats / numpy arrays (one sync per round)."""
+    if isinstance(metrics, dict):
+        return {k: _to_host(v) for k, v in metrics.items()}
+    if torch.is_tensor(metrics):
+        a = metrics.detach().cpu().numpy()
+        return a if a.ndim else float(a)
+    return metrics

@@ -3,9 +3,11 @@
 The sources under ``repro_torch/csrc`` are compiled with ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface, which
 is loaded with :mod:`ctypes`: a build takes seconds, where an extension
-that includes PyTorch's headers takes minutes. The library is built at
-first use into ``build/repro_torch/`` at the root of the checkout (listed
-in ``.gitignore``), named by a hash of the sources and flags, so an edited
+that includes PyTorch's headers takes minutes. Each source is compiled to
+an object by its own ``nvcc``, all started together, and the objects are
+linked into one library. The library is built at first use into
+``build/repro_torch/`` at the root of the checkout (listed in
+``.gitignore``), named by a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is.
 """
 from __future__ import annotations
@@ -22,10 +24,10 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("lowrank_matmul.cu",)
+SOURCES = ("lowrank_matmul.cu", "coeff_grad.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -61,22 +63,34 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build to a private name, then rename: concurrent builders never see
-    # (or load) a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    # build in a private directory, then rename the library: concurrent
+    # builds never see (or load) a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        compiles = []
+        for name in SOURCES:
+            obj = os.path.join(tmp, Path(name).stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / name)]
+            compiles.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )))
+        logs = [proc.communicate()[1] for _, _, proc in compiles]
+        for (cmd, _, proc), err in zip(compiles, logs):
+            _check(proc.returncode, cmd, err)
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, "-shared", "-o", lib, *(obj for _, obj, _ in compiles)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _check(proc.returncode, cmd, proc.stderr)
+        os.replace(lib, out)
     BUILD_LOG["seconds"] = time.perf_counter() - t0
-    BUILD_LOG["ptxas"] = proc.stderr
+    BUILD_LOG["ptxas"] = "".join(logs)
     return out
+
+
+def _check(returncode: int, cmd, stderr: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{stderr}")
 
 
 def load_library() -> ctypes.CDLL:
@@ -91,6 +105,10 @@ def load_library() -> ctypes.CDLL:
         lib.lr_xus.restype = i
         lib.lr_avt.argtypes = [i, p, p, p, i, i, i, i, p]
         lib.lr_avt.restype = i
+        lib.lr_atb_workspace.argtypes = [i, i, i, i]
+        lib.lr_atb_workspace.restype = ctypes.c_longlong
+        lib.lr_atb.argtypes = [i, p, p, p, p, i, i, i, i, p]
+        lib.lr_atb.restype = i
         lib.lr_error_string.argtypes = [i]
         lib.lr_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -4,6 +4,8 @@
   applied in f32, one rounding to ``x.dtype``. On the card it is up to
   three launches of ``csrc/lowrank_matmul.cu``: split-K partial sums, a
   fixed-order reduction of the splits, and an epilogue that applies ``S``.
+  ``S=None`` gives ``A = x U`` with one rounding (the backward's ``S = I``
+  products) and skips the epilogue.
 - :func:`avt` computes ``y = A Vᵀ`` with f32 accumulation.
 
 Both take 2-D operands or operands with one leading batch dim (stacked
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -67,24 +70,27 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def xus(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
-    """A = (x @ U) @ S.  x: ([G,] M, K), U: ([G,] K, R), S: ([G,] R, R)."""
+def xus(x: torch.Tensor, U: torch.Tensor, S: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A = (x @ U) @ S.  x: ([G,] M, K), U: ([G,] K, R), S: ([G,] R, R) or
+    None for A = x @ U."""
     if x.device.type == "cpu":
         return ref.xus_ref(x, U, S)
     if x.device.type != "cuda":
         raise ValueError(f"xus runs on cuda or cpu tensors, got {x.device}")
-    x3, U3, S3 = _batched(x, "x"), _batched(U, "U"), _batched(S, "S")
+    x3, U3 = _batched(x, "x"), _batched(U, "U")
+    S3 = None if S is None else _batched(S, "S")
     G, M, K = x3.shape
     R = U3.shape[-1]
-    if U3.shape != (G, K, R) or S3.shape != (G, R, R):
+    if U3.shape != (G, K, R) or (S3 is not None and S3.shape != (G, R, R)):
         raise ValueError(
             f"xus shapes disagree: x {tuple(x.shape)}, U {tuple(U.shape)}, "
-            f"S {tuple(S.shape)}"
+            f"S {None if S is None else tuple(S.shape)}"
         )
-    _check_cuda("xus", x3, U3, S3)
-    if U3.dtype != x3.dtype or S3.dtype not in (x3.dtype, torch.float32):
+    _check_cuda("xus", x3, U3, *(() if S3 is None else (S3,)))
+    s_dtype = x3.dtype if S3 is None else S3.dtype
+    if U3.dtype != x3.dtype or s_dtype not in (x3.dtype, torch.float32):
         raise TypeError(
-            f"xus dtypes: x {x.dtype}, U {U.dtype}, S {S.dtype} (U must match "
+            f"xus dtypes: x {x.dtype}, U {U.dtype}, S {s_dtype} (U must match "
             f"x; S must match x or be float32)"
         )
     lib = load_library()
@@ -94,9 +100,9 @@ def xus(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
     )
     with _on_device(x):
         _call(
-            lib.lr_xus, _DTYPE_CODE[x3.dtype], _DTYPE_CODE[S3.dtype],
-            x3.data_ptr(), U3.data_ptr(), S3.data_ptr(), out.data_ptr(),
-            work.data_ptr(), G, M, K, R, _stream(),
+            lib.lr_xus, _DTYPE_CODE[x3.dtype], _DTYPE_CODE[s_dtype],
+            x3.data_ptr(), U3.data_ptr(), None if S3 is None else S3.data_ptr(),
+            out.data_ptr(), work.data_ptr(), G, M, K, R, _stream(),
         )
     xus.launches += 1
     return out if x.dim() == 3 else out[0]

@@ -5,8 +5,27 @@
 :func:`~repro_torch.kernels.lowrank_matmul.avt` wrappers (the Hopper
 kernels on CUDA tensors, their plain versions on CPU tensors), or, with
 ``use_kernels=False``, as the plain working-dtype chain ``(x U) S Vᵀ`` of
-the JAX package's ``"off"`` policy. Forward only: the backward (the
-``atb`` kernel) comes with the training slice.
+the JAX package's ``"off"`` policy, differentiated by autograd.
+
+The kernel path is a :class:`torch.autograd.Function` whose backward is the
+chain of the JAX package's custom VJP (``src/repro/kernels/ops.py``), every
+term on a kernel::
+
+    dyV = dy V                   [xus, no S]
+    xU  = x U                    [xus, no S]
+    dA  = dy V Sᵀ                [xus]
+    dx  = dA Uᵀ                  [avt]
+    dU  = xᵀ dA                  [atb]
+    dS  = (x U)ᵀ (dy V)          [atb: the client loop's hot op]
+    xUS = x U S                  [xus]
+    dV  = dyᵀ (x U S)            [atb]
+
+with the JAX code's rounding points: every ``xus`` output rounds once to
+the working type, ``atb`` accumulates in f32 and rounds once to its first
+operand's type, and each cotangent is cast to its primal's dtype. Terms
+nobody asked for (``ctx.needs_input_grad``) are skipped, as ``jit`` drops
+them in JAX: the FeDLRT client loop, which differentiates only S̃ and the
+activations, runs 3 ``xus``, 1 ``avt`` and 1 ``atb`` per call.
 
 The Hopper kernels mask their ragged edges themselves, so nothing here pads
 the rank to TPU lanes or the rows to TPU sublanes.
@@ -17,6 +36,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.coeff_grad import atb
 from repro_torch.kernels.lowrank_matmul import avt, xus
 
 #: model-level kernel policies (``ModelConfig.kernels``)
@@ -43,12 +63,49 @@ def use_kernels_for(policy: str) -> bool:
     return policy == "auto"
 
 
+class _LowRankApply(torch.autograd.Function):
+    """``y = ((x U) S) Vᵀ`` on the kernels, with the kernel-backed backward
+    described in the module docstring. Operands are contiguous, 2-D or with
+    one leading stack dim."""
+
+    @staticmethod
+    def forward(ctx, x, U, S, V):
+        ctx.save_for_backward(x, U, S, V)
+        return avt(xus(x, U, S), V)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, U, S, V = ctx.saved_tensors
+        need_x, need_U, need_S, need_V = ctx.needs_input_grad
+        dy = dy.contiguous()
+        dx = dU = dS = dV = None
+        if need_x or need_U:
+            dA = xus(dy, V, S.transpose(-1, -2).float().contiguous())  # dy V Sᵀ
+            if need_x:
+                dx = avt(dA, U).to(x.dtype)
+            if need_U:
+                dU = atb(x, dA).to(U.dtype)
+        if need_S:
+            dS = atb(xus(x, U), xus(dy, V)).to(S.dtype)
+        if need_V:
+            dV = atb(dy, xus(x, U, S.float())).to(V.dtype)
+        return dx, dU, dS, dV
+
+
 def lowrank_apply(x, U, S, V, use_kernels: bool = False) -> torch.Tensor:
     """y = ((x U) S) Vᵀ.  x: ([G,] M, K), U: ([G,] K, R), S: ([G,] R, R),
     V: ([G,] N, R) → ([G,] M, N)."""
     if use_kernels:
-        return avt(xus(x.contiguous(), U.contiguous(), S.contiguous()), V.contiguous())
+        return _LowRankApply.apply(
+            x.contiguous(), U.contiguous(), S.contiguous(), V.contiguous()
+        )
     return torch.matmul(torch.matmul(x, U), S.to(x.dtype)) @ V.transpose(-1, -2)
+
+
+def coeff_grad_kernels(x, dy, U, V) -> torch.Tensor:
+    """∇_S L = (x U)ᵀ (dy V) through ``xus`` and ``atb`` (the paper's
+    client backward). x: (M, K), dy: (M, N), U: (K, R), V: (N, R) → (R, R)."""
+    return atb(xus(x.contiguous(), U.contiguous()), xus(dy.contiguous(), V.contiguous()))
 
 
 def lowrank_apply_nd(x, U, S, V, use_kernels: bool = False) -> torch.Tensor:

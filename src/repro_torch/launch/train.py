@@ -1,0 +1,159 @@
+"""Federated training CLI of the port — a thin layer over
+``repro_torch.api.build``, with the JAX package's flags plus ``--device``:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --preset llm-100m --rounds 3
+    PYTHONPATH=src python -m repro_torch.launch.train --preset llm-tiny --device cpu
+
+Every invocation builds an :class:`~repro_torch.api.spec.ExperimentSpec`
+first, so ``build(spec)`` stays the one engine construction site. It runs on
+``cuda`` unless ``--device cpu`` is given. The flags of parts not ported
+yet (the TOML ``--config`` / ``--set``, the wire codecs, the async / hier
+engines and the system simulator, checkpoints, telemetry sinks) are
+accepted by the parser and raise, naming ROADMAP.md.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+
+from repro_torch.api.tasks import PRESETS
+
+#: flag → spec field (section, name) the flag writes
+FLAG_TO_FIELD = {
+    "smoke": ("model", "smoke"),
+    "kernels": ("model", "kernels"),
+    "method": ("fed", "method"),
+    "correction": ("fed", "correction"),
+    "clients": ("fed", "clients"),
+    "local_steps": ("fed", "local_steps"),
+    "lr": ("fed", "lr"),
+    "tau": ("fed", "tau"),
+    "weighted": ("fed", "weighted"),
+    "batch": ("data", "batch"),
+    "seq": ("data", "seq"),
+    "rounds": ("", "rounds"),
+    "seed": ("", "seed"),
+    "log_every": ("", "log_every"),
+}
+
+#: flags of the JAX package's CLI whose parts the port lacks
+NOT_PORTED = {
+    "config": "TOML / JSON spec files (--config)",
+    "sets": "dotted spec overrides (--set)",
+    "wire_codec": "the wire layer (--wire-codec)",
+    "edge_wire_codec": "the wire layer (--edge-wire-codec)",
+    "engine": "engines other than sync (--engine)",
+    "sim_profile": "the system simulator (--sim-profile)",
+    "async_buffer": "the async engine (--async-buffer)",
+    "staleness_power": "the async engine (--staleness-power)",
+    "edges": "the hier engine (--edges)",
+    "edge_rounds": "the hier engine (--edge-rounds)",
+    "checkpoint_dir": "checkpointing (--checkpoint-dir)",
+    "checkpoint_every": "checkpointing (--checkpoint-every)",
+    "telemetry": "telemetry sinks (--telemetry)",
+    "telemetry_dir": "telemetry sinks (--telemetry-dir)",
+    "telemetry_sinks": "telemetry sinks (--telemetry-sinks)",
+}
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description=__doc__.split("\n")[0],
+        argument_default=argparse.SUPPRESS,  # only provided flags override
+    )
+    ap.add_argument("--arch", type=str,
+                    help="architecture registry id (implies --preset none)")
+    ap.add_argument("--preset", type=str, choices=sorted(PRESETS) + ["none"],
+                    help="named LM preset (default llm-tiny)")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--method", type=str,
+                    choices=["fedlrt", "fedavg", "fedlin", "fedlrt_naive"])
+    ap.add_argument("--correction", type=str, choices=["none", "simplified", "full"])
+    ap.add_argument("--clients", type=int)
+    ap.add_argument("--participation", type=str,
+                    help="per-round cohort policy: full | uniform:K | round_robin:K | dropout:P")
+    ap.add_argument("--weighted", action="store_true",
+                    help="aggregate with client weights ∝ |X_c| (paper §2 extension)")
+    ap.add_argument("--kernels", choices=["auto", "off"],
+                    help="low-rank kernel dispatch: auto = the Hopper kernels on "
+                    "CUDA tensors (their plain versions on CPU tensors), off = "
+                    "the plain PyTorch chain")
+    ap.add_argument("--rounds", type=int)
+    ap.add_argument("--local-steps", type=int)
+    ap.add_argument("--batch", type=int)
+    ap.add_argument("--seq", type=int)
+    ap.add_argument("--lr", type=float)
+    ap.add_argument("--tau", type=float)
+    ap.add_argument("--seed", type=int)
+    ap.add_argument("--log-every", type=int)
+    ap.add_argument("--device", type=str, default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    for flag in ("--config", "--wire-codec", "--edge-wire-codec", "--engine",
+                 "--sim-profile", "--async-buffer", "--staleness-power", "--edges",
+                 "--edge-rounds", "--checkpoint-dir", "--checkpoint-every",
+                 "--telemetry-dir", "--telemetry-sinks"):
+        ap.add_argument(flag, type=str, help="not ported yet (ROADMAP.md)")
+    ap.add_argument("--set", dest="sets", action="append", help="not ported yet (ROADMAP.md)")
+    ap.add_argument("--telemetry", action="store_true", help="not ported yet (ROADMAP.md)")
+    return ap
+
+
+def spec_from_argv(argv=None):
+    """Resolve CLI arguments into a validated ExperimentSpec."""
+    from repro_torch.api.spec import ExperimentSpec, ModelSpec, ParticipationSpec
+
+    ap = _parser()
+    args = vars(ap.parse_args(argv))
+    args.pop("device")
+    for name in sorted(set(args) & set(NOT_PORTED)):
+        raise NotImplementedError(
+            f"{NOT_PORTED[name]} is not ported to PyTorch yet; see ROADMAP.md"
+        )
+    preset, arch = args.pop("preset", None), args.pop("arch", None)
+    if preset is not None and preset != "none" and arch is not None:
+        ap.error("--preset and --arch are mutually exclusive (pass --preset none to use --arch)")
+    if arch is None and preset in (None, "none"):
+        preset = None if preset == "none" else "llm-tiny"
+        if preset is None:
+            ap.error("--preset none needs --arch")
+    model = {"preset": preset if arch is None else None, "arch": arch}
+    sections = {"model": model, "fed": {}, "data": {}, "": {}}
+    if "participation" in args:
+        sections[""]["participation"] = ParticipationSpec.from_string(args.pop("participation"))
+    method = args.get("method")
+    if method is not None and not method.startswith("fedlrt"):
+        args.setdefault("correction", "none")
+    for k, v in args.items():
+        section, name = FLAG_TO_FIELD[k]
+        sections[section][name] = v
+    spec = ExperimentSpec(model=ModelSpec(**model))
+    return dataclasses.replace(
+        spec,
+        fed=dataclasses.replace(spec.fed, **sections["fed"]),
+        data=dataclasses.replace(spec.data, **sections["data"]),
+        **sections[""],
+    )
+
+
+def main(argv=None):
+    from repro_torch.api import build
+
+    args = _parser().parse_args(argv)
+    spec = spec_from_argv(argv)
+    exp = build(spec, device=args.device)
+    print(f"{exp.task.description} clients={spec.fed.clients} device={exp.engine.device}")
+    hist = exp.run()
+    mean_cohort = np.mean([r.cohort_size for r in hist]) if hist else 0.0
+    if hist:
+        print(
+            f"done: loss {hist[0].loss_before:.4f} → {hist[-1].loss_before:.4f}; "
+            f"total comm {exp.comm_total_bytes()/1e6:.1f} MB analytic "
+            f"(mean cohort {mean_cohort:.1f}/{spec.fed.clients})"
+        )
+    return hist
+
+
+if __name__ == "__main__":
+    main()

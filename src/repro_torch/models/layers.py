@@ -17,7 +17,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.factorization import init_factor, is_factor
+from repro_torch.kernels.coeff_grad import atb
 from repro_torch.kernels.ops import lowrank_apply_nd, use_kernels_for
+from repro_torch.kernels.ref import atb_ref
 from repro_torch.models.config import LowRankPolicy
 
 
@@ -116,23 +118,58 @@ def apply_linear(w, x, *, bias=None, dtype=None, kernels: str = "off") -> torch.
     return y
 
 
+class _RowGather(torch.autograd.Function):
+    """``table[idx]`` with a backward that is the same bits on every run.
+
+    The backward of a plain ``table[idx]`` scatters the rows' cotangents
+    into the table with ``index_put_(accumulate=True)``, whose order of
+    additions PyTorch does not fix on every device. Here it is the product
+    ``onehot(idx)ᵀ · g`` over the whole table, on the ``atb`` kernel
+    (``use_kernels``: an f32 sum over the rows in a fixed order, no
+    atomics) or its plain version.
+    """
+
+    @staticmethod
+    def forward(ctx, table, idx, use_kernels):
+        ctx.save_for_backward(idx)
+        ctx.rows, ctx.use_kernels = table.shape[0], use_kernels
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        g2 = g.reshape(flat.numel(), -1).contiguous()
+        onehot = (flat[:, None] == torch.arange(ctx.rows, device=flat.device)).to(g.dtype)
+        return (atb if ctx.use_kernels else atb_ref)(onehot, g2), None, None
+
+
+def _gather_rows(table, tokens, use_kernels: bool):
+    if table.requires_grad:
+        return _RowGather.apply(table, tokens, use_kernels)
+    return table[tokens]
+
+
 def apply_embedding(w, tokens, *, dtype=torch.float32, kernels: str = "off") -> torch.Tensor:
     """Token embedding lookup (gather of the factor's U rows).
 
     Kernel path: the gathered rows ``u = U[tokens]`` play the activation
     of the chain with the coefficient as its projection, ``((u S) I) Vᵀ``,
     so the embedding launches one ``xus`` and one ``avt``, as the JAX
-    package's kernel path does.
+    package's kernel path does, and its trainable S takes its gradient
+    through the chain's ``dU`` term. The gather itself has a deterministic
+    backward (:class:`_RowGather`) when U is being differentiated.
     """
+    use_kernels = kernels != "off" and use_kernels_for(kernels)
     if is_factor(w):
-        u = w.U[tokens].to(dtype)  # (..., r)
+        u = _gather_rows(w.U, tokens, use_kernels).to(dtype)  # (..., r)
         if kernels != "off":
             eye = torch.eye(w.S.shape[-1], dtype=dtype, device=u.device)
             return lowrank_apply_nd(
                 u, w.S.to(dtype), eye, w.V.to(dtype), use_kernels_for(kernels)
             )
         return torch.matmul(u, w.S.to(dtype)) @ w.V.to(dtype).transpose(-1, -2)
-    return w[tokens].to(dtype)
+    return _gather_rows(w, tokens, use_kernels).to(dtype)
 
 
 def rms_norm(x, scale, eps: float) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Top-level model for serving: init / init_cache / serve_prefill /
+"""Top-level model: init / loss_fn / init_cache / serve_prefill /
 serve_step — the decoder-only families of the JAX package's
 ``models/model.py``, in PyTorch.
 
@@ -7,12 +7,13 @@ serve_step — the decoder-only families of the JAX package's
 - ``init(gen) → params``: a nested dict of LowRankFactor and dense leaves
   in the JAX package's layout, drawn from the ``torch.Generator`` ``gen``
   on its device;
+- ``loss_fn(params, batch) → scalar``: next-token cross-entropy on
+  ``batch["tokens"]`` (B, T+1), on the cache-free path. Factor leaves may
+  be AugmentedFactors (the FeDLRT client loop);
 - ``init_cache(params, batch, cache_len, per_slot=False)``;
 - ``serve_prefill(params, batch, cache_len=0, last_index=None) → (logits,
   cache)`` and ``serve_step(params, cache, tokens) → (logits, cache)``:
   KV-cached decode. The cache's k/v tensors are updated in place.
-
-Training (``loss_fn``) comes with the training slice; see ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -64,10 +65,25 @@ def _logits(params, h, kernels: str = "off"):
     return apply_linear(params["lm_head"], h, kernels=kernels)
 
 
+def _xent(logits, labels, mask=None) -> torch.Tensor:
+    """Mean next-token cross-entropy in f32. The gold logit is read through a
+    one-hot mask rather than a gather, whose backward scatters with atomics
+    on CUDA; the forward value is the same (every other term is zero)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    hit = labels[..., None] == torch.arange(logits.shape[-1], device=labels.device)
+    gold = torch.sum(torch.where(hit, logits, torch.zeros_like(logits)), dim=-1)
+    nll = lse - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / (torch.sum(mask) + 1e-6)
+    return torch.mean(nll)
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
     init: Callable[[torch.Generator], Any]
+    loss_fn: Callable[[Any, Any], torch.Tensor]
     serve_prefill: Callable[..., Tuple[torch.Tensor, Any]]
     serve_step: Callable[[Any, Any, torch.Tensor], Tuple[torch.Tensor, Any]]
     init_cache: Callable[..., Any]
@@ -76,6 +92,19 @@ class Model:
 def build_model(cfg: ModelConfig) -> Model:
     _check_family(cfg)
     dt = torch_dtype(cfg.compute_dtype)
+
+    def loss_fn(params, batch):
+        """Cross-entropy of the next token; the JAX package's ``loss_fn``
+        for the dense family (attention over the whole sequence in one
+        block, where the JAX package may chunk the queries: the same sums
+        in another order)."""
+        tokens = batch["tokens"].long()
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        emb = apply_embedding(params["embed"], inputs, dtype=dt, kernels=cfg.kernels)
+        positions = torch.arange(emb.shape[1], device=emb.device)
+        h, _ = stack_apply(params["blocks"], emb, cfg, positions=positions)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return _xent(_logits(params, h, cfg.kernels), labels)
 
     def init_cache(params, batch: int, cache_len: int, *, per_slot: bool = False):
         """``per_slot=True``: positions tracked per batch row — ``pos`` is
@@ -135,6 +164,7 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=lambda gen: build_params(cfg, gen),
+        loss_fn=loss_fn,
         serve_prefill=serve_prefill,
         serve_step=serve_step,
         init_cache=init_cache,

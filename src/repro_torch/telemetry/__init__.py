@@ -1,4 +1,5 @@
-"""Telemetry for the port: a wall-clock shim and a hub with a memory sink.
+"""Telemetry for the port: a wall-clock shim and a hub with memory and
+console sinks.
 
     from repro_torch.telemetry import MemorySink, TelemetryHub
 
@@ -7,4 +8,10 @@
         ...
 """
 from repro_torch.telemetry.clock import perf_seconds, wall_time  # noqa: F401
-from repro_torch.telemetry.hub import NULL_HUB, MemorySink, TelemetryHub  # noqa: F401
+from repro_torch.telemetry.hub import (  # noqa: F401
+    NULL_HUB,
+    ConsoleSink,
+    MemorySink,
+    TelemetryHub,
+    default_hub,
+)

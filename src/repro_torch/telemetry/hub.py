@@ -1,16 +1,18 @@
-"""A telemetry hub for the serving path: wall-clock spans and metric
-samples, fanned out to sinks.
+"""A telemetry hub for the serving and training paths: wall-clock spans,
+metric samples and progress lines, fanned out to sinks.
 
-The subset of the JAX package's ``telemetry/hub.py`` that serving uses:
-``span``, ``span_wall_at``, ``counter``, ``gauge`` and ``flush``, with the
-same event dicts, plus :class:`MemorySink`. The JSONL and Perfetto sinks
-come in a later slice (ROADMAP.md). Telemetry reads state and never writes
-it; a disabled hub (:data:`NULL_HUB`, the default of the serving classes)
-returns before building any event.
+The subset of the JAX package's ``telemetry/hub.py`` the port uses:
+``span``, ``span_wall_at``, ``counter``, ``gauge``, ``progress`` and
+``flush``, with the same event dicts, plus :class:`MemorySink` and
+:class:`ConsoleSink`. The JSONL and Perfetto sinks come in a later slice
+(ROADMAP.md). Telemetry reads state and never writes it; a disabled hub
+(:data:`NULL_HUB`, the default of the serving classes) returns before
+building any event.
 """
 from __future__ import annotations
 
 import contextlib
+import sys
 from typing import List, Optional
 
 from repro_torch.telemetry.clock import perf_seconds, wall_time
@@ -29,6 +31,23 @@ class MemorySink:
 
     def flush(self) -> None:
         pass
+
+
+class ConsoleSink:
+    """Render ``progress`` events as plain lines on stdout (resolved at emit
+    time); drop everything else."""
+
+    name = "console"
+
+    def __init__(self, stream=None):
+        self.stream = stream
+
+    def emit(self, event: dict) -> None:
+        if event["kind"] == "progress":
+            print(event["attrs"].get("message", event["name"]), file=self.stream or sys.stdout)
+
+    def flush(self) -> None:
+        (self.stream or sys.stdout).flush()
 
 
 class TelemetryHub:
@@ -91,6 +110,12 @@ class TelemetryHub:
             return
         self._emit("gauge", name, value=float(value), attrs=attrs)
 
+    def progress(self, message: str, **attrs) -> None:
+        """A human-facing progress line (rendered by :class:`ConsoleSink`)."""
+        if not self.enabled:
+            return
+        self._emit("progress", "progress", attrs={"message": message, **attrs})
+
     def flush(self) -> None:
         for sink in self.sinks:
             sink.flush()
@@ -98,3 +123,9 @@ class TelemetryHub:
 
 #: the no-op hub: disabled, sinkless — every call is an early return
 NULL_HUB = TelemetryHub(enabled=False)
+
+
+def default_hub() -> TelemetryHub:
+    """A console-only hub, what the training engine reports to when built
+    without one."""
+    return TelemetryHub(sinks=(ConsoleSink(),))

@@ -1,10 +1,13 @@
 """The port's low-rank kernels against the JAX package's Pallas kernels.
 
-On the CPU the port's ``xus``/``avt`` wrappers take their plain PyTorch
-versions (the Hopper kernels run only on a CUDA tensor); the JAX kernels
-run in Pallas interpret mode, as ``tests/test_kernels.py`` runs them. The
-same numpy inputs feed both.
+On the CPU the port's ``xus``/``avt``/``atb`` wrappers take their plain
+PyTorch versions (the Hopper kernels run only on a CUDA tensor); the JAX
+kernels run in Pallas interpret mode, as ``tests/test_kernels.py`` runs
+them. The same numpy inputs feed both. The backward of the port's
+``lowrank_apply`` (an autograd Function on the kernels) is held to the JAX
+package's custom VJP through the interpreted kernels.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,10 +15,21 @@ import torch
 
 from repro.kernels import lowrank_apply_kernels
 from repro.kernels import ref as jref
+from repro.kernels.coeff_grad import atb as jax_atb
 from repro.kernels.lowrank_matmul import avt as jax_avt
 from repro.kernels.lowrank_matmul import xus as jax_xus
+from repro.kernels.ops import _atb as jax_atb_padded
+from repro.kernels.ops import coeff_grad_kernels as jax_coeff_grad_kernels
+from repro.kernels.ops import lowrank_apply as jax_lowrank_apply
 from repro.kernels.ops import lowrank_apply_nd as jax_lowrank_apply_nd
-from repro_torch.kernels import lowrank_apply, lowrank_apply_nd, ref, use_kernels_for
+from repro_torch.kernels import (
+    atb,
+    coeff_grad_kernels,
+    lowrank_apply,
+    lowrank_apply_nd,
+    ref,
+    use_kernels_for,
+)
 from repro_torch.kernels.lowrank_matmul import avt, xus
 
 # f32: both sides accumulate in f32 and differ only in summation order.
@@ -136,6 +150,193 @@ def test_stacked_factors_need_matching_activation_dims():
     with pytest.raises(ValueError, match="stack dims"):
         lowrank_apply_nd(torch.zeros(2, 5, 8), torch.zeros(3, 8, 4),
                          torch.zeros(3, 4, 4), torch.zeros(3, 6, 4), True)
+
+
+# ---------------------------------------------------------------------------
+# atb and the backward of lowrank_apply
+# ---------------------------------------------------------------------------
+
+ATB_SHAPES = [
+    (64, 128, 96),   # tests/test_kernels.py: aligned
+    (37, 70, 33),    # ragged M, Ka and Kb
+    (1, 5, 3),       # a single row
+    (200, 160, 160), # the llm-100m basis-pass dS at a short M
+    (96, 320, 40),   # wide Ka, narrow Kb (dU / dV)
+]
+
+
+def _ab(M, Ka, Kb, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((M, Ka)).astype(np.float32),
+            rng.standard_normal((M, Kb)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,Ka,Kb", ATB_SHAPES)
+def test_atb_matches_pallas_interpret(M, Ka, Kb, dtype):
+    (jA, jB), (tA, tB) = _both(_ab(M, Ka, Kb), dtype)
+    C = atb(tA, tB)
+    assert C.dtype == tA.dtype and C.shape == (Ka, Kb)
+    want = (jax_atb(jA, jB, bm=min(64, M), bka=min(64, Ka), interpret=True)
+            if (M, Ka, Kb) == ATB_SHAPES[0] else jax_atb_padded(jA, jB, interpret=True))
+    # f32 sums of up to 200 products in another order; bf16 as for xus/avt
+    _close(C, want, dtype)
+
+
+def test_atb_accumulates_in_f32_and_rounds_once():
+    A, B = _ab(300, 24, 16, seed=4)
+    tA, tB = torch.from_numpy(A).to(torch.bfloat16), torch.from_numpy(B).to(torch.bfloat16)
+    want = (tA.float().T @ tB.float()).to(torch.bfloat16)
+    assert torch.equal(atb(tA, tB), want)
+    assert torch.equal(ref.atb_ref(tA, tB), want)
+    # one leading batch dim: G independent products
+    G = torch.from_numpy(np.stack([A, 2 * A])), torch.from_numpy(np.stack([B, B]))
+    C = atb(*G)
+    assert C.shape == (2, 24, 16)
+    torch.testing.assert_close(C[1], 2 * C[0])
+
+
+def test_xus_without_s_is_xu_with_one_rounding():
+    """``xus(x, U)`` (the backward's S = I products) is JAX's xus with the
+    identity, which rounds x·U once."""
+    x, U, _, _ = _inputs(24, 64, 8, 16, seed=5)
+    for dtype in ("float32", "bfloat16"):
+        (jx, jU), (tx, tU) = _both([x, U], dtype)
+        got = xus(tx, tU)
+        want = jax_xus(jx, jU, jnp.eye(16, dtype=jnp.float32), interpret=True)
+        _close(got, want, dtype)
+        assert torch.equal(got, ref.xus_ref(tx, tU, torch.eye(16)))
+
+
+def test_coeff_grad_kernels_matches_jax():
+    rng = np.random.default_rng(6)
+    M, K, N, R = 40, 48, 36, 12
+    x, dy = rng.standard_normal((M, K)), rng.standard_normal((M, N))
+    U, V = rng.standard_normal((K, R)) / 7, rng.standard_normal((N, R)) / 6
+    arrays = [a.astype(np.float32) for a in (x, dy, U, V)]
+    want = jax_coeff_grad_kernels(*map(jnp.asarray, arrays), interpret=True)
+    got = coeff_grad_kernels(*map(torch.from_numpy, arrays))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+#: which of (x, U, S, V) need a gradient: the training path's combinations
+#: (basis pass: all four; client loop: x and S̃; the embedding, whose S sits
+#: in the U slot: x, U, V in the basis pass, U alone in the client loop)
+NEEDS = [(1, 1, 1, 1), (1, 0, 1, 0), (1, 1, 0, 1), (0, 1, 0, 0), (0, 0, 0, 1)]
+
+
+def _vjp_jax(arrays, dy, use_kernels):
+    _, vjp = jax.vjp(lambda *a: jax_lowrank_apply(*a, use_kernels), *map(jnp.asarray, arrays))
+    return [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+
+
+def _grads_torch(arrays, dy, need, use_kernels):
+    ins = [torch.from_numpy(a).requires_grad_(bool(n)) for a, n in zip(arrays, need)]
+    y = lowrank_apply(*ins, use_kernels)
+    return torch.autograd.grad(y, [t for t in ins if t.requires_grad], torch.from_numpy(dy))
+
+
+@pytest.mark.parametrize("need", NEEDS)
+@pytest.mark.parametrize("M,K,N,R", [(24, 40, 32, 8), (7, 33, 19, 5)])
+def test_lowrank_apply_vjp_matches_jax(M, K, N, R, need):
+    """The kernel-backed backward (plain versions on the CPU) against the
+    JAX custom VJP through the interpreted Pallas kernels, f32, 1e-5."""
+    arrays = list(_inputs(M, K, N, R, seed=7))
+    dy = np.random.default_rng(8).standard_normal((M, N)).astype(np.float32)
+    want = [w for w, n in zip(_vjp_jax(arrays, dy, "interpret"), need) if n]
+    got = _grads_torch(arrays, dy, need, True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5)
+    # the plain chain ("off") differentiates to the same cotangents
+    for g, w in zip(_grads_torch(arrays, dy, need, False), want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5)
+
+
+def test_lowrank_apply_vjp_bf16_casts_to_primal_dtypes():
+    arrays = [a for a in _inputs(16, 32, 24, 8, seed=9)]
+    ins = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True) for a in arrays]
+    ins[2] = torch.from_numpy(arrays[2]).requires_grad_(True)  # S kept in f32
+    y = lowrank_apply(ins[0], ins[1], ins[2].to(torch.bfloat16), ins[3], True)
+    grads = torch.autograd.grad(y.float().sum(), ins)
+    assert [g.dtype for g in grads] == [t.dtype for t in ins]
+    assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+
+
+def test_backward_skips_terms_nobody_asked_for():
+    """Kernel calls per backward, by ``needs_input_grad`` (counted on the
+    plain versions): the client loop's (x, S̃) takes 3 xus, 1 avt, 1 atb."""
+    calls = {"xus": 0, "avt": 0, "atb": 0}
+    saved = ref.xus_ref, ref.avt_ref, ref.atb_ref
+
+    def counting(name, fn):
+        def f(*a):
+            calls[name] += 1
+            return fn(*a)
+        return f
+
+    ref.xus_ref, ref.avt_ref, ref.atb_ref = (
+        counting("xus", saved[0]), counting("avt", saved[1]), counting("atb", saved[2])
+    )
+    try:
+        arrays = list(_inputs(8, 16, 12, 4, seed=10))
+        dy = np.ones((8, 12), np.float32)
+        want = {(1, 1, 1, 1): (1 + 4, 1 + 1, 3), (1, 0, 1, 0): (1 + 3, 1 + 1, 1),
+                (0, 1, 0, 0): (1 + 1, 1, 1), (1, 1, 0, 1): (1 + 2, 1 + 1, 2)}
+        for need, (n_xus, n_avt, n_atb) in want.items():
+            calls.update(xus=0, avt=0, atb=0)
+            _grads_torch(arrays, dy, need, True)
+            assert (calls["xus"], calls["avt"], calls["atb"]) == (n_xus, n_avt, n_atb), need
+    finally:
+        ref.xus_ref, ref.avt_ref, ref.atb_ref = saved
+
+
+def test_lowrank_apply_nd_stacked_vjp_accumulates_into_the_stack():
+    """Stacked factors (a layer stack): the per-member views' gradients land
+    in the stacked leaf, as JAX's vmapped VJP gives them."""
+    rng = np.random.default_rng(11)
+    G, B, T, K, N, R = 3, 2, 5, 24, 20, 6
+    x = rng.standard_normal((G, B, T, K)).astype(np.float32)
+    U = (rng.standard_normal((G, K, R)) / 5).astype(np.float32)
+    S = rng.standard_normal((G, R, R)).astype(np.float32)
+    V = (rng.standard_normal((G, N, R)) / 4).astype(np.float32)
+    dy = rng.standard_normal((G, B, T, N)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jax_lowrank_apply_nd(*a, "interpret"),
+                     *map(jnp.asarray, (x, U, S, V)))
+    want = vjp(jnp.asarray(dy))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (x, U, S, V)]
+    y = lowrank_apply_nd(*ts, True)
+    got = torch.autograd.grad(y, ts, torch.from_numpy(dy))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+    # member by member through views of the stack, as the model's layer loop runs
+    ts2 = [torch.from_numpy(a).requires_grad_(True) for a in (x, U, S, V)]
+    out = torch.stack([lowrank_apply_nd(*(t[i] for t in ts2), True) for i in range(G)])
+    for g, w in zip(torch.autograd.grad(out, ts2, torch.from_numpy(dy)), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+def test_atb_refuses_devices_without_a_kernel():
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        atb(torch.empty(4, 3, device="meta"), torch.empty(4, 2, device="meta"))
+
+
+@pytest.mark.cuda
+def test_atb_matches_plain_version_on_card():
+    """Runs on an H100 (``pytest -m cuda``): atb against atb_ref at the
+    training path's shapes, both working types."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dtype in ("float32", "bfloat16"):
+        tdt = DTYPES[dtype][1]
+        for M, Ka, Kb in [(512, 320, 320), (512, 8192, 160), (8192, 2560, 160), (37, 70, 33)]:
+            A, B = (torch.from_numpy(a).to("cuda", tdt) for a in _ab(M, Ka, Kb))
+            C, W = atb(A, B), ref.atb_ref(A, B)
+            if dtype == "float32":  # error relative to the sum's magnitude
+                assert (C - W).abs().max() <= 1e-4 * W.abs().max()
+            else:
+                torch.testing.assert_close(C, W, **TOL[dtype])
 
 
 @pytest.mark.cuda
