@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-per source, all started together) and drives both of the port's paths:
+per source, all started together) and drives each of the port's paths:
 
 - kernels: holds each kernel to its plain PyTorch version at every shape
   its paths give it: ``xus``/``avt`` at the Qwen2-7B serving shapes,
@@ -20,7 +20,20 @@ per source, all started together) and drives both of the port's paths:
   against the counts the model's factors imply; one more round under
   ``torch.profiler`` (device busy share, kernels by device time); then
   one round from the same start with ``kernels="off"`` (held to the
-  kernel run) and the kernel round again (held to be bit-identical).
+  kernel run) and the kernel round again (held to be bit-identical);
+- flash: ``repro_torch.kernels.flash_attention`` at four attention shapes
+  (Qwen2-7B prefill and decode against a cache, Mistral-7B's sliding
+  window, an f32 case), each held to ``flash_attention_ref``, with its time
+  beside its bound, the plain version's and
+  ``scaled_dot_product_attention``'s;
+- spec: llm-100m at full width and depth through ``python -m
+  repro_torch.api run`` on a TOML written from
+  ``examples/configs/sync_baseline.toml``: two rounds with int8 on the wire
+  and a checkpoint per round; a fresh experiment resumed from the first
+  checkpoint, held bit-identical to the uninterrupted run; one round with
+  the identity codec held bit-identical to one with the wire off, its
+  measured bytes held equal to ``cost_model.wire_round_bytes``; then 4
+  greedy requests served from the written checkpoint.
 
 Every failure raises and exits non-zero. The last two lines of standard
 output are one JSON object with each kernel's numbers and one with the
@@ -36,6 +49,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -47,12 +61,16 @@ REPLACES = {
     "xus": "src/repro/kernels/lowrank_matmul.py:58",
     "avt": "src/repro/kernels/lowrank_matmul.py:103",
     "atb": "src/repro/kernels/coeff_grad.py:22",
+    "flash_attention": "src/repro/kernels/flash_attention.py:34",
 }
 SOURCES = {
     "xus": "src/repro_torch/csrc/lowrank_matmul.cu",
     "avt": "src/repro_torch/csrc/lowrank_matmul.cu",
     "atb": "src/repro_torch/csrc/coeff_grad.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
+KERNELS = tuple(SOURCES)
+PATHS = ("serve", "train", "flash", "spec")
 #: tolerance of a kernel against its plain version, with the reason
 TOL = {
     # both round once from f32 to bf16; f32 sums taken in different orders
@@ -257,19 +275,31 @@ def phase_kernels(torch, cfg):
 
 def phase_f32_check(torch):
     """Qwen2-7B at full width and 2 layers in f32: kernel-path prefill
-    logits against the plain chain (kernels='off')."""
+    logits against the plain chain (kernels='off'). The depth and dtype are
+    this check's own, so it builds the serving stack that ``serve()`` would
+    from the replaced config."""
     import numpy as np
 
-    from repro_torch.api import ExperimentSpec, ModelSpec, ServeSpec, serve
+    from repro_torch.api import ExperimentSpec, ModelSpec, ServeSpec
+    from repro_torch.api.experiment import ServeSession
+    from repro_torch.configs import get_config
     from repro_torch.models import build_model
+    from repro_torch.serve import ContinuousScheduler, ServeEngine
 
-    spec = ExperimentSpec(
-        name="chip-f32-check", seed=1,
-        model=ModelSpec(arch="qwen2-7b", layers=2, dtype="float32"),
-        serve=ServeSpec(max_batch=4, max_prompt=64, prompt_bucket=16, max_new_tokens=4),
-    )
-    session = serve(spec, device="cuda")
-    eng = session.engine
+    sv = ServeSpec(max_batch=4, max_prompt=64, prompt_bucket=16, max_new_tokens=4)
+    spec = ExperimentSpec(name="chip-f32-check", seed=1, model=ModelSpec(arch="qwen2-7b"),
+                          serve=sv)
+    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=2,
+                              compute_dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(spec.seed)
+    with torch.inference_mode():
+        params = model.init(gen)
+    eng = ServeEngine(model, params, max_batch=sv.max_batch, max_prompt=sv.max_prompt,
+                      prompt_bucket=sv.prompt_bucket, max_new_tokens=sv.max_new_tokens,
+                      seed=spec.seed)
+    session = ServeSession(spec=spec, engine=eng, scheduler=ContinuousScheduler(eng))
     off = build_model(dataclasses.replace(eng.model.cfg, kernels="off"))
     rng = np.random.default_rng(1)
     worst = 0.0
@@ -411,8 +441,8 @@ def phase_serve(torch, counters):
                 f"{name}: {got[name]} launches, expected {per_forward} x "
                 f"({steps} decode steps + {prefills} prefills) = {want}"
             )
-    if got["atb"]:
-        raise AssertionError(f"serving (forward only) launched atb {got['atb']} times")
+    if got["atb"] or got["flash_attention"]:
+        raise AssertionError(f"serving (forward only) launched atb / flash_attention: {got}")
     log(f"[serve] launches: xus {got['xus']}, avt {got['avt']} = "
         f"{per_forward} per forward x ({steps} decode steps + {prefills} prefills); "
         f"{per_forward} xus + {per_forward} avt per decode step")
@@ -655,18 +685,21 @@ def train_atb_calls(params, cfg):
     return calls
 
 
-def _launch_counts():
+def _wrappers():
     from repro_torch.kernels.coeff_grad import atb
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.lowrank_matmul import avt, xus
 
-    return {"xus": xus.launches, "avt": avt.launches, "atb": atb.launches}
+    return {"xus": xus, "avt": avt, "atb": atb, "flash_attention": flash_attention}
+
+
+def _launch_counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _zero_counts():
-    from repro_torch.kernels.coeff_grad import atb
-    from repro_torch.kernels.lowrank_matmul import avt, xus
-
-    xus.launches = avt.launches = atb.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def profile_round(torch, exp, wall: float):
@@ -745,7 +778,7 @@ def phase_train(torch, counters):
         torch.cuda.reset_peak_memory_stats()
         res = exp.run(rounds=1)[-1]
         torch.cuda.synchronize()
-        got = {k: v - before[k] for k, v in _launch_counts().items()}
+        got = {k: v - before[k] for k, v in _launch_counts().items() if k in want}
         ranks = np.concatenate([np.ravel(v) for v in res.ranks.values()])
         peak = torch.cuda.max_memory_allocated() / 2**30
         if not (math.isfinite(res.loss_before) and math.isfinite(res.loss_after)):
@@ -823,12 +856,352 @@ def phase_train(torch, counters):
                 atb_calls=train_atb_calls(params0, cfg))
 
 
-def kernel_summary(records, atb_records, counters, cfg, atb_calls):
+# ---------------------------------------------------------------------------
+# flash attention on its own entry point
+# ---------------------------------------------------------------------------
+
+#: (name, B, Tq, Tk, H, Hkv, d, dtype, window, invalid tail slots, head groups
+#: for the plain version); positions: queries at the end of the keys
+FLASH_CASES = [
+    ("qwen2-7b prefill", 1, 4096, 4096, 28, 4, 128, "bfloat16", 0, 0, 1),
+    ("qwen2-7b decode vs cache", 4, 1, 4096, 28, 4, 128, "bfloat16", 0, 512, 1),
+    ("mistral-7b window 4096", 1, 8192, 8192, 32, 8, 128, "bfloat16", 4096, 0, 4),
+    ("f32 check", 1, 1024, 1024, 28, 4, 128, "float32", 0, 0, 1),
+]
+
+
+def _flash_inputs(torch, case, gen):
+    _, B, Tq, Tk, H, Hkv, d, dtype_name, window, tail, _ = case
+    dtype = getattr(torch, dtype_name)
+    q = torch.randn(B, Tq, H, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, Tk, Hkv, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, Tk, Hkv, d, generator=gen, device="cuda").to(dtype)
+    kpos = torch.arange(Tk, device="cuda", dtype=torch.int32)
+    if tail:  # a cache whose last slots are not written yet
+        kpos[Tk - tail:] = -1
+    qpos = torch.arange(Tq, device="cuda", dtype=torch.int32) + (Tk - tail - Tq)
+    return q, k, v, dict(q_positions=qpos, kv_positions=kpos, causal=True,
+                         sliding_window=window)
+
+
+def _flash_plain_err(torch, case, q, k, v, kw, out):
+    """(max |kernel − plain|, worst |kernel − plain| / tolerance) over the
+    heads (``flash_mismatch``: 1e-4 in f32, element-wise and scaled to the
+    row in bf16), the plain version run by KV-head groups (its scores are
+    materialized: 8.6 GB at the Mistral case)."""
+    from repro_torch.kernels.ref import flash_attention_ref, flash_mismatch
+
+    groups, H, Hkv = case[-1], q.shape[2], k.shape[2]
+    hk, g = Hkv // groups, H // Hkv
+    err = ratio = 0.0
+    for i in range(groups):
+        hq = slice(i * hk * g, (i + 1) * hk * g)
+        hkv = slice(i * hk, (i + 1) * hk)
+        want = flash_attention_ref(q[:, :, hq].contiguous(), k[:, :, hkv].contiguous(),
+                                   v[:, :, hkv].contiguous(), **kw)
+        e, r = flash_mismatch(out[:, :, hq], want)
+        err, ratio = max(err, e), max(ratio, r)
+        del want
+    return err, ratio
+
+
+def _flash_bound_ms(torch, case, q, kw):
+    """max(bytes / 3.35 TB/s, FLOPs / peak): Q and the positions read once,
+    K and V read once over the slots some query sees (an invalid slot is
+    never loaded), the output written once; FLOPs = 4 B H d × the visible
+    query-key pairs of these positions."""
+    _, B, Tq, Tk, H, Hkv, d, dtype_name, window, _, _ = case
+    qp = kw["q_positions"].long()[:, None]
+    kp = kw["kv_positions"].long()[None, :]
+    vis = (kp >= 0) & (qp >= 0) & (kp <= qp)
+    if window:
+        vis &= kp > qp - window
+    pairs = int(vis.sum().item())
+    slots = int(vis.any(0).sum().item())
+    es = q.element_size()
+    nbytes = (2 * B * Tq * H * d + 2 * B * slots * Hkv * d) * es + 4 * (Tq + Tk)
+    flops = 4 * B * H * d * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), flops
+
+
+def _event_ms(torch, fn, n_inputs: int, reps: int) -> float:
+    """Device time per call of ``fn(i)`` over ``reps`` calls cycling through
+    ``n_inputs`` input sets, by CUDA events after a warm-up call."""
+    fn(0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(i % n_inputs)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_flash(torch, counters):
+    """``flash_attention`` on its own entry point at the four cases of
+    :data:`FLASH_CASES`: the path (one call per case, counted), then each
+    output against the plain version, then times: kernel, plain version,
+    ``scaled_dot_product_attention`` (the yardstick; the port never calls
+    it) and the bound."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    inputs = [_flash_inputs(torch, case, gen) for case in FLASH_CASES]
+    # the main path: counts at 0 just before, read just after
+    _zero_counts()
+    torch.cuda.synchronize()
+    outs = [flash_attention(q, k, v, **kw) for q, k, v, kw in inputs]
+    torch.cuda.synchronize()
+    counters["flash"] = _launch_counts()
+    if counters["flash"]["flash_attention"] != len(FLASH_CASES):
+        raise AssertionError(f"flash path launches {counters['flash']}")
+    records = []
+    for case, (q, k, v, kw), out in zip(FLASH_CASES, inputs, outs):
+        name, B, Tq, Tk, H, Hkv, d, dtype_name, window, tail, _ = case
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"flash {name}: non-finite output")
+        err, ratio = _flash_plain_err(torch, case, q, k, v, kw, out)
+        ok = ratio <= 1.0
+        bound, bound_by, flops = _flash_bound_ms(torch, case, q, kw)
+        # K/V sets cycled through more than the 50 MB L2 where they would fit
+        kv_bytes = 2 * k.numel() * k.element_size()
+        n_sets = max(1, min(8, math.ceil(L2_DEFEAT_BYTES / kv_bytes)))
+        sets = [(q, k, v)] + [(q, k.clone(), v.clone()) for _ in range(n_sets - 1)]
+        reps = max(n_sets, 4)
+        rec = dict(kernel="flash_attention", case=name, dtype=dtype_name, B=B, Tq=Tq, Tk=Tk,
+                   H=H, Hkv=Hkv, d=d, window=window, invalid_slots=tail, max_abs_err=err,
+                   err_over_tol=ratio, ok=ok, flops=flops, bound_ms=bound, bound_by=bound_by)
+        rec["ms"] = _event_ms(torch, lambda i: flash_attention(*sets[i], **kw), n_sets, reps)
+        if case[-1] == 1:  # the plain version in one call fits the card
+            rec["plain_ms"] = _event_ms(
+                torch, lambda i: flash_attention_ref(*sets[i], **kw), n_sets, reps)
+        else:  # by head groups, summed
+            groups, hk = case[-1], Hkv // case[-1]
+            rec["plain_ms"] = sum(
+                _event_ms(torch, lambda i, j=j: flash_attention_ref(
+                    q[:, :, j * hk * (H // Hkv):(j + 1) * hk * (H // Hkv)].contiguous(),
+                    k[:, :, j * hk:(j + 1) * hk].contiguous(),
+                    v[:, :, j * hk:(j + 1) * hk].contiguous(), **kw), 1, 1)
+                for j in range(groups))
+        # the library call on (B, H, T, d) views made beforehand
+        qpos, kpos = kw["q_positions"].long(), kw["kv_positions"].long()
+        mask = None
+        if window or tail:
+            m = (kpos[None, :] >= 0) & (kpos[None, :] <= qpos[:, None])
+            if window:
+                m &= kpos[None, :] > qpos[:, None] - window
+            mask = m[None, None]
+        lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in qkv) for qkv in sets]
+        rec["library_ms"] = _event_ms(torch, lambda i: F.scaled_dot_product_attention(
+            *lib_sets[i], attn_mask=mask, is_causal=mask is None, enable_gqa=True), n_sets, reps)
+        records.append(rec)
+        log(f"[flash] {name:26s} {dtype_name:8s} B={B} Tq={Tq} Tk={Tk} H={H}/{Hkv} d={d} "
+            f"window={window} invalid={tail}: max_abs_err={err:.3g} "
+            f"worst err/tol={ratio:.3g} {'ok' if ok else 'MISMATCH'}  "
+            f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+            f"library_ms={rec['library_ms']:.4f} bound_ms={bound:.6f} ({bound_by}; "
+            f"{flops:.3e} FLOPs) launches=1")
+        del sets, lib_sets, mask
+        torch.cuda.empty_cache()
+    del inputs, outs
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} flash case(s) disagree with the plain version: {bad}")
+    return records
+
+
+# ---------------------------------------------------------------------------
+# the spec-file path: python -m repro_torch.api run, wire, checkpoint, resume
+# ---------------------------------------------------------------------------
+
+#: --set overrides that turn examples/configs/sync_baseline.toml into the
+#: llm-100m run of the spec phase (spec defaults otherwise: fedlrt,
+#: simplified correction, 4 clients, s* = 4, batch 4, seq 128, f32)
+SPEC_SETS = ["name=chip-spec-llm-100m", "model.preset=llm-100m", "rounds=2", "log_every=1",
+             "wire.codec=int8_affine", "checkpoint.every=1"]
+
+
+def _tensor_bits_equal(torch, a, b) -> bool:
+    from repro_torch.utils.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _history_rows(history):
+    """A round history (RoundResults, or the sidecar's dicts) as JSON-safe
+    dicts without the host clock."""
+    from repro_torch.fed.engine import history_to_state
+
+    rows = history if history and isinstance(history[0], dict) else history_to_state(history)
+    return [{k: v for k, v in r.items() if k != "seconds"} for r in rows]
+
+
+def phase_spec(torch, counters, workdir):
+    """llm-100m through the spec-file path, with the wire and checkpoints."""
+    import numpy as np
+
+    from repro_torch.api import build, load_spec, serve
+    from repro_torch.api.__main__ import main as api_main
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.core import cost_model
+    from repro_torch.utils.tree import tree_leaves
+
+    base = os.path.join(ROOT, "examples", "configs", "sync_baseline.toml")
+    ckdir = os.path.join(workdir, "ckpt")
+    sets = SPEC_SETS + [f"checkpoint.dir={ckdir}"]
+    spec = load_spec(base).with_overrides(sets)
+    toml = os.path.join(workdir, "llm100m_spec.toml")
+    spec.save(toml)
+    log(f"[spec] {toml} written from examples/configs/sync_baseline.toml with "
+        f"{' '.join('--set ' + x for x in sets)}; spec {spec.spec_hash()}")
+
+    # 1. the main path: python -m repro_torch.api run <toml> (its main(),
+    #    in this process, so the launch counts can be read)
+    argv = ["run", toml, "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if api_main(argv) != 0:
+        raise AssertionError(f"python -m repro_torch.api {' '.join(argv)} failed")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counters["spec"] = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name in ("xus", "avt", "atb"):
+        if not counters["spec"][name]:
+            raise AssertionError(f"spec path launched no {name}: {counters['spec']}")
+    ck1, ck2 = (os.path.join(ckdir, f"round_{i:06d}.npz") for i in (1, 2))
+    params_full, meta2 = load_checkpoint(ck2, device="cuda")
+    state2 = np.load(ck2 + ".state.npy", allow_pickle=True).item()
+    hist_full = state2["history"]
+    log(f"[spec] python -m repro_torch.api {' '.join(argv)}: {run_s:.1f} s with the build; "
+        f"launches {counters['spec']}; peak {peak:.2f} GiB; checkpoints {sorted(os.listdir(ckdir))}")
+    if meta2.get("spec_hash") != spec.spec_hash() or meta2.get("round") != 2:
+        raise AssertionError(f"checkpoint meta {meta2}")
+
+    # 2. a fresh experiment from the same TOML, resumed from round 1
+    exp = build(load_spec(toml), device="cuda")
+    exp.resume(ck1)
+    exp.run(rounds=1, log_every=0)
+    torch.cuda.synchronize()
+    if not _tensor_bits_equal(torch, exp.params, params_full):
+        raise AssertionError("resumed run's params differ from the uninterrupted run's")
+    got_rows = _history_rows(exp.history)
+    want_rows = _history_rows(hist_full)
+    if got_rows != want_rows:
+        raise AssertionError(f"resumed history differs:\n{got_rows}\n{want_rows}")
+    log(f"[spec] resume from {os.path.basename(ck1)} + 1 round: params bit-identical to the "
+        f"uninterrupted run ({len(tree_leaves(exp.params))} tensors), history equal")
+    resumed_hist = exp.history
+    del exp
+    torch.cuda.empty_cache()
+
+    # 3. one round from the round-1 params with the identity codec, and one
+    #    with the wire off: the same bits
+    params1, _ = load_checkpoint(ck1, device="cuda")
+    id_spec = spec.with_overrides(["wire.codec=identity", "checkpoint.dir=none"])
+    exp_id = build(id_spec, params=params1, device="cuda")
+    exp_off = build(id_spec, params=params1, device="cuda")
+    exp_off.engine.wire = None  # wire_codec=None: payloads as they are, no meter
+    res_id = exp_id.run(rounds=1, log_every=0)[-1]
+    res_off = exp_off.run(rounds=1, log_every=0)[-1]
+    torch.cuda.synchronize()
+    if not _tensor_bits_equal(torch, exp_id.params, exp_off.params):
+        raise AssertionError("identity codec and wire off disagree")
+    if (res_id.loss_before, res_id.loss_after) != (res_off.loss_before, res_off.loss_after):
+        raise AssertionError("identity codec and wire off losses differ")
+    analytic = cost_model.wire_round_bytes(params1, "fedlrt",
+                                           correction=spec.fed.correction_effective)
+    if (res_id.wire_bytes_down_per_client, res_id.wire_bytes_up_per_client) != (
+            analytic["down"], analytic["up"]):
+        raise AssertionError(f"measured identity bytes {res_id.wire_bytes_down_per_client} / "
+                             f"{res_id.wire_bytes_up_per_client} != wire_round_bytes {analytic}")
+    if res_off.wire_codec or res_off.wire_bytes_up_per_client:
+        raise AssertionError("the wire-off round measured bytes")
+    log(f"[spec] identity codec vs wire off, one round from round-1 params: all "
+        f"{len(tree_leaves(exp_id.params))} tensors bit-identical; measured identity "
+        f"down {res_id.wire_bytes_down_per_client / 1e6:.6f} MB / up "
+        f"{res_id.wire_bytes_up_per_client / 1e6:.6f} MB per client = wire_round_bytes "
+        f"{analytic['down'] / 1e6:.6f} / {analytic['up'] / 1e6:.6f} MB (exact)")
+    del exp_id, exp_off
+    torch.cuda.empty_cache()
+
+    rounds = []
+    for r in hist_full:
+        ranks = np.concatenate([np.ravel(v) for v in r["ranks"].values()])
+        row = dict(round=r["round_idx"], host_s=r["seconds"],
+                   loss_before=r["loss_before"], loss_after=r["loss_after"],
+                   int8_down_mb=r["wire_bytes_down_per_client"] / 1e6,
+                   int8_up_mb=r["wire_bytes_up_per_client"] / 1e6,
+                   identity_down_mb=res_id.wire_bytes_down_per_client / 1e6,
+                   identity_up_mb=res_id.wire_bytes_up_per_client / 1e6,
+                   wire_round_bytes_down_mb=analytic["down"] / 1e6,
+                   wire_round_bytes_up_mb=analytic["up"] / 1e6,
+                   static_mb=r["comm_bytes_per_client"] / 1e6,
+                   effective_mb=r["comm_bytes_per_client_effective"] / 1e6,
+                   rank_min=float(ranks.min()), rank_mean=float(ranks.mean()),
+                   rank_max=float(ranks.max()), peak_gib=peak)
+        rounds.append(row)
+        log(f"[spec] round {row['round']}: host {row['host_s']:.3f} s; loss "
+            f"{row['loss_before']:.6f} -> {row['loss_after']:.6f}; MB per client down/up: int8 "
+            f"{row['int8_down_mb']:.6f} / {row['int8_up_mb']:.6f}, identity "
+            f"{row['identity_down_mb']:.6f} / {row['identity_up_mb']:.6f} (wire_round_bytes "
+            f"{row['wire_round_bytes_down_mb']:.6f} / {row['wire_round_bytes_up_mb']:.6f}); "
+            f"FeDLRT protocol static {row['static_mb']:.3f} MB, effective "
+            f"{row['effective_mb']:.3f} MB; rank min/mean/max {row['rank_min']:.0f}/"
+            f"{row['rank_mean']:.2f}/{row['rank_max']:.0f}; run peak {peak:.2f} GiB")
+        if not (math.isfinite(row["loss_before"]) and math.isfinite(row["loss_after"])):
+            raise AssertionError(f"spec round {row['round']}: non-finite loss")
+    ratio = res_id.wire_bytes_up_per_client / hist_full[0]["wire_bytes_up_per_client"]
+    log(f"[spec] int8 uplink is {ratio:.3f}x below identity's (>= 3 required)")
+    if not ratio >= 3.0:
+        raise AssertionError(f"int8 uplink only {ratio:.3f}x below identity")
+
+    # 4. serve 4 short greedy requests from the written checkpoint
+    srv_spec = spec.with_overrides([f"serve.checkpoint={ckdir}", "serve.max_batch=4",
+                                    "serve.max_prompt=16", "serve.prompt_bucket=8",
+                                    "serve.max_new_tokens=8", "serve.temperature=0.0"])
+    session = serve(srv_spec, device="cuda")
+    log(session.describe())
+    if not _tensor_bits_equal(torch, session.engine.params, params_full):
+        raise AssertionError("served params differ from the latest checkpoint's")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, session.engine.model.cfg.vocab_size, size=n) for n in (5, 9, 13, 16)]
+    t0 = time.perf_counter()
+    outs, comps = session.generate(prompts)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    vocab = session.engine.model.cfg.vocab_size
+    if [len(o) for o in outs] != [8] * 4 or not all(
+            0 <= int(t) < vocab for o in outs for t in o):
+        raise AssertionError(f"served outputs {outs}")
+    log(f"[spec] served 4 greedy requests x 8 tokens from {os.path.basename(ck2)} in "
+        f"{serve_s:.3f} s; first tokens {[list(map(int, o[:4])) for o in outs]}")
+    del session
+    torch.cuda.empty_cache()
+    return dict(rounds=rounds, run_s=run_s, resumed_rounds=len(resumed_hist),
+                int8_uplink_ratio=ratio, serve_s=serve_s, spec_hash=spec.spec_hash())
+
+
+def kernel_summary(records, atb_records, flash_records, counters, cfg, atb_calls):
     """Per kernel: ``xus``/``avt`` as the sum over one Qwen2-7B decode
     step's launches (M = 4) of each measured number; ``atb`` as the sum over
-    one llm-100m FeDLRT round's launches (M = 512, f32). ``launches`` is
-    the count over the serve and train runs; the worst error is over every
-    checked case."""
+    one llm-100m FeDLRT round's launches (M = 512, f32); ``flash_attention``
+    as one Qwen2-7B 4096-token causal prefill (bf16). ``launches`` is the
+    count over the paths' runs; the worst error is over every checked case."""
+
+    def launches(name):
+        return {"launches": sum(counters[p][name] for p in PATHS),
+                "launches_by_path": {p: counters[p][name] for p in PATHS}}
+
     calls = decode_step_calls(cfg)
     out = []
     for name in ("xus", "avt"):
@@ -844,8 +1217,7 @@ def kernel_summary(records, atb_records, counters, cfg, atb_calls):
             bound_by.add(rec["bound_by"])
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": counters["serve"][name] + counters["train"][name],
-            "launches_by_path": {p: counters[p][name] for p in ("serve", "train")},
+            **launches(name),
             "max_abs_err": max(r["max_abs_err"] for r in records if r["kernel"] == name),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
@@ -861,12 +1233,20 @@ def kernel_summary(records, atb_records, counters, cfg, atb_calls):
         bound_by.add(rec["bound_by"])
     out.append({
         "name": "atb", "route": "cuda", "source": SOURCES["atb"], "replaces": REPLACES["atb"],
-        "launches": counters["serve"]["atb"] + counters["train"]["atb"],
-        "launches_by_path": {p: counters[p]["atb"] for p in ("serve", "train")},
+        **launches("atb"),
         "max_abs_err": max(r["max_abs_err"] for r in atb_records),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
         "library_ms": tot["library_ms"], "unit": "one llm-100m FeDLRT round (f32, M=512)",
+    })
+    [pre] = [r for r in flash_records if r["case"] == "qwen2-7b prefill"]
+    out.append({
+        "name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"], **launches("flash_attention"),
+        "max_abs_err": max(r["max_abs_err"] for r in flash_records),
+        "ms": pre["ms"], "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
+        "bound_by": pre["bound_by"], "library_ms": pre["library_ms"],
+        "unit": "one Qwen2-7B 4096-token causal prefill (bf16)",
     })
     return out
 
@@ -902,10 +1282,16 @@ def main() -> int:
     done("serve")
     train = phase_train(torch, counters)
     done("train")
+    flash_records = phase_flash(torch, counters)
+    done("flash")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spec_") as workdir:
+        spec_stats = phase_spec(torch, counters, workdir)
+    done("spec")
     log("[summary] " + json.dumps({"card": smi, "serve": serve_stats, "train": {
-        k: v for k, v in train.items() if k != "atb_calls"}}))
+        k: v for k, v in train.items() if k != "atb_calls"}, "flash": flash_records,
+        "spec": spec_stats}))
     print(json.dumps({"kernels": kernel_summary(
-        records, atb_records, counters, cfg, train["atb_calls"])}))
+        records, atb_records, flash_records, counters, cfg, train["atb_calls"])}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -3,7 +3,8 @@ place the port's training engine and serving stack are constructed (the
 JAX package's ``repro.api.experiment``).
 
 Both run on the card (``device="cuda"``) unless the caller asks for the
-CPU; asking for CUDA without a card raises.
+CPU; asking for CUDA without a card raises. Spec values the port parses but
+does not run yet raise :class:`NotImplementedError` here, naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.api.tasks import Task, build_task, lm_model_config
-from repro_torch.checkpoint import load_checkpoint
+from repro_torch.checkpoint import load_checkpoint, load_checkpoint_meta
 from repro_torch.fed.engine import FederatedEngine
 from repro_torch.models import build_model
 from repro_torch.serve import ContinuousScheduler, Request, ServeEngine
@@ -38,16 +39,54 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _latest_checkpoint(directory: str) -> str:
+    """The last ``round_*.npz`` under ``directory`` (round numbers are
+    zero-padded, so the names sort by round)."""
+    ckpts = sorted(glob.glob(os.path.join(directory, "round_*.npz")))
+    if not ckpts:
+        raise FileNotFoundError(f"no round_*.npz checkpoints under {directory!r}")
+    return ckpts[-1]
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported to PyTorch yet; see ROADMAP.md")
+
+
+def _check_trainable(spec: ExperimentSpec) -> None:
+    if spec.engine.kind != "sync":
+        raise _not_ported(f"the {spec.engine.kind} engine (engine.kind={spec.engine.kind!r})")
+    if spec.sim.profile is not None:
+        raise _not_ported(f"the system simulator (sim.profile={spec.sim.profile!r})")
+    if spec.telemetry.enabled:
+        raise _not_ported("the telemetry sinks (telemetry.enabled=true)")
+
+
+def _check_servable(spec: ExperimentSpec) -> None:
+    sv = spec.serve
+    if sv.quantize != "none":
+        raise _not_ported(f"quantized serving (serve.quantize={sv.quantize!r})")
+    if sv.rank_slice:
+        raise _not_ported("rank-sliced serving (serve.rank_slice=true)")
+    if sv.materialize:
+        raise _not_ported("materialized serving (serve.materialize=true)")
+    if spec.telemetry.enabled:
+        raise _not_ported("the telemetry sinks (telemetry.enabled=true)")
+
+
 def build(spec: ExperimentSpec, *, params=None, device="cuda", telemetry=None) -> "Experiment":
     """Resolve a validated spec into a runnable :class:`Experiment` on
     ``device``. ``params`` (optional) replaces the task's fresh
     initialization, e.g. parameters carried over from the JAX package by
     :func:`repro_torch.checkpoint.params_from_numpy`; they are moved to
     ``device``."""
+    _check_trainable(spec)
     dev = resolve_device(device)
     task = build_task(spec, dev)
     if params is not None:
         task = dataclasses.replace(task, params=tree_map(lambda t: t.to(dev), params))
+    ckpt_meta = {"spec_hash": spec.spec_hash()}
+    if spec.name:
+        ckpt_meta["spec_name"] = spec.name
     # repro-lint: disable=RPL001 -- this is the port's build() seam, the
     # twin of repro.api.experiment.build(); the lint's path rules only know
     # the JAX package's own tree, so the sanctioned home needs saying here
@@ -56,6 +95,10 @@ def build(spec: ExperimentSpec, *, params=None, device="cuda", telemetry=None) -
         method=spec.fed.method,
         participation=spec.participation.build(seed=spec.seed),
         client_weights=task.client_sizes if spec.fed.weighted else None,
+        checkpoint_dir=spec.checkpoint.dir,
+        checkpoint_every=spec.checkpoint.effective_every,
+        wire_codec=spec.wire.codec,
+        checkpoint_meta=ckpt_meta,
         telemetry=telemetry,
     )
     return Experiment(spec=spec, task=task, engine=engine, hub=telemetry)
@@ -66,8 +109,9 @@ class Experiment:
     """A built experiment: spec + task + engine, ready to run.
 
     ``run()`` trains ``spec.rounds`` rounds (overridable) and returns the
-    engine's round history; ``evaluate()`` is the task's holdout metric;
-    ``describe()`` renders the scenario for humans.
+    engine's round history; ``resume()`` restores the latest (or a named)
+    checkpoint after checking its spec hash; ``evaluate()`` is the task's
+    holdout metric; ``describe()`` renders the scenario for humans.
     """
 
     spec: ExperimentSpec
@@ -99,13 +143,41 @@ class Experiment:
             raise ValueError(f"the {self.spec.model.kind!r} task defines no holdout eval")
         return self.task.eval_fn(self.engine.params)
 
+    def resume(self, path: Optional[str] = None) -> dict:
+        """Restore a checkpoint written by this spec's engine, in either
+        package (their spec hashes agree).
+
+        ``path`` defaults to the latest ``round_*.npz`` under
+        ``spec.checkpoint.dir``. A checkpoint stamped with a *different*
+        spec hash is refused before any state is touched: resuming under
+        changed hyperparameters would silently corrupt the run.
+        """
+        if path is None:
+            if not self.spec.checkpoint.dir:
+                raise ValueError("resume() needs checkpoint.dir in the spec or an explicit path")
+            path = _latest_checkpoint(self.spec.checkpoint.dir)
+        stamped = load_checkpoint_meta(path).get("spec_hash")
+        ours = self.spec.spec_hash()
+        if stamped is not None and stamped != ours:
+            raise ValueError(
+                f"checkpoint {path!r} was written by spec {stamped}, but this experiment is "
+                f"spec {ours}; refusing to resume a mismatched spec (same seed is not the "
+                f"same run under different hyperparameters)"
+            )
+        return self.engine.restore(path, batcher=self.task.batcher)
+
     def comm_total_bytes(self) -> float:
         return self.engine.comm_total_bytes()
 
     def describe(self) -> str:
         s = self.spec
+        ckpt = (
+            f"{s.checkpoint.dir} every {s.checkpoint.effective_every}"
+            if s.checkpoint.dir else "(off)"
+        )
         return "\n".join([
-            f"experiment {s.name or '(unnamed)'}  [device {self.engine.device}]",
+            f"experiment {s.name or '(unnamed)'}  [spec {s.spec_hash()}]  "
+            f"[device {self.engine.device}]",
             f"  task           {s.model.kind}: {self.task.description}"
             + f"  kernels={s.model.kernels}",
             f"  fed            {s.fed.method}"
@@ -114,6 +186,8 @@ class Experiment:
             + ("  weighted" if s.fed.weighted else ""),
             f"  participation  {s.participation.to_string()}",
             f"  engine         {s.engine.kind}",
+            f"  wire           {s.wire.codec}",
+            f"  checkpoint     {ckpt}",
             f"  data           batch={s.data.batch}"
             + (f"  seq={s.data.seq}" if s.model.kind == "lm" else "")
             + f"  partition={s.data.partition}",
@@ -126,14 +200,15 @@ def serve(spec: ExperimentSpec, *, params=None, device="cuda", telemetry=None) -
 
     Params come from, in priority order: the explicit ``params`` argument,
     the checkpoint named by ``spec.serve.checkpoint`` (a ``round_*.npz``
-    file written by the JAX package, or a directory whose latest round
-    wins), or fresh initialization from ``spec.seed`` (smoke runs).
+    file written by either package's engine, or a directory whose latest
+    round wins), or fresh initialization from ``spec.seed`` (smoke runs).
     """
     if spec.model.kind != "lm":
         raise ValueError(
             f"serving decodes tokens; model.kind={spec.model.kind!r} has no "
             f"decode path (use kind='lm')"
         )
+    _check_servable(spec)
     dev = resolve_device(device)
     cfg = lm_model_config(spec.model)
     model = build_model(cfg)
@@ -143,10 +218,7 @@ def serve(spec: ExperimentSpec, *, params=None, device="cuda", telemetry=None) -
         if sv.checkpoint is not None:
             path = sv.checkpoint
             if os.path.isdir(path):
-                ckpts = sorted(glob.glob(os.path.join(path, "round_*.npz")))
-                if not ckpts:
-                    raise FileNotFoundError(f"no round_*.npz checkpoints under {path!r}")
-                path = ckpts[-1]
+                path = _latest_checkpoint(path)
             params, _meta = load_checkpoint(path, device=dev)
         else:
             gen = torch.Generator(device=dev)
@@ -218,13 +290,13 @@ class ServeSession:
 
     def describe(self) -> str:
         s, sv = self.spec, self.spec.serve
-        m = s.model
+        m, cfg = s.model, self.engine.model.cfg
         return "\n".join([
-            f"serve {s.name or '(unnamed)'}  [device {self.engine.device}]",
+            f"serve {s.name or '(unnamed)'}  [spec {s.spec_hash()}]  "
+            f"[device {self.engine.device}]",
             f"  model     {m.preset or m.arch}"
             + ("  (smoke)" if m.smoke else "")
-            + (f"  layers={m.layers}" if m.layers else "")
-            + (f"  dtype={m.dtype}" if m.dtype else "")
+            + f"  layers={cfg.num_layers}  dtype={cfg.compute_dtype}"
             + f"  kernels={m.kernels}",
             f"  params    {sv.checkpoint or '(fresh init)'}  quantize={sv.quantize}",
             f"  batching  {sv.mode}  slots={sv.max_batch}  queue≤{sv.max_queue}",

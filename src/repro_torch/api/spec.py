@@ -1,33 +1,44 @@
 """The experiment spec: what trains or is served, on what data, and how.
 
-The port's part of the JAX package's ``repro.api.spec``: :class:`ModelSpec`
-(the ``lm``, ``mlp`` and ``lsq`` tasks), :class:`DataSpec`,
-:class:`FedSpec`, :class:`ParticipationSpec`, :class:`EngineSpec` (the
-synchronous engine), :class:`ServeSpec` and the :class:`ExperimentSpec`
-that holds them. Field names, defaults and validation follow the JAX
-package. Not ported yet (ROADMAP.md): the wire, sim, checkpoint and
-telemetry sections, TOML / JSON files and the spec hash.
-"""
-from __future__ import annotations
+The port's ``repro.api.spec``: :class:`ModelSpec` (the ``lm``, ``mlp`` and
+``lsq`` tasks), :class:`DataSpec`, :class:`FedSpec`,
+:class:`ParticipationSpec`, :class:`EngineSpec`, :class:`WireSpec`,
+:class:`SimSpec`, :class:`CheckpointSpec`, :class:`TelemetrySpec`,
+:class:`ServeSpec` and the :class:`ExperimentSpec` that holds them. Field
+names, defaults and validation follow the JAX package, and so do the
+dict / TOML / JSON forms and :meth:`ExperimentSpec.spec_hash`: one spec file
+parses and hashes the same under both packages, which lets a checkpoint
+written by one resume in the other.
 
+Values the port parses but does not run yet (ROADMAP.md) are refused by
+``build()`` / ``serve()``, not here: the async and hier engines, a
+``sim.profile``, ``telemetry.enabled``, ``serve.quantize`` other than
+``none``, ``serve.rank_slice`` and ``serve.materialize``.
+"""
 import dataclasses
 from dataclasses import field
 from typing import Optional
 
+from repro_torch.api.serialization import (
+    content_hash,
+    from_plain_dict,
+    parse_override,
+    set_dotted,
+    to_plain_dict,
+    toml_dumps,
+    toml_loads,
+)
 from repro_torch.kernels.ops import use_kernels_for
 from repro_torch.serve.scheduler import SCHED_MODES
 
-#: at-rest factor formats the port serves (int8 / bf16 come with
-#: serve/quantize.py, ROADMAP.md queue 1)
-QUANT_MODES = ("none",)
-DTYPES = ("", "float32", "bfloat16")
+#: at-rest factor formats of the JAX package's ``serve.quantize`` (the port
+#: serves "none"; int8 / bf16 come with serve/quantize.py, ROADMAP.md)
+QUANT_MODES = ("none", "int8", "bf16")
 CORRECTIONS = ("auto", "none", "simplified", "full")
-#: engine kinds the port runs (the JAX package also has "async" and "hier")
-ENGINE_KINDS = ("sync",)
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to PyTorch yet; see ROADMAP.md")
+#: engine kinds of the JAX package; the port runs "sync"
+ENGINE_KINDS = ("sync", "async", "hier")
+#: telemetry sink names of the JAX package (``repro.telemetry.sinks``)
+SINK_NAMES = ("console", "memory", "jsonl", "perfetto")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,10 +50,6 @@ class ModelSpec:
     registry ``arch`` (exactly one); ``"mlp"``, the fig-5-style CV proxy
     head with a FeDLRT-factorized hidden layer; ``"lsq"``, the paper's
     §5.1 least-squares problem.
-
-    ``layers`` > 0 cuts an lm architecture's depth to that many layers and
-    ``dtype`` ("float32" / "bfloat16") overrides its compute and parameter
-    dtypes; both are for smoke runs at full width.
     """
 
     kind: str = "lm"
@@ -51,8 +58,6 @@ class ModelSpec:
     arch: Optional[str] = None
     smoke: bool = False
     kernels: str = "auto"
-    layers: int = 0
-    dtype: str = ""
     # mlp / lsq tasks
     dim: int = 64
     classes: int = 10
@@ -67,10 +72,6 @@ class ModelSpec:
                 raise ValueError(f"model.{f_} must be positive")
         if self.kind == "lm" and (self.preset is None) == (self.arch is None):
             raise ValueError("model: the lm task needs exactly one of preset / arch")
-        if self.layers < 0:
-            raise ValueError("model.layers must be >= 0 (0 keeps the depth)")
-        if self.dtype not in DTYPES:
-            raise ValueError(f"model.dtype must be one of {DTYPES}, got {self.dtype!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,17 +231,152 @@ class ParticipationSpec:
 
 @dataclasses.dataclass(frozen=True)
 class EngineSpec:
-    """When the server aggregates: the port runs the synchronous engine
-    (one barrier per round); the async and hierarchical engines are not
-    ported yet."""
+    """When the server aggregates.
+
+    ``None`` means "engine default" and **unset**: setting an async-only
+    knob (``buffer_size``, ``staleness_power``) or a hier-only knob
+    (``edges``, ``edge_rounds``) with a different ``kind`` is rejected at
+    spec time. The port runs the synchronous engine; ``build()`` refuses
+    the others.
+    """
 
     kind: str = "sync"
+    buffer_size: Optional[int] = None  # async: aggregate every K arrivals
+    staleness_power: Optional[float] = None  # async: (1+s)^-p discount
+    edges: Optional[int] = None  # hier: edge servers
+    edge_rounds: Optional[int] = None  # hier: local rounds per cloud round
 
     def __post_init__(self):
-        if self.kind in ("async", "hier"):
-            raise _not_ported(f"the {self.kind} engine")
         if self.kind not in ENGINE_KINDS:
             raise ValueError(f"engine.kind must be one of {ENGINE_KINDS}, got {self.kind!r}")
+        if self.buffer_size is not None and self.buffer_size < 1:
+            raise ValueError("engine.buffer_size must be >= 1")
+        if self.staleness_power is not None and self.staleness_power < 0:
+            raise ValueError("engine.staleness_power must be >= 0")
+        if self.edges is not None and self.edges < 1:
+            raise ValueError("engine.edges must be >= 1")
+        if self.edge_rounds is not None and self.edge_rounds < 1:
+            raise ValueError("engine.edge_rounds must be >= 1")
+        for kind, knobs in (("async", ("buffer_size", "staleness_power")),
+                            ("hier", ("edges", "edge_rounds"))):
+            if self.kind == kind:
+                continue
+            for f_ in knobs:
+                if getattr(self, f_) is not None:
+                    raise ValueError(
+                        f"engine.{f_} only applies to the {kind} engine "
+                        f"(engine.kind={self.kind!r})"
+                    )
+
+
+@dataclasses.dataclass(frozen=True)
+class WireSpec:
+    """What crosses the wire(s): the client-tier codec plus the hier
+    engine's edge↔cloud codec (``None`` → same as ``codec``)."""
+
+    codec: str = "identity"
+    edge_codec: Optional[str] = None
+
+    def __post_init__(self):
+        from repro_torch.fed.wire import make_codec
+
+        make_codec(self.codec)  # raises with the codec menu on bad specs
+        if self.edge_codec is not None:
+            make_codec(self.edge_codec)
+
+
+def _check_fleet_spec(spec: str) -> None:
+    """Validate a system-simulation fleet string as the JAX package's
+    ``Fleet.from_spec`` parses it: ``uniform`` | ``straggler[:FRAC[,SLOWDOWN]]``
+    | ``lognormal[:SIGMA]``, optionally prefixed ``dropout:P,``."""
+    spec = spec.strip()
+    drop = 0.0
+    if spec.startswith("dropout:"):
+        head, _, tail = spec[len("dropout:"):].partition(",")
+        drop, spec = float(head), (tail or "uniform")
+    if not 0.0 <= drop < 1.0:
+        raise ValueError(f"drop_prob must be in [0, 1), got {drop}")
+    kind, _, arg = spec.partition(":")
+    if kind == "uniform":
+        if arg:
+            raise ValueError(f"uniform fleet takes no argument, got {spec!r}")
+        return
+    if kind == "straggler":
+        if arg:
+            parts = arg.split(",")
+            frac = float(parts[0])
+            slowdown = float(parts[1]) if len(parts) > 1 else 10.0
+            if not 0.0 <= frac <= 1.0:
+                raise ValueError(f"slow_frac must be in [0, 1], got {frac}")
+            if slowdown < 1.0:
+                raise ValueError(f"slowdown must be >= 1, got {slowdown}")
+        return
+    if kind == "lognormal":
+        if arg:
+            float(arg)
+        return
+    raise ValueError(
+        f"unknown fleet spec {spec!r}; expected uniform | straggler[:FRAC[,SLOWDOWN]] | "
+        f"lognormal[:SIGMA] (optionally prefixed dropout:P,)"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class SimSpec:
+    """System-simulation fleet (the JAX package's ``Fleet.from_spec``
+    string). ``None`` = no virtual clock. The port parses it; ``build()``
+    refuses a profile (``fed/sim/`` is not ported, ROADMAP.md)."""
+
+    profile: Optional[str] = None
+
+    def __post_init__(self):
+        if self.profile is not None:
+            _check_fleet_spec(self.profile)  # parse = validate
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointSpec:
+    """Checkpointing cadence: ``every`` rounds into ``dir`` (``dir=None``
+    disables; the effective cadence is 0 without a directory)."""
+
+    dir: Optional[str] = None
+    every: int = 20
+
+    def __post_init__(self):
+        if self.every < 0:
+            raise ValueError("checkpoint.every must be >= 0")
+
+    @property
+    def effective_every(self) -> int:
+        return self.every if self.dir else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TelemetrySpec:
+    """Structured telemetry: ``enabled``, a comma-separated subset of
+    ``sinks`` (console, memory, jsonl, perfetto), the file sinks' ``dir``
+    and the gauge sampling cadence ``sample_every``. The port parses it;
+    ``build()`` refuses ``enabled = true`` (the JSONL / Perfetto sinks and
+    ``hub_from_spec`` are not ported, ROADMAP.md)."""
+
+    enabled: bool = False
+    sinks: str = "console"
+    dir: Optional[str] = None
+    sample_every: int = 1
+
+    def __post_init__(self):
+        if self.sample_every < 1:
+            raise ValueError("telemetry.sample_every must be >= 1")
+        names = [s.strip() for s in self.sinks.split(",") if s.strip()]
+        if not names:
+            raise ValueError("telemetry.sinks must name at least one sink")
+        for n in names:
+            if n not in SINK_NAMES:
+                raise ValueError(
+                    f"unknown telemetry sink {n!r}; expected a comma list over {SINK_NAMES}"
+                )
+        if self.enabled and self.dir is None and ("jsonl" in names or "perfetto" in names):
+            raise ValueError("telemetry.dir is required for the jsonl/perfetto file sinks")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,11 +387,16 @@ class ServeSpec:
     (latest round wins); ``None`` serves fresh seed-initialized params.
     ``mode`` selects continuous batching or the static-wave baseline.
     Prompts are right-padded to ``prompt_bucket`` multiples, and decode runs
-    at ``(max_batch, max_prompt + max_new_tokens)``.
+    at ``(max_batch, max_prompt + max_new_tokens)``. ``quantize``,
+    ``rank_slice`` and ``materialize`` are parsed and validated as in the
+    JAX package; ``serve()`` refuses all but their defaults
+    (``serve/quantize.py`` is not ported, ROADMAP.md).
     """
 
     checkpoint: Optional[str] = None
     quantize: str = "none"
+    rank_slice: bool = False
+    materialize: bool = False
     mode: str = "continuous"
     max_batch: int = 4
     max_queue: int = 64
@@ -267,10 +408,7 @@ class ServeSpec:
 
     def __post_init__(self):
         if self.quantize not in QUANT_MODES:
-            raise ValueError(
-                f"serve.quantize={self.quantize!r} is not ported yet (the port "
-                f"serves {QUANT_MODES}; see ROADMAP.md, queue 1)"
-            )
+            raise ValueError(f"serve.quantize must be one of {QUANT_MODES}, got {self.quantize!r}")
         if self.mode not in SCHED_MODES:
             raise ValueError(f"serve.mode must be one of {SCHED_MODES}, got {self.mode!r}")
         for name in ("max_batch", "max_queue", "max_prompt", "prompt_bucket", "max_new_tokens"):
@@ -290,6 +428,16 @@ class ServeSpec:
             raise ValueError("serve.temperature must be >= 0")
         if self.eos_id is not None and self.eos_id < 0:
             raise ValueError("serve.eos_id must be a token id (>= 0)")
+        if self.materialize and self.quantize != "none":
+            raise ValueError(
+                f"serve.materialize=True densifies U S Vᵀ; serve.quantize="
+                f"{self.quantize!r} compresses the factors it would destroy — pick one"
+            )
+        if self.materialize and self.rank_slice:
+            raise ValueError(
+                "serve.rank_slice drops inactive factor columns; it has nothing "
+                "to act on once serve.materialize densifies — unset one"
+            )
 
     @property
     def cache_len(self) -> int:
@@ -311,6 +459,10 @@ class ExperimentSpec:
     fed: FedSpec = field(default_factory=FedSpec)
     participation: ParticipationSpec = field(default_factory=ParticipationSpec)
     engine: EngineSpec = field(default_factory=EngineSpec)
+    wire: WireSpec = field(default_factory=WireSpec)
+    sim: SimSpec = field(default_factory=SimSpec)
+    checkpoint: CheckpointSpec = field(default_factory=CheckpointSpec)
+    telemetry: TelemetrySpec = field(default_factory=TelemetrySpec)
     serve: ServeSpec = field(default_factory=ServeSpec)
 
     def __post_init__(self):
@@ -364,8 +516,110 @@ class ExperimentSpec:
             )
 
     def _validate_cross(self):
+        if self.engine.kind in ("async", "hier") and self.participation.mode != "full":
+            raise ValueError(
+                f"the {self.engine.kind} engine derives participation from client "
+                f"availability; participation.mode={self.participation.mode!r} only "
+                f"composes with the sync engine"
+            )
+        if self.wire.edge_codec is not None and self.engine.kind != "hier":
+            raise ValueError(
+                "wire.edge_codec prices the hier engine's edge↔cloud hop; it is "
+                f"meaningless with engine.kind={self.engine.kind!r}"
+            )
+        if self.engine.kind == "hier" and self.checkpoint.dir is not None:
+            raise ValueError(
+                "the hier engine does not support checkpointing yet; unset checkpoint.dir"
+            )
         k = self.participation.cohort_size
         if k is not None and k > self.fed.clients:
             raise ValueError(
                 f"participation.cohort_size ({k}) exceeds fed.clients ({self.fed.clients})"
             )
+        if self.engine.buffer_size is not None and self.engine.buffer_size > self.fed.clients:
+            raise ValueError(
+                f"engine.buffer_size ({self.engine.buffer_size}) exceeds fed.clients "
+                f"({self.fed.clients}) — the buffer could never fill"
+            )
+        if self.engine.edges is not None and self.engine.edges > self.fed.clients:
+            raise ValueError(
+                f"engine.edges ({self.engine.edges}) exceeds fed.clients ({self.fed.clients})"
+            )
+
+    # -- serialization -----------------------------------------------------
+
+    def to_dict(self) -> dict:
+        return to_plain_dict(self)
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "ExperimentSpec":
+        return from_plain_dict(cls, data)
+
+    def to_toml(self) -> str:
+        head = (
+            f"# FeDLRT experiment spec (hash {self.spec_hash()}) — "
+            f"run with:  python -m repro_torch.api run <this file>\n"
+        )
+        return head + toml_dumps(self.to_dict())
+
+    @classmethod
+    def from_toml(cls, text: str) -> "ExperimentSpec":
+        return cls.from_dict(toml_loads(text))
+
+    def to_json(self) -> str:
+        import json
+
+        return json.dumps(self.to_dict(), indent=2) + "\n"
+
+    @classmethod
+    def from_json(cls, text: str) -> "ExperimentSpec":
+        import json
+
+        return cls.from_dict(json.loads(text))
+
+    def save(self, path) -> None:
+        """Write the spec to ``path`` (.toml or .json, by extension)."""
+        path = str(path)
+        if path.endswith(".json"):
+            text = self.to_json()
+        elif path.endswith(".toml"):
+            text = self.to_toml()
+        else:
+            raise ValueError(f"spec files are .toml or .json, got {path!r}")
+        with open(path, "w") as fh:
+            fh.write(text)
+
+    def spec_hash(self) -> str:
+        """12-hex-digit content hash, invariant under field reordering and
+        TOML / JSON round trips, equal to the JAX package's for the same
+        spec; stamped into checkpoints for resume safety."""
+        return content_hash(self.to_dict())
+
+    def replace(self, **changes) -> "ExperimentSpec":
+        """``dataclasses.replace``: ``spec.replace(fed=..., rounds=10)``."""
+        return dataclasses.replace(self, **changes)
+
+    def with_overrides(self, items) -> "ExperimentSpec":
+        """Apply dotted CLI overrides (``["fed.lr=0.1", ...]`` or a
+        ``{"fed.lr": 0.1}`` mapping; values are parsed by the target field's
+        type, ``"none"`` clears an optional field)."""
+        if isinstance(items, dict):
+            pairs = list(items.items())
+        else:
+            pairs = [parse_override(i) for i in items]
+        data = self.to_dict()
+        for path, value in pairs:
+            set_dotted(type(self), data, path, value, parse_str=True)
+        return type(self).from_dict(data)
+
+
+def load_spec(path) -> ExperimentSpec:
+    """Read an :class:`ExperimentSpec` from a .toml or .json file."""
+    path = str(path)
+    with open(path) as fh:
+        text = fh.read()
+    if path.endswith(".json"):
+        return ExperimentSpec.from_json(text)
+    if path.endswith(".toml"):
+        return ExperimentSpec.from_toml(text)
+    raise ValueError(f"spec files are .toml or .json, got {path!r}")

@@ -122,8 +122,8 @@ def _nll(logits, labels) -> torch.Tensor:
 
 
 def lm_model_config(m) -> ModelConfig:
-    """Resolve a ModelSpec's lm architecture (preset/arch × smoke × kernels,
-    then the depth and dtype overrides), shared by training and serving."""
+    """Resolve a ModelSpec's lm architecture (preset/arch × smoke × kernels),
+    shared by training and serving, so the two agree on shapes."""
     if m.preset is not None:
         if m.preset not in PRESETS:
             raise ValueError(f"unknown preset {m.preset!r}; known: {sorted(PRESETS)}")
@@ -132,14 +132,9 @@ def lm_model_config(m) -> ModelConfig:
         cfg = get_config(m.arch)
     if m.smoke:
         cfg = reduced(cfg)
-    changes = {}
     if m.kernels != cfg.kernels:
-        changes["kernels"] = m.kernels
-    if m.layers:
-        changes["num_layers"] = m.layers
-    if m.dtype:
-        changes["compute_dtype"] = changes["param_dtype"] = m.dtype
-    return dataclasses.replace(cfg, **changes) if changes else cfg
+        cfg = dataclasses.replace(cfg, kernels=m.kernels)
+    return cfg
 
 
 def _build_lm(spec, device) -> Task:

@@ -1,1 +1,6 @@
-from repro_torch.checkpoint.io import load_checkpoint, params_from_numpy  # noqa: F401
+from repro_torch.checkpoint.io import (  # noqa: F401
+    load_checkpoint,
+    load_checkpoint_meta,
+    params_from_numpy,
+    save_checkpoint,
+)

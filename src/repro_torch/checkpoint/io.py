@@ -1,11 +1,15 @@
-"""Load the JAX package's npz checkpoints into the port's parameter tree.
+"""Self-describing npz checkpoints of factorized parameter trees, in the
+JAX package's format (``repro.checkpoint.io``).
 
-The JAX package stores factor leaves field-wise (``<path>@U/S/V/rank``),
-joins nested keys with ``|`` (``"blocks|pos0|attn|q@U"``) and puts a JSON
-``__meta__`` beside them. :func:`params_from_numpy` turns such a flat dict
-of numpy arrays into the port's tree of tensors and
+Factor leaves are stored field-wise (``<path>@U/S/V/rank``), nested keys
+are joined with ``|`` (``"blocks|pos0|attn|q@U"``) and a JSON ``__meta__``
+rides beside them (round index, method, spec hash). :func:`save_checkpoint`
+writes that layout from the port's tree (float32 leaves byte for byte as the
+JAX package writes them, bfloat16 leaves as the same 2-byte ``V2`` records);
+:func:`params_from_numpy` turns such a flat dict of numpy arrays into the
+port's tree of tensors and
 :class:`~repro_torch.core.factorization.LowRankFactor` leaves, so a model
-the JAX engine trained serves or trains on in the port. It takes the trees
+one package trained serves or trains on in the other. It takes the trees
 of all three tasks: the ``lm`` model's nested dict, the ``mlp`` head's
 ``{"w1": factor, "b1", "w2", "b2"}``, and the ``lsq`` task's bare root
 factor (keys ``"@U"``, …) or bare dense matrix (key ``""``).
@@ -13,14 +17,62 @@ factor (keys ``"@U"``, …) or bare dense matrix (key ``""``).
 from __future__ import annotations
 
 import json
-from typing import Dict, Optional, Tuple
+import os
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.factorization import LowRankFactor
+from repro_torch.core.factorization import LowRankFactor, is_factor
 
 _SEP = "|"
+
+
+def _flatten(tree, prefix="") -> Dict[str, Any]:
+    """The npz member names of a tree, as the JAX package's ``_flatten``."""
+    out = {}
+    if is_factor(tree):
+        for field in ("U", "S", "V", "rank"):
+            out[f"{prefix}@{field}"] = getattr(tree, field)
+        return out
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + _SEP + str(k) if prefix else str(k)))
+        return out
+    out[prefix] = tree
+    return out
+
+
+def _numpy(t) -> np.ndarray:
+    """A leaf as numpy; bfloat16 as the JAX package writes it, 2-byte
+    ``V2`` records of the same bits."""
+    if not torch.is_tensor(t):
+        return np.asarray(t)
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def save_checkpoint(path: str, params, *, meta: Optional[dict] = None) -> None:
+    """Write ``params`` (and the JSON-safe ``meta``) to the npz ``path``,
+    atomically: a ``.tmp`` file renamed over the target."""
+    flat = {k: _numpy(v) for k, v in _flatten(params).items()}
+    flat["__meta__"] = np.frombuffer(json.dumps(meta or {}).encode(), dtype=np.uint8).copy()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+    os.replace(tmp, path)
+
+
+def load_checkpoint_meta(path: str) -> dict:
+    """The checkpoint's ``__meta__`` dict alone (npz members are read lazily,
+    so the parameters are not loaded): the cheap check before a restore."""
+    with np.load(path) as z:
+        if "__meta__" not in z.files:
+            return {}
+        return json.loads(bytes(z["__meta__"]).decode())
 
 
 def _tensor(a: np.ndarray, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -77,8 +129,8 @@ def params_from_numpy(flat: Dict[str, np.ndarray], device, dtype: Optional[torch
 
 
 def load_checkpoint(path: str, *, device, dtype: Optional[torch.dtype] = None) -> Tuple[dict, dict]:
-    """Returns (params, meta) from an npz written by the JAX package's
-    ``repro.checkpoint.save_checkpoint``."""
+    """Returns (params, meta) from an npz written by :func:`save_checkpoint`
+    or by the JAX package's ``repro.checkpoint.save_checkpoint``."""
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
     meta = json.loads(bytes(flat.pop("__meta__")).decode()) if "__meta__" in flat else {}

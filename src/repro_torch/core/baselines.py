@@ -102,17 +102,17 @@ class FedLinProgram(_DenseProgram):
 
 
 def fedavg_round(loss_fn: LossFn, params, client_batches, cfg: FedConfig, *,
-                 round_idx: int = 0, client_weights=None):
+                 round_idx: int = 0, client_weights=None, wire=None):
     """Algorithm 3: local SGD, aggregate by averaging."""
     return run_round(FedAvgProgram(), loss_fn, params, client_batches, cfg,
-                     round_idx=round_idx, client_weights=client_weights)
+                     round_idx=round_idx, client_weights=client_weights, wire=wire)
 
 
 def fedlin_round(loss_fn: LossFn, params, client_batches, cfg: FedConfig, *,
-                 round_idx: int = 0, client_weights=None):
+                 round_idx: int = 0, client_weights=None, wire=None):
     """Algorithm 4: FedAvg + variance correction (extra comm round)."""
     return run_round(FedLinProgram(), loss_fn, params, client_batches, cfg,
-                     round_idx=round_idx, client_weights=client_weights)
+                     round_idx=round_idx, client_weights=client_weights, wire=wire)
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +196,7 @@ class FedLRTNaiveProgram:
 
 
 def fedlrt_naive_round(loss_fn: LossFn, f: LowRankFactor, client_batches, cfg: FedConfig, *,
-                       round_idx: int = 0, client_weights=None):
+                       round_idx: int = 0, client_weights=None, wire=None):
     """Algorithm 6 round (a :func:`run_round` wrapper)."""
     return run_round(FedLRTNaiveProgram(), loss_fn, f, client_batches, cfg,
-                     round_idx=round_idx, client_weights=client_weights)
+                     round_idx=round_idx, client_weights=client_weights, wire=wire)

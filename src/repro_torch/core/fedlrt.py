@@ -253,17 +253,20 @@ class FedLRTProgram:
 
 
 def fedlrt_round(loss_fn: LossFn, params, client_batches, cfg: FedConfig, *,
-                 round_idx: int = 0, client_weights=None):
+                 round_idx: int = 0, client_weights=None, wire=None):
     """One full FeDLRT aggregation round. Returns ``(new_params, metrics)``.
 
     ``client_batches`` leaves lead with the client axis ``C`` (``(C, s*,
     ...)`` if ``cfg.per_step_batches``). ``client_weights`` (optional,
     shape (C,)): aggregation weights ∝ |X_c| (the paper's §2 weighted
     average), applied to every aggregate of the round and normalized here.
+    ``wire`` (optional :class:`repro_torch.fed.wire.Wire`): the codec for
+    the round's payloads; the metrics then gain the measured
+    ``wire_bytes_{down,up}_per_client``.
     """
     return run_round(
         FedLRTProgram(), loss_fn, params, client_batches, cfg,
-        round_idx=round_idx, client_weights=client_weights,
+        round_idx=round_idx, client_weights=client_weights, wire=wire,
     )
 
 

@@ -21,8 +21,12 @@ Gradients come from :func:`value_and_grad`: ``torch.autograd.grad`` over
 the floating tensor leaves of a parameter tree, a factor's ``U``, ``S``
 and ``V`` among them and never its ``rank``.
 
-The port has no wire layer yet (``fed/wire.py``, ROADMAP.md): the phase
-boundaries pass the payloads as they are.
+The phase boundaries are the round's data plane: what ``broadcast`` hands
+the clients crosses the wire down, what ``client_step`` returns crosses up.
+:func:`run_round` optionally threads those payloads through a
+:class:`repro_torch.fed.wire.Wire` (owned by the engine): encode / decode
+plus measured bytes, with server-local state kept out of the transmission
+by the ``shared[SERVER]`` convention.
 """
 from __future__ import annotations
 
@@ -198,26 +202,71 @@ def make_context(cfg: FedConfig, *, round_idx: int = 0, client_weights=None) -> 
 
 
 def run_client_phases(program: RoundProgram, loss_fn: LossFn, params, client_batches,
-                      ctx: RoundContext):
+                      ctx: RoundContext, *, wire=None):
     """The data-plane half of a round: ``broadcast``, then ``client_step``
-    for each client. Returns ``(shared, client_out)``: the server-side
-    broadcast dict (SERVER entry intact) and the cohort's outputs."""
+    for each client, with every boundary payload threaded through ``wire``.
+
+    Returns ``(shared, client_out, (bytes_shared, bytes_per_client,
+    bytes_up))``: the server-side broadcast dict (SERVER entry intact), the
+    cohort's outputs *as received over the wire*, and the measured byte
+    totals per payload (0 without a wire).
+    """
     shared, per_client = program.broadcast(loss_fn, params, client_batches, ctx)
+    # clients only ever see the downlink part; the server keeps `shared`
     client_shared, _ = split_server(shared)
+    bytes_shared = bytes_pc = bytes_up = 0
+    if wire is not None:
+        client_shared, bytes_shared = wire.roundtrip(client_shared, name="broadcast")
+        per_client, bytes_pc = wire.roundtrip(per_client, name="per_client", batched=True)
     client_out = ctx.vmap_c(
         lambda pc, b: program.client_step(loss_fn, client_shared, pc, b, ctx),
         in_axes=(None if per_client is None else 0, 0),
     )(per_client, client_batches)
-    return shared, client_out
+    if wire is not None:
+        client_out, bytes_up = wire.roundtrip(client_out, name="client_out", batched=True)
+    return shared, client_out, (bytes_shared, bytes_pc, bytes_up)
 
 
 def run_round(program: RoundProgram, loss_fn: LossFn, params, client_batches, cfg: FedConfig,
-              *, round_idx: int = 0, client_weights=None):
-    """Execute one round of ``program``. Returns ``(new_params, metrics)``."""
+              *, round_idx: int = 0, client_weights=None, wire=None):
+    """Execute one round of ``program``. Returns ``(new_params, metrics)``.
+
+    ``wire`` (optional :class:`repro_torch.fed.wire.Wire`) decorates the
+    phase boundaries: the broadcast downlink and per-client slices are
+    encoded and decoded before ``client_step`` sees them, the client outputs
+    before ``aggregate`` sees them. Measured bytes land in the metrics as
+    ``wire_bytes_down_per_client`` (the shared broadcast once per client
+    plus that client's slice) and ``wire_bytes_up_per_client``. With the
+    identity codec the round is bit-identical to ``wire=None``.
+    """
     ctx = make_context(cfg, round_idx=round_idx, client_weights=client_weights)
-    shared, client_out = run_client_phases(program, loss_fn, params, client_batches, ctx)
+    shared, client_out, (bytes_shared, bytes_pc, bytes_up) = run_client_phases(
+        program, loss_fn, params, client_batches, ctx, wire=wire
+    )
     agg = program.aggregate(shared, client_out, ctx)
-    return program.finalize(loss_fn, params, shared, agg, client_batches, ctx)
+    new_params, metrics = program.finalize(loss_fn, params, shared, agg, client_batches, ctx)
+    if wire is not None:
+        metrics = dict(metrics)
+        metrics["wire_bytes_down_per_client"] = _per_client_bytes(
+            bytes_shared, bytes_pc, cfg.num_clients
+        )
+        metrics["wire_bytes_up_per_client"] = _per_client_bytes(0, bytes_up, cfg.num_clients)
+    return new_params, metrics
+
+
+def _per_client_bytes(shared_bytes, batched_bytes, num_clients: int):
+    """``shared + batched/C`` per-client bytes, exactly when possible: python
+    int counts whose batched total divides evenly over the C equal client
+    slices stay integers (so measured == analytic holds exactly); the
+    rank-dependent ``topk_rank`` counts take the f32 path, as in the JAX
+    package."""
+    if (
+        isinstance(shared_bytes, int)
+        and isinstance(batched_bytes, int)
+        and batched_bytes % num_clients == 0
+    ):
+        return shared_bytes + batched_bytes // num_clients
+    return np.float32(shared_bytes) + np.float32(batched_bytes) / np.float32(num_clients)
 
 
 # ---------------------------------------------------------------------------

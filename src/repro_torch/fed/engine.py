@@ -10,19 +10,31 @@ population size with zero-weight repeats of active clients, as in the JAX
 package (there it keeps one jit executable; here it keeps the round's
 shapes and work the same as the reference's).
 
-Not ported yet (ROADMAP.md): the wire layer (``fed/wire.py``: codecs and
-measured bytes; :meth:`FederatedEngine.comm_total_bytes` reports the
-analytic cost-model figure), checkpoints (``checkpoint_dir``) and the
-simulated async / hierarchical engines.
+The wire: the engine owns a :class:`~repro_torch.fed.wire.Wire`
+(``wire_codec``, default ``"identity"``) and threads it through every round's
+phase boundaries, so :meth:`FederatedEngine.comm_total_bytes` sums what the
+codec shipped; the analytic cost-model figure stays available as
+:meth:`FederatedEngine.comm_total_bytes_analytic`.
+
+Restartability: every ``checkpoint_every`` rounds the engine writes
+``{checkpoint_dir}/round_{idx:06d}.npz`` in the JAX package's format plus a
+versioned ``.state.npy`` sidecar (round history, batcher stream state);
+:meth:`FederatedEngine.restore` resumes a run that then replays the
+remaining rounds bit-identically. Checkpoints move between the two
+packages in both directions.
+
+Not ported yet (ROADMAP.md): the simulated async / hierarchical engines.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.core.baselines import (
     FedAvgProgram,
     FedLinProgram,
@@ -34,6 +46,7 @@ from repro_torch.core.baselines import (
 from repro_torch.core.fedlrt import FedLRTProgram, fedlrt_round
 from repro_torch.core.round import FedConfig
 from repro_torch.fed.participation import Participation
+from repro_torch.fed.wire import Wire
 from repro_torch.telemetry import default_hub, perf_seconds
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -48,7 +61,7 @@ ROUND_PROGRAMS: Dict[str, Optional[Callable]] = {}
 
 def register_round_method(name: str, fn: Callable, *, program=None, overwrite=False):
     """Register a federated round method under ``name``: ``fn(loss_fn,
-    params, client_batches, cfg, *, round_idx, client_weights) →
+    params, client_batches, cfg, *, round_idx, client_weights, wire) →
     (new_params, metrics)``, and optionally a zero-arg ``program`` factory
     of its RoundProgram. Re-registration needs ``overwrite=True``."""
     if not overwrite and name in ROUND_METHODS:
@@ -80,8 +93,8 @@ register_round_method("fedlrt_naive", fedlrt_naive_round, program=FedLRTNaivePro
 
 @dataclasses.dataclass
 class RoundResult:
-    """One round's record: the JAX package's fields, less those of the wire
-    and the virtual clock, which the port does not have yet."""
+    """One round's record: the JAX package's fields, less those of the
+    virtual clock, which the port does not have yet."""
 
     round_idx: int
     loss_before: float
@@ -92,6 +105,11 @@ class RoundResult:
     cohort_size: int = 0
     cohort: Optional[np.ndarray] = None
     comm_bytes_per_client_effective: float = 0.0
+    # *measured* wire-layer bytes (per client, per direction): what the
+    # round's codec put on the wire (repro_torch.fed.wire)
+    wire_bytes_down_per_client: float = 0.0
+    wire_bytes_up_per_client: float = 0.0
+    wire_codec: str = ""
 
 
 #: version tag of the JAX package's checkpoint state sidecar, whose history
@@ -112,7 +130,7 @@ def history_to_state(history: List[RoundResult]) -> List[dict]:
 
 def history_from_state(rounds: List[dict]) -> List[RoundResult]:
     """Inverse of :func:`history_to_state`, tolerant of field drift: keys
-    the dataclass lacks (the JAX package's wire and clock fields) are
+    the dataclass lacks (the JAX package's virtual-clock fields) are
     dropped, missing fields take their defaults."""
     fields = {f.name for f in dataclasses.fields(RoundResult)}
     out = []
@@ -126,10 +144,6 @@ def history_from_state(rounds: List[dict]) -> List[RoundResult]:
     return out
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to PyTorch yet; see ROADMAP.md")
-
-
 class FederatedEngine:
     def __init__(
         self,
@@ -141,18 +155,23 @@ class FederatedEngine:
         participation: Optional[Participation] = None,
         eval_fn: Optional[Callable] = None,
         checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 0,
         client_weights=None,
+        wire_codec="identity",
+        checkpoint_meta: Optional[dict] = None,
         telemetry=None,
     ):
         if method not in ROUND_METHODS:
             raise ValueError(f"method must be one of {list(ROUND_METHODS)}")
-        if checkpoint_dir is not None:
-            raise _not_ported("checkpointing (the checkpoint writer and resume)")
         self.cfg = cfg
         self.method = method
         self.params = params
         self.participation = participation if participation is not None else Participation()
         self.eval_fn = eval_fn
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
+        # stamped into every checkpoint (e.g. the spec hash resume() checks)
+        self.checkpoint_meta = dict(checkpoint_meta) if checkpoint_meta else {}
         self.history: List[RoundResult] = []
         self.round_idx = 0
         self.client_weights = (
@@ -163,6 +182,10 @@ class FederatedEngine:
         self.telemetry = telemetry if telemetry is not None else default_hub()
         self._loss_fn = loss_fn
         self._round_fn = ROUND_METHODS[method]
+        self._batcher = None  # set by train(); snapshotted into checkpoints
+        # every round's data plane passes through the wire, so comm is
+        # measured; wire_codec=None opts out (payloads as they are, no meter)
+        self.wire: Optional[Wire] = None if wire_codec is None else Wire(wire_codec)
 
     @property
     def device(self) -> torch.device:
@@ -212,7 +235,7 @@ class FederatedEngine:
             cfg_k = dataclasses.replace(self.cfg, num_clients=size)
             self.params, metrics = self._round_fn(
                 self._loss_fn, self.params, client_batches, cfg_k,
-                round_idx=self.round_idx, client_weights=w,
+                round_idx=self.round_idx, client_weights=w, wire=self.wire,
             )
             metrics = _to_host(metrics)
         ranks = metrics.get("rank", {})
@@ -230,14 +253,24 @@ class FederatedEngine:
             comm_bytes_per_client_effective=float(
                 metrics.get("comm_bytes_per_client_effective", 0.0)
             ),
+            wire_bytes_down_per_client=float(metrics.get("wire_bytes_down_per_client", 0.0)),
+            wire_bytes_up_per_client=float(metrics.get("wire_bytes_up_per_client", 0.0)),
+            wire_codec=self.wire.name if self.wire is not None else "",
         )
         self.history.append(res)
         self._publish_round(res, metrics)
         self.round_idx += 1
+        if (
+            self.checkpoint_dir
+            and self.checkpoint_every
+            and self.round_idx % self.checkpoint_every == 0
+        ):
+            self._save_checkpoint()
         return res
 
     def _publish_round(self, res: RoundResult, metrics: dict) -> None:
-        """Per-round gauges (effective rank, coefficient drift). Read-only."""
+        """Per-round gauges (effective rank, coefficient drift) and measured
+        wire bytes per direction. Read-only."""
         hub = self.telemetry
         if not hub.enabled:
             return
@@ -250,9 +283,64 @@ class FederatedEngine:
             )
         if "max_coeff_drift" in metrics:
             hub.gauge("correction.coeff_drift_max", float(metrics["max_coeff_drift"]), round=r)
+        if res.wire_codec:
+            hub.counter("wire.bytes_down", res.wire_bytes_down_per_client * res.cohort_size,
+                        round=r, codec=res.wire_codec)
+            hub.counter("wire.bytes_up", res.wire_bytes_up_per_client * res.cohort_size,
+                        round=r, codec=res.wire_codec)
+
+    # -- checkpoint / restore ----------------------------------------------
+
+    def _ckpt_path(self, round_idx: int) -> str:
+        return f"{self.checkpoint_dir}/round_{round_idx:06d}.npz"
+
+    def _save_checkpoint(self):
+        path = self._ckpt_path(self.round_idx)
+        save_checkpoint(path, self.params, meta={
+            "round": self.round_idx, "method": self.method, **self.checkpoint_meta,
+        })
+        # sidecar: the batcher's stream state (so a restored run replays the
+        # remaining rounds bit-identically) and the round history (so
+        # comm_total_bytes() spans the whole run), as versioned JSON-safe
+        # dicts, never pickled dataclasses
+        state = {"version": STATE_VERSION, "history": history_to_state(self.history)}
+        if self._batcher is not None and hasattr(self._batcher, "state"):
+            state["batcher"] = self._batcher.state()
+        np.save(path + ".state.npy", np.asarray(state, dtype=object), allow_pickle=True)
+
+    def restore(self, path: str, *, batcher=None) -> dict:
+        """Resume from a checkpoint written by this engine or by the JAX
+        package's.
+
+        Restores ``params`` (on the device of the current ones, in their
+        stored dtypes), ``round_idx`` (so participation policies, seeded by
+        ``(seed, round_idx)``, replay the same cohorts) and the round
+        ``history``; with ``batcher`` and the ``<path>.state.npy`` sidecar,
+        also the batcher's stream state. The restored run then reproduces
+        the uninterrupted one bit for bit. Returns the checkpoint metadata.
+        """
+        params, meta = load_checkpoint(path, device=self.device)
+        self.params = params
+        self.round_idx = int(meta.get("round", 0))
+        state_path = path + ".state.npy"
+        if os.path.exists(state_path):
+            # repro-lint: disable=RPL007 -- the engine's own versioned
+            # checkpoint sidecar: a STATE_VERSION-stamped dict of JSON-safe
+            # values written by _save_checkpoint (np.save of an object array
+            # needs allow_pickle)
+            state = np.load(state_path, allow_pickle=True).item()
+            if state.get("version", 0) >= 1:
+                self.history = history_from_state(state.get("history", []))
+            else:
+                # legacy (unversioned) sidecar: pickled RoundResult objects
+                self.history = list(state.get("history", []))
+            if batcher is not None and "batcher" in state:
+                batcher.set_state(state["batcher"])
+        return meta
 
     def train(self, batcher, num_rounds: int, *, log_every: int = 10):
         num_clients = self.cfg.num_clients
+        self._batcher = batcher
         for _ in range(num_rounds):
             cohort = self.participation.cohort(self.round_idx, num_clients)
             if self.participation.mode == "full":
@@ -267,11 +355,17 @@ class FederatedEngine:
                     extra = f" mean_rank={mean_rank:.1f}"
                 if res.cohort_size != num_clients:
                     extra += f" cohort={res.cohort_size}/{num_clients}"
+                wire_mb = (res.wire_bytes_down_per_client + res.wire_bytes_up_per_client) / 1e6
+                comm = (
+                    f" wire {wire_mb:.2f} MB/client [{res.wire_codec}]"
+                    if res.wire_codec
+                    else f" comm {res.comm_bytes_per_client/1e6:.2f} MB/client"
+                )
                 self.telemetry.progress(
                     f"[{self.method}] round {res.round_idx:4d} "
                     f"loss {res.loss_before:.4f}"
                     + (f" → {res.loss_after:.4f}" if res.loss_after is not None else "")
-                    + f" comm {res.comm_bytes_per_client/1e6:.2f} MB/client"
+                    + comm
                     + extra,
                     round=int(res.round_idx),
                 )
@@ -282,11 +376,19 @@ class FederatedEngine:
         return float(self.eval_fn(self.params, self._to_device(batch)))
 
     def comm_total_bytes(self) -> float:
-        """Total server-side bytes so far: each round's per-client volume
-        times its active cohort. The port has no wire layer yet, so this is
-        the analytic cost-model figure (:meth:`comm_total_bytes_analytic`),
-        not a measurement."""
-        return self.comm_total_bytes_analytic()
+        """Total server-side on-wire bytes so far, **measured**: each round's
+        measured per-client bytes (down + up) times its active cohort. A
+        round that carries no measurement (run with ``wire_codec=None``, or
+        restored from a history without wire fields) contributes the
+        analytic figure instead; :meth:`comm_total_bytes_analytic` is
+        uniform across rounds."""
+        total = 0.0
+        for r in self.history:
+            per_client = r.wire_bytes_down_per_client + r.wire_bytes_up_per_client
+            if per_client == 0.0 and not r.wire_codec:
+                per_client = r.comm_bytes_per_client  # unmetered round
+            total += per_client * r.cohort_size
+        return float(total)
 
     def comm_total_bytes_analytic(self) -> float:
         """Total bytes under the analytic cost model (static ``r_max``

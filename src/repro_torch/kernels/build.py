@@ -24,7 +24,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("lowrank_matmul.cu", "coeff_grad.cu")
+SOURCES = ("lowrank_matmul.cu", "coeff_grad.cu", "flash_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -109,6 +109,10 @@ def load_library() -> ctypes.CDLL:
         lib.lr_atb_workspace.restype = ctypes.c_longlong
         lib.lr_atb.argtypes = [i, p, p, p, p, i, i, i, i, p]
         lib.lr_atb.restype = i
+        lib.lr_flash_attention.argtypes = [
+            i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p,
+        ]
+        lib.lr_flash_attention.restype = i
         lib.lr_error_string.argtypes = [i]
         lib.lr_error_string.restype = ctypes.c_char_p
         _LIB = lib

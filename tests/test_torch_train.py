@@ -44,7 +44,6 @@ from repro_torch.core.fedlrt import fedlrt_round
 from repro_torch.core.round import FedConfig, value_and_grad
 from repro_torch.data import FederatedBatcher
 from repro_torch.data import synthetic, partition
-from repro_torch.fed.engine import FederatedEngine
 from repro_torch.fed.participation import Participation
 from repro_torch.launch import train as launch_train
 from repro_torch.models.layers import apply_embedding
@@ -509,6 +508,9 @@ def _assert_history_close(jh, th, loss_rtol=(LOSS_BEFORE_RTOL, LOSS_AFTER_RTOL))
             assert_rel(rt.loss_after, rj.loss_after, loss_rtol[1], f"round {rj.round_idx} loss_after")
         assert rt.comm_bytes_per_client == rj.comm_bytes_per_client
         assert rt.comm_bytes_per_client_effective == rj.comm_bytes_per_client_effective
+        assert rt.wire_codec == rj.wire_codec
+        assert rt.wire_bytes_down_per_client == rj.wire_bytes_down_per_client
+        assert rt.wire_bytes_up_per_client == rj.wire_bytes_up_per_client
         assert rj.ranks.keys() == rt.ranks.keys()
         for k in rj.ranks:
             np.testing.assert_array_equal(rt.ranks[k], rj.ranks[k])
@@ -542,7 +544,8 @@ def test_llm_tiny_round_matches():
     jexp, texp, jh, th = _run_pair(jspec, tspec, 1)
     _assert_history_close(jh, th)
     assert_factors_close(jexp.engine.params, texp.engine.params)
-    assert texp.comm_total_bytes() == jexp.engine.comm_total_bytes_analytic()
+    assert texp.comm_total_bytes() == jexp.engine.comm_total_bytes()  # measured, both
+    assert texp.engine.comm_total_bytes_analytic() == jexp.engine.comm_total_bytes_analytic()
 
 
 @pytest.mark.parametrize("participation", ["uniform:2", "dropout:0.5"])
@@ -561,7 +564,8 @@ def test_engine_rounds_match_under_partial_participation(participation):
     )
     jexp, texp, jh, th = _run_pair(jspec, tspec, 3)
     _assert_history_close(jh, th, loss_rtol=(1e-3, 1e-3))
-    assert texp.comm_total_bytes() == jexp.engine.comm_total_bytes_analytic()
+    assert texp.comm_total_bytes() == jexp.engine.comm_total_bytes()  # measured, both
+    assert texp.engine.comm_total_bytes_analytic() == jexp.engine.comm_total_bytes_analytic()
 
 
 # ---------------------------------------------------------------------------
@@ -595,8 +599,8 @@ def test_launch_train_runs_on_cpu_when_asked(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--config", "x.toml"], ["--set", "fed.lr=0.1"], ["--wire-codec", "int8_affine"],
-    ["--engine", "async"], ["--sim-profile", "uniform"], ["--checkpoint-dir", "ck"],
+    ["--edge-wire-codec", "int8_affine"], ["--async-buffer", "2"], ["--edges", "2"],
+    ["--engine", "async"], ["--sim-profile", "uniform"], ["--telemetry-dir", "tel"],
     ["--telemetry"],
 ])
 def test_launch_train_flags_not_ported_raise(flag):
@@ -619,11 +623,13 @@ def test_launch_train_spec_matches_the_jax_cli():
 
 
 def test_not_ported_parts_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        api.EngineSpec(kind="async")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FederatedEngine(lambda p, b: p, torch.zeros(2), FedConfig(num_clients=1, s_star=1),
-                        checkpoint_dir="ck")
+    """Unported values parse (the spec hashes as the JAX package's) and
+    build() refuses them, naming ROADMAP.md."""
+    base = api.ExperimentSpec(model=api.ModelSpec(preset="llm-tiny", smoke=True), rounds=1)
+    for spec in (base.replace(engine=api.EngineSpec(kind="async")),
+                 base.replace(sim=api.SimSpec(profile="straggler:0.25,10"))):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            api.build(spec, device="cpu")
 
 
 SPEC_ERRORS = [
