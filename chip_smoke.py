@@ -24,8 +24,10 @@ per source, all started together) and drives each of the port's paths:
 - flash: ``repro_torch.kernels.flash_attention`` at four attention shapes
   (Qwen2-7B prefill and decode against a cache, Mistral-7B's sliding
   window, an f32 case), each held to ``flash_attention_ref``, with its time
-  beside its bound, the plain version's and
-  ``scaled_dot_product_attention``'s;
+  (per call, and in a CUDA graph: device time) beside its bound, the plain
+  version's and ``scaled_dot_product_attention``'s, and the route it took
+  (bf16: the tensor-core kernel, with a split key range at decode; f32:
+  the CUDA-core kernel);
 - spec: llm-100m at full width and depth through ``python -m
   repro_torch.api run`` on a TOML written from
   ``examples/configs/sync_baseline.toml``: two rounds with int8 on the wire
@@ -182,10 +184,30 @@ def phase_environment(torch):
     build.load_library()
     log(f"[env] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.BUILD_LOG['seconds']:.2f} s) -> {build.library_path().name}")
-    for line in build.BUILD_LOG["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[env] ptxas {line.strip()}")
+    for kernel, line in _ptxas_by_kernel(build.BUILD_LOG["ptxas"]):
+        log(f"[env] ptxas {kernel}: {line}")
     return smi
+
+
+def _ptxas_by_kernel(ptxas: str):
+    """(kernel, registers or spills line) pairs from ``nvcc -Xptxas -v``
+    output; the kernels' names demangled by ``c++filt`` where the host has
+    it, without namespace, return type and arguments."""
+    pairs, name = [], "?"
+    for line in ptxas.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            pairs.append((name, line.split(":", 1)[-1].strip()))
+    names = sorted({n for n, _ in pairs})
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, check=True).stdout.splitlines()
+        short = {n: d.replace("(anonymous namespace)::", "").removeprefix("void ")
+                 .split("(", 1)[0] for n, d in zip(names, out)}
+    except (OSError, subprocess.CalledProcessError):
+        short = {n: n for n in names}
+    return [(short.get(n, n), line) for n, line in pairs]
 
 
 def _case_inputs(torch, kernel, dtype, M, dim, R, n_sets, gen):
@@ -943,10 +965,12 @@ def _event_ms(torch, fn, n_inputs: int, reps: int) -> float:
 def phase_flash(torch, counters):
     """``flash_attention`` on its own entry point at the four cases of
     :data:`FLASH_CASES`: the path (one call per case, counted), then each
-    output against the plain version, then times: kernel, plain version,
-    ``scaled_dot_product_attention`` (the yardstick; the port never calls
-    it) and the bound."""
+    output against the plain version, then times: kernel (per call by CUDA
+    events, and without the host's share as a CUDA graph's replay),
+    plain version, ``scaled_dot_product_attention`` (the yardstick; the port
+    never calls it) and the bound."""
     from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_splits
     from repro_torch.kernels.ref import flash_attention_ref
 
     F = torch.nn.functional
@@ -969,6 +993,10 @@ def phase_flash(torch, counters):
         err, ratio = _flash_plain_err(torch, case, q, k, v, kw, out)
         ok = ratio <= 1.0
         bound, bound_by, flops = _flash_bound_ms(torch, case, q, kw)
+        # the kernel the wrapper takes: bf16 on tensor cores, with a split
+        # key range (and a second launch that merges it) where the grid is small
+        bf16 = q.dtype == torch.bfloat16
+        splits = flash_splits(B, Tq, Tk, H, Hkv) if bf16 else 1
         # K/V sets cycled through more than the 50 MB L2 where they would fit
         kv_bytes = 2 * k.numel() * k.element_size()
         n_sets = max(1, min(8, math.ceil(L2_DEFEAT_BYTES / kv_bytes)))
@@ -976,8 +1004,12 @@ def phase_flash(torch, counters):
         reps = max(n_sets, 4)
         rec = dict(kernel="flash_attention", case=name, dtype=dtype_name, B=B, Tq=Tq, Tk=Tk,
                    H=H, Hkv=Hkv, d=d, window=window, invalid_slots=tail, max_abs_err=err,
-                   err_over_tol=ratio, ok=ok, flops=flops, bound_ms=bound, bound_by=bound_by)
+                   err_over_tol=ratio, ok=ok, flops=flops, bound_ms=bound, bound_by=bound_by,
+                   route="tensor-core bf16" if bf16 else "cuda-core f32",
+                   splits=splits, device_launches=2 if splits > 1 else 1)
         rec["ms"] = _event_ms(torch, lambda i: flash_attention(*sets[i], **kw), n_sets, reps)
+        rec["device_ms"] = graph_ms(torch, lambda i: flash_attention(*sets[i], **kw), n_sets,
+                                    reps)
         if case[-1] == 1:  # the plain version in one call fits the card
             rec["plain_ms"] = _event_ms(
                 torch, lambda i: flash_attention_ref(*sets[i], **kw), n_sets, reps)
@@ -1004,9 +1036,11 @@ def phase_flash(torch, counters):
         log(f"[flash] {name:26s} {dtype_name:8s} B={B} Tq={Tq} Tk={Tk} H={H}/{Hkv} d={d} "
             f"window={window} invalid={tail}: max_abs_err={err:.3g} "
             f"worst err/tol={ratio:.3g} {'ok' if ok else 'MISMATCH'}  "
-            f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+            f"kernel_ms={rec['ms']:.4f} (device {rec['device_ms']:.4f}) "
+            f"plain_ms={rec['plain_ms']:.4f} "
             f"library_ms={rec['library_ms']:.4f} bound_ms={bound:.6f} ({bound_by}; "
-            f"{flops:.3e} FLOPs) launches=1")
+            f"{flops:.3e} FLOPs) route={rec['route']} splits={rec['splits']} "
+            f"launches={rec['device_launches']}")
         del sets, lib_sets, mask
         torch.cuda.empty_cache()
     del inputs, outs

@@ -110,7 +110,7 @@ def load_library() -> ctypes.CDLL:
         lib.lr_atb.argtypes = [i, p, p, p, p, i, i, i, i, p]
         lib.lr_atb.restype = i
         lib.lr_flash_attention.argtypes = [
-            i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p,
+            i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, i, p,
         ]
         lib.lr_flash_attention.restype = i
         lib.lr_error_string.argtypes = [i]

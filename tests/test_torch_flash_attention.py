@@ -10,10 +10,15 @@ three tilings, the poisoned ring cache, bf16, and fully masked rows.
 Tolerances: atol 2e-5 in f32 (the same sums in another order) and 5e-2 in
 bf16 (the kernel rounds p to bf16 against the running max, the plain
 version against the row max); fully masked rows are exactly 0 in both.
-The kernel itself runs only on a card: the ``cuda``-marked tests
-(``pytest -m cuda``), which hold it to its plain version and its two
-staging paths to each other, skip here.
+The kernels themselves run only on a card: the ``cuda``-marked tests
+(``pytest -m cuda``), which hold them to the plain version (head dims,
+GQA row packing, split key ranges), their two staging paths to each other
+and a second call to the first, skip here. ``flash_splits``, which plans
+the split of the key range from the shapes alone, is checked here.
 """
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +28,9 @@ from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.ref import mha_ref as jax_mha_ref
 from repro_torch.kernels import flash_attention
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import (
+    CARD_SMS, FLASH_KEY_TILE, FLASH_ROWS, flash_split_keys, flash_splits,
+)
 
 F32_ATOL = 2e-5
 BF16_ATOL = 5e-2
@@ -172,9 +180,10 @@ def _card_inputs(B, Tq, Tk, H, Hkv, d, dtype, *, seed, invalid_tail=0, poison=Fa
 def test_flash_kernel_matches_plain_version_on_card():
     """Runs on an H100 (``pytest -m cuda``): the kernel against its plain
     version (``ref.flash_mismatch``: 1e-4 in f32, scaled to each row in
-    bf16) over head dims 8-256, ragged ``Tq``/``Tk``, GQA and MQA, sliding
-    windows, decode against a cache, a poisoned ring cache and rows that
-    see no key, in f32 and bf16."""
+    bf16) over head dims 8-256, ragged ``Tq``/``Tk``, GQA and MQA (packed
+    rows of 3, 7 and 8 heads), sliding windows, decode against a cache
+    (split key ranges, one of them all invalid), a poisoned ring cache and
+    rows that see no key, in f32 and bf16."""
     _needs_card()
     cases = [  # B, Tq, Tk, H, Hkv, d, causal, window, invalid tail, poison
         *[(2, 37, 53, 4, 2, d, c, 0, 0, False)
@@ -185,7 +194,20 @@ def test_flash_kernel_matches_plain_version_on_card():
         (2, 9, 33, 2, 1, 8, False, 0, 5, False),
         (1, 4, 16, 2, 2, 8, True, 0, 8, True),
         (1, 8, 8, 1, 1, 8, True, 0, 8, False),  # no key visible: all 0
+        # GQA row packing: g = 7, 3 and 8 (MQA), Tq * g not a multiple of 64
+        (1, 37, 100, 21, 3, 128, True, 0, 0, False),
+        (2, 30, 90, 6, 2, 64, True, 0, 0, False),
+        (1, 50, 77, 8, 1, 128, True, 0, 0, False),
+        (1, 20, 130, 8, 1, 256, False, 24, 0, False),
+        # split-KV decode: Tk not a multiple of the split; the last splits'
+        # keys all invalid (and poisoned); a window across splits
+        (4, 1, 1000, 28, 4, 128, True, 0, 0, False),
+        (2, 1, 1000, 8, 2, 128, True, 0, 200, True),
+        (1, 2, 600, 4, 4, 64, True, 100, 0, False),
     ]
+    split = [c for c in cases if flash_splits(*c[:5]) > 1]
+    assert len(split) >= 4 and any(c[2] % flash_split_keys(c[2], flash_splits(*c[:5]))
+                                   for c in split)
     for dtype in (torch.float32, torch.bfloat16):
         for B, Tq, Tk, H, Hkv, d, causal, window, tail, poison in cases:
             q, k, v, qpos, kpos = _card_inputs(B, Tq, Tk, H, Hkv, d, dtype, seed=Tq + d,
@@ -222,6 +244,56 @@ def test_flash_kernel_staging_paths_give_the_same_bits_on_card(dtype):
         a = flash_attention(q, k, v, **kw)
         b = flash_attention(*(_off_boundary(t) for t in (q, k, v)), **kw)
         assert torch.equal(a, b), (dtype, B, Tq, Tk, H, Hkv, d)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_gives_the_same_bits_twice_on_card():
+    """Runs on an H100: two calls on the same inputs give the same bits,
+    with a split key range (merged in fixed order) and without."""
+    _needs_card()
+    for B, Tq, Tk, H, Hkv, d in ((4, 1, 4096, 28, 4, 128), (1, 300, 300, 28, 4, 128)):
+        q, k, v, qpos, kpos = _card_inputs(B, Tq, Tk, H, Hkv, d, torch.bfloat16, seed=Tq,
+                                           invalid_tail=Tk // 8)
+        kw = dict(q_positions=qpos, kv_positions=kpos)
+        a = flash_attention(q, k, v, **kw)
+        b = flash_attention(q, k, v, **kw)
+        assert torch.equal(a, b), (B, Tq, Tk, H, Hkv, d, flash_splits(B, Tq, Tk, H, Hkv))
+
+
+def _chip_smoke_flash_cases():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_cases", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.FLASH_CASES
+
+
+def test_flash_splits_cover_the_keys_and_fill_the_card():
+    """``flash_splits`` is >= 1; every split is non-empty and whole key
+    tiles but the last; the prefill cases of ``chip_smoke.FLASH_CASES`` get
+    one split, the Qwen2-7B decode case enough blocks for every SM."""
+    for B in (1, 2, 4, 16):
+        for Tq in (1, 2, 7, 64, 300, 4096):
+            for Tk in (1, 63, 64, 65, 300, 1000, 4096, 100_000):
+                for H, Hkv in ((28, 4), (32, 8), (8, 1), (4, 4), (21, 3)):
+                    splits = flash_splits(B, Tq, Tk, H, Hkv)
+                    assert splits >= 1
+                    keys = flash_split_keys(Tk, splits)
+                    assert keys % FLASH_KEY_TILE == 0
+                    bounds = [(i * keys, min(Tk, (i + 1) * keys)) for i in range(splits)]
+                    assert all(lo < hi for lo, hi in bounds), (B, Tq, Tk, H, Hkv, splits)
+                    assert bounds[-1][1] == Tk
+                    blocks = -(-Tq * (H // Hkv) // FLASH_ROWS) * B * Hkv
+                    if blocks >= CARD_SMS:
+                        assert splits == 1
+    cases = {c[0]: c for c in _chip_smoke_flash_cases()}
+    for name in ("qwen2-7b prefill", "mistral-7b window 4096"):
+        _, B, Tq, Tk, H, Hkv = cases[name][:6]
+        assert flash_splits(B, Tq, Tk, H, Hkv) == 1, name
+    _, B, Tq, Tk, H, Hkv = cases["qwen2-7b decode vs cache"][:6]
+    splits = flash_splits(B, Tq, Tk, H, Hkv)
+    assert splits > 1
+    assert -(-Tq * (H // Hkv) // FLASH_ROWS) * B * Hkv * splits >= CARD_SMS
 
 
 def test_flash_mismatch_scales_the_bf16_tolerance_to_the_row():
