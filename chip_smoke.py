@@ -8,7 +8,10 @@ per source, all started together) and drives each of the port's paths:
 
 - kernels: holds each kernel to its plain PyTorch version at every shape
   its paths give it: ``xus``/``avt`` at the Qwen2-7B serving shapes,
-  ``atb`` at the llm-100m training shapes and at Qwen2-7B's;
+  ``atb`` at the llm-100m training shapes and at Qwen2-7B's, ``xus`` at
+  every shape of an llm-100m round (M = 512, f32), with its time summed
+  over one round; each ``xus`` shape's device launches a call, counted by
+  ``torch.profiler``, are held to ``xus_plan``'s;
 - backward: ``lowrank_apply``'s kernel-backed gradients against the plain
   chain's at one llm-100m layer's full width, in f32;
 - f32 logits: the serving kernel path against the plain chain, Qwen2-7B at
@@ -165,6 +168,43 @@ def host_us(torch, fn, n: int = 200) -> float:
     return (t1 - t0) / n * 1e6
 
 
+def device_launches(torch, fn, calls: int = 8, kernel: str = "xus_"):
+    """Kernels whose name holds ``kernel`` that one call of ``fn()`` runs
+    on the card (the mean over ``calls`` calls, read from a
+    ``torch.profiler`` trace), with their names. A kernel of PyTorch's own
+    runs first inside the trace, so the counted calls start on a trace that
+    is already recording."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and kernel in e.name]
+    short = sorted({n.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+                    for n in names})
+    return len(names) / calls, short
+
+
+def _xus_route(x, U, S, got_launches):
+    """The plan of an ``xus`` call and its device launches, held to each
+    other: the run fails where the card ran another number of kernels."""
+    from repro_torch.kernels.lowrank_matmul import xus_plan
+
+    M, K = x.shape
+    plan = xus_plan(1, M, K, U.shape[1], S is not None)
+    if got_launches != plan.launches:
+        raise AssertionError(f"xus M={M} K={K} R={U.shape[1]} S={S is not None}: "
+                             f"{got_launches} device launches a call, plan says {plan.launches}")
+    return plan
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -228,12 +268,12 @@ def _case_inputs(torch, kernel, dtype, M, dim, R, n_sets, gen):
     return sets
 
 
-def _bound_ms(kernel, dtype_name, M, dim, R):
+def _bound_ms(kernel, dtype_name, M, dim, R, has_s=True):
     es = 2 if dtype_name == "bfloat16" else 4
     if kernel == "xus":
         K = dim
-        nbytes = (M * K + K * R + R * R + M * R) * es
-        flops = 2 * M * K * R + 2 * M * R * R
+        nbytes = (M * K + K * R + (R * R if has_s else 0) + M * R) * es
+        flops = 2 * M * K * R + (2 * M * R * R if has_s else 0)
     else:
         N = dim
         nbytes = (M * R + N * R + M * N) * es
@@ -281,13 +321,23 @@ def phase_kernels(torch, cfg):
                     host_us=host_us(torch, lambda i: kfn(*sets[i])),
                 )
                 rec["bound_ms"], rec["bound_by"] = _bound_ms(kernel, dtype_name, M, dim, R)
+                route = ""
+                if kernel == "xus":
+                    # device launches a call, with S (the serving path) and without
+                    for with_s in (True, False):
+                        s = sets[0][2] if with_s else None
+                        n, names = device_launches(torch, lambda: xus(sets[0][0], sets[0][1], s))
+                        plan = _xus_route(sets[0][0], sets[0][1], s, n)
+                        rec["launches_s" if with_s else "launches_no_s"] = n
+                        route += (f" [{'S' if with_s else 'no S'}: {plan.route} "
+                                  f"splits={plan.splits} launches={n:g} {','.join(names)}]")
                 records.append(rec)
                 dimname = "K" if kernel == "xus" else "N"
                 log(f"[kernels] {kernel} {dtype_name:8s} M={M:<3d} {dimname}={dim:<6d} R={R:<3d} "
                     f"max_abs_err={err:.3g} tol={TOL[dtype_name]} {'ok' if ok else 'MISMATCH'}  "
                     f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
                     f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.6f} "
-                    f"({rec['bound_by']}) host_us={rec['host_us']:.1f}")
+                    f"({rec['bound_by']}) host_us={rec['host_us']:.1f}{route}")
                 del sets
     bad = [r for r in records if not r["ok"]]
     if bad:
@@ -498,6 +548,9 @@ def phase_serve(torch, counters):
         f"{100 * (1 - dev_ms / host_ms):.1f} % of the eager step")
     log(f"[serve] ATen dispatches in one decode step: {dispatches} "
         f"(plus {2 * per_forward} ctypes kernel calls)")
+    # where one decode step's device time goes, kernel by kernel
+    n, busy_s, _ = device_profile(torch, lambda: eng.step(state, last), "[serve] profile", 8)
+    log(f"[serve] profile: one decode step, {n} kernels, device busy {busy_s * 1e3:.3f} ms")
     log(f"[serve] torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB")
     return dict(tok_s=toks / wall, p50_ms=p50 * 1e3, p99_ms=p99 * 1e3,
                 step_host_ms=host_ms, step_device_ms=dev_ms,
@@ -593,6 +646,80 @@ def phase_atb(torch):
     if bad:
         raise AssertionError(f"{len(bad)} atb case(s) disagree with the plain version: {bad}")
     return records
+
+
+def phase_xus_train(torch):
+    """``xus`` at every shape of one llm-100m FeDLRT round (M = batch × seq
+    = 512, f32, with and without S), each held to its plain version, with
+    its device launches a call against the plan, its time, the plain
+    version's, the library call's (``torch.linalg.multi_dot``, or
+    ``torch.matmul`` without S) and the bound; then the sums over one
+    round's calls (:func:`train_xus_calls`)."""
+    from repro_torch.api import ExperimentSpec, ModelSpec, build
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lowrank_matmul import xus
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = ExperimentSpec(name="chip-xus-llm-100m", seed=0, model=ModelSpec(preset="llm-100m"))
+    exp = build(spec, device="cuda")
+    calls = train_xus_calls(exp.params, exp.engine.cfg)
+    want, _ = expected_launches(exp.params, exp.engine.cfg)
+    del exp
+    torch.cuda.empty_cache()
+    if sum(calls.values()) != want["xus"]:
+        raise AssertionError(f"train_xus_calls counts {sum(calls.values())} xus calls a round, "
+                             f"expected_launches {want['xus']}")
+    M = spec.data.batch * spec.data.seq
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    records = []
+    for (K, R, has_s), n in sorted(calls.items()):
+        set_bytes = (M * K + K * R + R * R) * 4
+        n_sets = max(2, min(64, math.ceil(L2_DEFEAT_BYTES / set_bytes)))
+        sets = [(torch.randn(M, K, generator=gen, device="cuda"),
+                 torch.randn(K, R, generator=gen, device="cuda") / math.sqrt(K),
+                 torch.randn(R, R, generator=gen, device="cuda") / math.sqrt(R) if has_s else None)
+                for _ in range(n_sets)]
+        got, plain = xus(*sets[0]), ref.xus_ref(*sets[0])
+        torch.cuda.synchronize()
+        err = (got - plain).abs().max().item()
+        ok = torch.allclose(got, plain, **TOL["float32"])
+        dev, names = device_launches(torch, lambda: xus(*sets[0]))
+        plan = _xus_route(sets[0][0], sets[0][1], sets[0][2], dev)
+        if has_s:
+            lib = lambda i: torch.linalg.multi_dot(list(sets[i]))  # noqa: E731
+        else:
+            lib = lambda i: torch.matmul(sets[i][0], sets[i][1])  # noqa: E731
+        reps = max(n_sets, 20)
+        rec = dict(K=K, R=R, S=has_s, calls=n, max_abs_err=err, ok=ok, route=plan.route,
+                   splits=plan.splits, launches=dev,
+                   ms=graph_ms(torch, lambda i: xus(*sets[i]), n_sets, reps),
+                   plain_ms=graph_ms(torch, lambda i: ref.xus_ref(*sets[i]), n_sets, reps),
+                   library_ms=graph_ms(torch, lib, n_sets, reps))
+        rec["bound_ms"], rec["bound_by"] = _bound_ms("xus", "float32", M, K, R, has_s)
+        flops = 2 * M * K * R + (2 * M * R * R if has_s else 0)
+        rec["tflops"] = flops / rec["ms"] / 1e9
+        records.append(rec)
+        log(f"[xus-train] M={M} K={K:<5d} R={R:<3d} S={'yes' if has_s else 'no ':3s} x{n:<5d} "
+            f"max_abs_err={err:.3g} tol={TOL['float32']} {'ok' if ok else 'MISMATCH'}  "
+            f"kernel_ms={rec['ms']:.4f} ({rec['tflops']:.1f} TF/s) plain_ms={rec['plain_ms']:.4f} "
+            f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.6f} "
+            f"({rec['bound_by']}) route={plan.route} splits={plan.splits} launches={dev:g} "
+            f"{','.join(names)}")
+        del sets, got, plain
+    torch.cuda.empty_cache()
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(
+            f"{len(bad)} xus training case(s) disagree with the plain version: {bad}")
+    total = {k: sum(r["calls"] * r[k] for r in records)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    total["calls"] = sum(r["calls"] for r in records)
+    total["device_launches"] = sum(r["calls"] * r["launches"] for r in records)
+    log(f"[xus-train] per llm-100m round: {total['calls']} calls, {total['device_launches']:g} "
+        f"device launches; kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
+        f"library {total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms")
+    return records, total
 
 
 def phase_backward(torch):
@@ -707,6 +834,46 @@ def train_atb_calls(params, cfg):
     return calls
 
 
+def train_xus_calls(params, cfg):
+    """(K, R, with S) → ``xus`` launches of one FeDLRT round (as counted in
+    :func:`expected_launches`), all at M = batch × seq.
+
+    A linear slice (n_in → n_out, rank r): the basis pass runs the forward
+    ``x U S``, the backward ``dy V Sᵀ``, ``x U``, ``dy V`` and ``x U S``; a
+    client step the same at the augmented rank 2r without the last one; the
+    evaluation one forward at r. The embedding runs the chain on ``U[tok]``
+    (K = r) with its S in the U slot and an identity in the S slot: the
+    basis pass forward, ``dy V Iᵀ`` (K = d) and ``u S I``; a client step the
+    forward and ``dy V Iᵀ`` at 2r.
+    """
+    import math
+
+    calls = {}
+
+    def add(key, n):
+        calls[key] = calls.get(key, 0) + n
+
+    C, steps = cfg.num_clients, cfg.s_star + (1 if cfg.correction == "full" else 0)
+    evals = 1 if cfg.eval_after else 0
+    for path, f in _factors(params):
+        n, r = math.prod(f.U.shape[:-2]), f.r_max
+        if path == "['embed']":
+            add((r, r, True), C * n * (2 + evals))  # forward, u S I (and the evaluation)
+            add((f.n_out, r, True), C * n)  # dy V Iᵀ
+            add((2 * r, 2 * r, True), C * steps * n)
+            add((f.n_out, 2 * r, True), C * steps * n)
+        else:
+            add((f.n_in, r, True), C * n * (2 + evals))  # forward, x U S (and the evaluation)
+            add((f.n_out, r, True), C * n)  # dy V Sᵀ
+            add((f.n_in, r, False), C * n)  # x U
+            add((f.n_out, r, False), C * n)  # dy V
+            add((f.n_in, 2 * r, True), C * steps * n)
+            add((f.n_out, 2 * r, True), C * steps * n)
+            add((f.n_in, 2 * r, False), C * steps * n)
+            add((f.n_out, 2 * r, False), C * steps * n)
+    return calls
+
+
 def _wrappers():
     from repro_torch.kernels.coeff_grad import atb
     from repro_torch.kernels.flash_attention import flash_attention
@@ -724,19 +891,19 @@ def _zero_counts():
         fn.launches = 0
 
 
-def profile_round(torch, exp, wall: float):
-    """Where one more FeDLRT round of ``exp`` spends the card's time, under
-    ``torch.profiler``. Device busy time is the union of the kernels'
-    intervals, read against ``wall``, an unprofiled round's host time; the
-    breakdown sums each kernel name's device time."""
+def device_profile(torch, fn, tag: str, top: int):
+    """One call of ``fn`` under ``torch.profiler``: its kernels, the union
+    of their intervals on the card (device busy seconds) and the host
+    seconds of the call; logs the ``top`` kernel names by device time,
+    each with its share, as ``tag`` lines."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        exp.run(rounds=1, log_every=0)
+        fn()
         torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -747,14 +914,23 @@ def profile_round(torch, exp, wall: float):
     for start, end in sorted(spans):
         busy += max(0.0, end - max(start, reach))
         reach = max(reach, end)
-    busy_s = busy / 1e6
-    log(f"[profile] one round: host wall {wall:.3f} s unprofiled ({wall_prof:.3f} s under the "
-        f"profiler); {len(spans)} kernels, device busy {busy_s:.3f} s = "
-        f"{100 * busy_s / wall:.1f} % of the unprofiled round (idle {100 * (1 - busy_s / wall):.1f} %)")
     total = sum(by_name.values()) or 1.0
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        log(f"[profile] {us / 1e3:9.3f} ms  {100 * us / total:5.1f} %  {name[:110]}")
-    return dict(wall_s=wall, device_busy_s=busy_s, kernels=len(spans))
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"{tag} {us / 1e3:9.3f} ms  {100 * us / total:5.1f} %  {name[:110]}")
+    return len(spans), busy / 1e6, wall
+
+
+def profile_round(torch, exp, wall: float):
+    """Where one more FeDLRT round of ``exp`` spends the card's time, under
+    ``torch.profiler``. Device busy time is the union of the kernels'
+    intervals, read against ``wall``, an unprofiled round's host time; the
+    breakdown sums each kernel name's device time."""
+    n, busy_s, wall_prof = device_profile(
+        torch, lambda: exp.run(rounds=1, log_every=0), "[profile]", 15)
+    log(f"[profile] one round: host wall {wall:.3f} s unprofiled ({wall_prof:.3f} s under the "
+        f"profiler); {n} kernels, device busy {busy_s:.3f} s = "
+        f"{100 * busy_s / wall:.1f} % of the unprofiled round (idle {100 * (1 - busy_s / wall):.1f} %)")
+    return dict(wall_s=wall, device_busy_s=busy_s, kernels=n)
 
 
 def phase_train(torch, counters):
@@ -1225,7 +1401,7 @@ def phase_spec(torch, counters, workdir):
                 int8_uplink_ratio=ratio, serve_s=serve_s, spec_hash=spec.spec_hash())
 
 
-def kernel_summary(records, atb_records, flash_records, counters, cfg, atb_calls):
+def kernel_summary(records, atb_records, flash_records, counters, cfg, atb_calls, xus_round):
     """Per kernel: ``xus``/``avt`` as the sum over one Qwen2-7B decode
     step's launches (M = 4) of each measured number; ``atb`` as the sum over
     one llm-100m FeDLRT round's launches (M = 512, f32); ``flash_attention``
@@ -1257,6 +1433,9 @@ def kernel_summary(records, atb_records, flash_records, counters, cfg, atb_calls
             "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
             "library_ms": tot["library_ms"], "unit": "one Qwen2-7B decode step (bf16, M=4)",
         })
+        if name == "xus":  # the training path's calls, summed over one round
+            out[-1]["round"] = {**xus_round, "bound_by": "operations",
+                                "unit": "one llm-100m FeDLRT round (f32, M=512)"}
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     bound_by = set()
     for (Ka, Kb), n in atb_calls.items():
@@ -1307,6 +1486,8 @@ def main() -> int:
     done("kernels")
     atb_records = phase_atb(torch)
     done("atb")
+    xus_train, xus_round = phase_xus_train(torch)
+    done("xus-train")
     phase_backward(torch)
     done("backward")
     phase_f32_check(torch)
@@ -1323,9 +1504,9 @@ def main() -> int:
     done("spec")
     log("[summary] " + json.dumps({"card": smi, "serve": serve_stats, "train": {
         k: v for k, v in train.items() if k != "atb_calls"}, "flash": flash_records,
-        "spec": spec_stats}))
+        "spec": spec_stats, "xus_train": xus_train}))
     print(json.dumps({"kernels": kernel_summary(
-        records, atb_records, flash_records, counters, cfg, train["atb_calls"])}))
+        records, atb_records, flash_records, counters, cfg, train["atb_calls"], xus_round)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

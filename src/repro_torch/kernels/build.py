@@ -99,10 +99,12 @@ def load_library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lr_xus_workspace.argtypes = [i, i, i, i]
-        lib.lr_xus_workspace.restype = ctypes.c_longlong
-        lib.lr_xus.argtypes = [i, i, p, p, p, p, p, i, i, i, i, p]
+        lib.lr_xus.argtypes = [
+            i, i, p, p, p, p, p, ctypes.c_longlong, p, i, i, i, i, i, i, i, i, p,
+        ]
         lib.lr_xus.restype = i
+        lib.lr_capture_id.argtypes = [p]
+        lib.lr_capture_id.restype = ctypes.c_ulonglong
         lib.lr_avt.argtypes = [i, p, p, p, i, i, i, i, p]
         lib.lr_avt.restype = i
         lib.lr_atb_workspace.argtypes = [i, i, i, i]

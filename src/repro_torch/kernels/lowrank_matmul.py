@@ -1,11 +1,13 @@
 """Wrappers of the Hopper kernels for the low-rank chain ``y = x U S Vᵀ``.
 
 - :func:`xus` computes ``A = (x U) S``: f32 accumulation of ``x·U``, ``S``
-  applied in f32, one rounding to ``x.dtype``. On the card it is up to
-  three launches of ``csrc/lowrank_matmul.cu``: split-K partial sums, a
-  fixed-order reduction of the splits, and an epilogue that applies ``S``.
-  ``S=None`` gives ``A = x U`` with one rounding (the backward's ``S = I``
-  products) and skips the epilogue.
+  applied in f32, one rounding to ``x.dtype``. ``S=None`` gives ``A = x U``
+  with one rounding (the backward's ``S = I`` products). On the card it
+  takes one of two routes of ``csrc/lowrank_matmul.cu``, planned by
+  :func:`xus_plan` from the shapes alone: ``"stream"`` (M ≤ 16, serving
+  decode: one launch that streams U and finishes in its last block) or
+  ``"tiled"`` (larger M, training: a split-precision tensor-core product,
+  and a second launch of it that applies S).
 - :func:`avt` computes ``y = A Vᵀ`` with f32 accumulation.
 
 Both take 2-D operands or operands with one leading batch dim (stacked
@@ -13,13 +15,14 @@ factors), which the kernels run as a grid axis. A CUDA tensor launches the
 kernel, or the wrapper raises; a CPU tensor takes the plain version in
 :mod:`repro_torch.kernels.ref`. Each wrapper counts its launches in a plain
 integer attribute (``xus.launches``, ``avt.launches``): one per call that
-reached the card.
+reached the card, whatever number of device kernels the call runs.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -70,6 +73,150 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+#: route codes of ``lr_xus`` (``csrc/lowrank_matmul.cu``)
+XUS_ROUTES = {"stream": 0, "tiled": 1}
+#: the stream route: rows of x it takes, rank columns per block, and K per
+#: split: at least, and at most with up to 4 rows and with up to 16 (a
+#: block stages its split's x rows in 32 KB of shared memory)
+STREAM_MAX_M = 16
+STREAM_COLS = 64
+STREAM_KC = (256, 1024, 512)
+#: the tiled route: block tile (rows, columns, K step), K per split at
+#: least, and the blocks its K splits aim at (about 1.5 waves of an H100's
+#: 132 SMs: an llm-100m round was fastest near there, PERF.md)
+TILE_M, TILE_N, TILE_K = 64, 32, 32
+TILED_KC_MIN = 64
+TILED_BLOCKS = 200
+#: blocks in one wave: one per SM of an H100. Constants, so a plan depends
+#: on the shapes alone and not on the card it runs on.
+WAVE = 132
+#: ticket counters one call may use (a slot of the pool): a stream route
+#: call takes G · (column tiles + 1), a tiled one with K splits one a tile
+COUNTER_INTS = 4096
+GRID_YZ_MAX = 65535
+
+
+class XusPlan(NamedTuple):
+    """How one ``xus`` call runs on the card (see :func:`xus_plan`)."""
+
+    route: str       # "stream" or "tiled"
+    splits: int      # K splits
+    kc: int          # K per split (the last split may be shorter)
+    kc_s: int        # R per split of the tiled route's S pass (R otherwise)
+    launches: int    # device kernels the call launches
+    workspace: int   # f32 elements of scratch
+    counters: int    # ticket counters (0: none)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=1024)
+def xus_plan(G: int, M: int, K: int, R: int, has_s: bool) -> XusPlan:
+    """Route, K splits, launches, workspace and counters of ``xus`` on
+    ``G`` stacked ``(M, K) · (K, R)`` products, with or without ``S``.
+
+    - ``"stream"`` for ``M ≤ 16`` (decode): bound by U's bytes. One launch
+      of ``R / 64`` column tiles × splits × G blocks, the splits sized for
+      about one block per SM (K per split a multiple of 32, 256 to 1024
+      at M ≤ 4 and to 512 at M ≤ 16: fewer, longer splits cost the blocks
+      no extra round trip to memory and shorten the last block's sum). Its
+      workspace holds each split's partial and, with S and more than one
+      column tile, each tile's product with S, in f64 (two f32 elements
+      each).
+    - ``"tiled"`` otherwise (training at M = 512): bound by f32 operations.
+      K is split only while the 64 × 32 tile grid is under about 1.5
+      waves (K per split a multiple of 32, at least 64); the splits' f32
+      partials sit in the workspace and the last block of each tile adds
+      them (a ticket counter per tile). One launch without S; with S a
+      second launch of the same kernel multiplies the f32 x·U the first
+      leaves in the workspace by S, its R split the same way.
+    """
+    if min(G, M, K, R) < 1:
+        raise ValueError(f"xus_plan: sizes must be positive, got G={G} M={M} K={K} R={R}")
+    ctiles = _cdiv(R, STREAM_COLS)
+    if M <= STREAM_MAX_M and G * (ctiles + 1) <= COUNTER_INTS and G <= GRID_YZ_MAX:
+        want = max(1, _cdiv(WAVE, G * ctiles))
+        lo, hi4, hi16 = STREAM_KC
+        kc = min(hi4 if M <= 4 else hi16, max(lo, _cdiv(_cdiv(K, want), 32) * 32))
+        splits = _cdiv(K, kc)
+        if splits <= GRID_YZ_MAX:
+            # f64 partials, and f64 products of the column tiles with S
+            work = 2 * (G * splits * M * R + (G * ctiles * M * R if has_s and ctiles > 1 else 0))
+            return XusPlan("stream", splits, kc, R, 1, work, G * (ctiles + 1))
+    tiles = G * _cdiv(M, TILE_M) * _cdiv(R, TILE_N)
+
+    def split(k: int) -> int:
+        kc = _cdiv(k, TILE_K) * TILE_K
+        if tiles < TILED_BLOCKS:
+            want = _cdiv(TILED_BLOCKS, tiles)
+            kc = min(kc, max(TILED_KC_MIN, _cdiv(_cdiv(k, want), TILE_K) * TILE_K))
+        return kc
+
+    kc, kc_s = split(K), split(R) if has_s else R
+    splits, splits_s = _cdiv(K, kc), _cdiv(R, kc_s)
+    if G * max(splits, splits_s) > GRID_YZ_MAX or _cdiv(M, TILE_M) > GRID_YZ_MAX:
+        raise ValueError(f"xus: grid too large for G={G} M={M} K={K} R={R}")
+    per_g = M * R
+    work = (G * per_g if has_s else 0) + sum(G * n * per_g for n in (splits, splits_s) if n > 1)
+    counters = 2 * tiles if max(splits, splits_s) > 1 else 0
+    return XusPlan("tiled", splits, kc, kc_s, 2 if has_s else 1, work, counters)
+
+
+class _Counters:
+    """Ticket counters of ``xus`` on one card: a pool of zeroed
+    slots of :data:`COUNTER_INTS`, each call's kernel leaves its counters
+    at 0 again. A stream keeps one slot, so calls on two streams never
+    share one; a graph capture takes a slot of its own (cycling over the
+    slots no stream holds), so graphs captured on one stream and replayed
+    on two do not share one either unless the pool has wrapped since."""
+
+    SLOTS = 64
+
+    def __init__(self, device: torch.device):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "xus: the first call that takes ticket counters on a card must not be inside "
+                "a CUDA graph capture (its counter pool is zeroed then)"
+            )
+        self.pool = torch.zeros((self.SLOTS, COUNTER_INTS), dtype=torch.int32, device=device)
+        torch.cuda.synchronize(device)  # zeroed before any stream uses it
+        self.base = self.pool.data_ptr()
+        self.by_stream: dict = {}
+        self.by_capture: dict = {}
+        self.turn = 0
+
+    def slot(self, stream: int) -> int:
+        if not torch.cuda.is_current_stream_capturing():
+            i = self.by_stream.get(stream)
+            if i is None:
+                held = set(self.by_stream.values())
+                free = [j for j in range(self.SLOTS) if j not in held]
+                if len(free) < 2:
+                    raise RuntimeError(f"xus: more than {self.SLOTS - 2} streams in use")
+                i = self.by_stream[stream] = free[0]
+            return self.base + 4 * COUNTER_INTS * i
+        key = (stream, load_library().lr_capture_id(stream))
+        i = self.by_capture.get(key)
+        if i is None:
+            held = set(self.by_stream.values())
+            free = [j for j in range(self.SLOTS - 1, -1, -1) if j not in held]
+            i = self.by_capture[key] = free[self.turn % len(free)]
+            self.turn += 1
+        return self.base + 4 * COUNTER_INTS * i
+
+
+_COUNTERS: dict = {}
+
+
+def _counter_slot(device: torch.device, stream: int) -> int:
+    c = _COUNTERS.get(device.index)
+    if c is None:
+        c = _COUNTERS[device.index] = _Counters(device)
+    return c.slot(stream)
+
+
 def xus(x: torch.Tensor, U: torch.Tensor, S: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A = (x @ U) @ S.  x: ([G,] M, K), U: ([G,] K, R), S: ([G,] R, R) or
     None for A = x @ U."""
@@ -94,15 +241,27 @@ def xus(x: torch.Tensor, U: torch.Tensor, S: Optional[torch.Tensor] = None) -> t
             f"x; S must match x or be float32)"
         )
     lib = load_library()
+    plan = xus_plan(G, M, K, R, S3 is not None)
     out = torch.empty((G, M, R), dtype=x.dtype, device=x.device)
-    work = torch.empty(
-        lib.lr_xus_workspace(G, M, K, R), dtype=torch.float32, device=x.device
-    )
+    work = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
+    # 16-byte loads where the rows are whole vectors and the data is
+    # aligned: of U (stream route), of x and U (bit 0) and of x·U and S
+    # (bit 1, its f32 x·U rows whole vectors too) on the tiled route
+    v = 16 // x3.element_size()
+    xp, up, sp = x3.data_ptr(), U3.data_ptr(), None if S3 is None else S3.data_ptr()
+    if plan.route == "stream":
+        vec = int(R % v == 0 and up % 16 == 0)
+    else:
+        vec = int(K % v == 0 and R % v == 0 and xp % 16 == 0 and up % 16 == 0)
+        if sp is not None and R % max(v, 16 // S3.element_size()) == 0 and sp % 16 == 0:
+            vec |= 2
     with _on_device(x):
+        stream = torch.cuda.current_stream().cuda_stream
+        counters = _counter_slot(x.device, stream) if plan.counters else None
         _call(
-            lib.lr_xus, _DTYPE_CODE[x3.dtype], _DTYPE_CODE[s_dtype],
-            x3.data_ptr(), U3.data_ptr(), None if S3 is None else S3.data_ptr(),
-            out.data_ptr(), work.data_ptr(), G, M, K, R, _stream(),
+            lib.lr_xus, _DTYPE_CODE[x3.dtype], _DTYPE_CODE[s_dtype], xp, up, sp,
+            out.data_ptr(), work.data_ptr(), plan.workspace, counters, G, M, K, R,
+            XUS_ROUTES[plan.route], plan.kc, plan.kc_s, vec, ctypes.c_void_p(stream),
         )
     xus.launches += 1
     return out if x.dim() == 3 else out[0]

@@ -30,7 +30,15 @@ from repro_torch.kernels import (
     ref,
     use_kernels_for,
 )
-from repro_torch.kernels.lowrank_matmul import avt, xus
+from repro_torch.kernels.lowrank_matmul import (
+    COUNTER_INTS,
+    GRID_YZ_MAX,
+    STREAM_KC,
+    TILED_BLOCKS,
+    avt,
+    xus,
+    xus_plan,
+)
 
 # f32: both sides accumulate in f32 and differ only in summation order.
 # bf16: both round once from f32 to bf16 at the output (x·U and S in f32 on
@@ -353,3 +361,205 @@ def test_hopper_kernels_match_plain_versions_on_card():
             A = xus(x, U, S)
             torch.testing.assert_close(A, ref.xus_ref(x, U, S), **TOL[dtype])
             torch.testing.assert_close(avt(A, V), ref.avt_ref(A, V), **TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# xus_plan: the route, K splits, launches and workspace of an xus call
+# ---------------------------------------------------------------------------
+
+#: (K, R) of every xus call of a Qwen2-7B decode step (d 3584, d_ff 18944,
+#: r 256, k/v rank 64; the f32 embedding's 256 × 256) and of an llm-100m
+#: FeDLRT round (n_in / n_out 640, 2560, 8192; r 160, augmented 320;
+#: the embedding's K = r or 2r)
+DECODE_XUS = [(3584, 256), (3584, 64), (18944, 256), (256, 256)]
+TRAIN_XUS = [(K, R) for K in (160, 320, 640, 2560, 8192) for R in (160, 320)]
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _check_plan(plan, G, M, K, R, has_s):
+    """What ``lr_xus`` checks before it launches, and the grids it makes."""
+    assert plan.splits >= 1 and plan.kc >= 1
+    # the splits cover K exactly: every split but the last is kc long
+    assert (plan.splits - 1) * plan.kc < K <= plan.splits * plan.kc
+    per_g = M * R
+    if plan.route == "stream":
+        ctiles = _cdiv(R, 64)
+        assert M <= 16 and plan.launches == 1
+        assert STREAM_KC[0] <= plan.kc or plan.splits == 1
+        assert (4 if M <= 4 else 16) * plan.kc <= 8192  # the staged x rows
+        assert plan.counters == G * (ctiles + 1) <= COUNTER_INTS
+        need = 2 * (G * plan.splits * per_g + (G * ctiles * per_g if has_s and ctiles > 1 else 0))
+        grids = [(ctiles, plan.splits, G)]
+    else:
+        assert plan.route == "tiled" and plan.launches == (2 if has_s else 1)
+        tiles = G * _cdiv(R, 32) * _cdiv(M, 64)
+        splits_s = _cdiv(R, plan.kc_s)
+        assert (splits_s - 1) * plan.kc_s < R <= splits_s * plan.kc_s
+        assert has_s or splits_s == 1
+        for n, kc in ((plan.splits, plan.kc), (splits_s, plan.kc_s)):
+            assert n == 1 or (kc % 32 == 0 and tiles < TILED_BLOCKS)  # splits under ~1.5 waves
+        # a ticket a tile for each pass
+        assert plan.counters == (2 * tiles if max(plan.splits, splits_s) > 1 else 0) <= COUNTER_INTS
+        need = (G * per_g if has_s else 0) + sum(G * n * per_g for n in (plan.splits, splits_s)
+                                                 if n > 1)
+        grids = [(_cdiv(R, 32), _cdiv(M, 64), G * n) for n in (plan.splits, splits_s)]
+    assert plan.workspace >= need
+    for gx, gy, gz in grids:
+        assert 1 <= gx < 2**31 and 1 <= gy <= GRID_YZ_MAX and 1 <= gz <= GRID_YZ_MAX
+
+
+@pytest.mark.parametrize("has_s", [True, False])
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("K,R", DECODE_XUS)
+def test_xus_plan_decode_shapes_are_one_launch(K, R, M, has_s):
+    plan = xus_plan(1, M, K, R, has_s)
+    assert plan.route == "stream" and plan.launches == 1
+    _check_plan(plan, 1, M, K, R, has_s)
+    # about one block per SM: never more than two waves of the card's 132 SMs
+    assert _cdiv(R, 64) * plan.splits <= 2 * 132
+
+
+@pytest.mark.parametrize("has_s", [True, False])
+@pytest.mark.parametrize("K,R", TRAIN_XUS)
+def test_xus_plan_training_shapes_take_the_tiled_route(K, R, has_s):
+    plan = xus_plan(1, 512, K, R, has_s)
+    assert plan.route == "tiled" and plan.launches == (2 if has_s else 1)
+    _check_plan(plan, 1, 512, K, R, has_s)
+    # K is split only while the 64 x 32 tiles are under ~1.5 waves
+    tiles = _cdiv(512, 64) * _cdiv(R, 32)
+    assert tiles * plan.splits <= 2 * TILED_BLOCKS or plan.kc == 64
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_xus_plan_ragged_and_stacked_shapes(seed):
+    """Random ragged shapes, stacked factors included: the plan is one
+    ``lr_xus`` accepts, its splits cover K and its workspace is enough."""
+    rng = np.random.default_rng(seed)
+    for _ in range(200):
+        G = int(rng.choice([1, 3, 12, 1000]))
+        M = int(rng.choice([1, 3, 16, 17, 130, 512, int(rng.integers(1, 5000))]))
+        K = int(rng.integers(1, 40000))
+        R = int(rng.integers(1, 600))
+        has_s = bool(rng.integers(2))
+        _check_plan(xus_plan(G, M, K, R, has_s), G, M, K, R, has_s)
+
+
+def test_xus_plan_depends_on_shapes_only(monkeypatch):
+    """The plan reads nothing of the card: it is the same with CUDA
+    unavailable, and the cached plan equals a fresh one."""
+    shapes = [(1, 4, 18944, 256, True), (3, 17, 1003, 5, False), (1, 512, 2560, 320, True)]
+    cached = [xus_plan(*s) for s in shapes]
+    for name in ("is_available", "device_count", "get_device_properties", "current_device"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: pytest.fail("plan read the card"))
+    assert [xus_plan.__wrapped__(*s) for s in shapes] == cached
+    assert [xus_plan(*s) for s in shapes] == cached
+    with pytest.raises(ValueError, match="positive"):
+        xus_plan.__wrapped__(1, 0, 8, 8, True)
+
+
+# ---------------------------------------------------------------------------
+# xus on the card: both routes, ragged, misaligned, stacked, repeatable
+# ---------------------------------------------------------------------------
+
+XUS_CARD_M = [1, 3, 4, 16, 17, 130, 512]
+XUS_CARD_KR = [(300, 5), (1003, 64), (517, 160), (3584, 256), (640, 320)]
+
+
+def _xus_case(G, M, K, R, seed, dtype, s_dtype, misaligned=False):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((G, M, K)).astype(np.float32)
+    U = (rng.standard_normal((G, K, R)) / np.sqrt(K)).astype(np.float32)
+    S = (rng.standard_normal((G, R, R)) / np.sqrt(R)).astype(np.float32)
+    tdt = DTYPES[dtype][1]
+    tx, tU = (torch.from_numpy(a).to("cuda", tdt) for a in (x, U))
+    tS = torch.from_numpy(S).to("cuda", DTYPES[s_dtype][1])
+    if misaligned:
+        # contiguous views at an offset: x one row on (K odd), U one element on
+        bx = torch.zeros((G, M + 1, K), device="cuda", dtype=tdt)
+        bx[:, 1:] = tx
+        tx = bx[0, 1:] if G == 1 else None
+        flat = torch.zeros(K * R + 1, device="cuda", dtype=tdt)
+        flat[1:] = tU[0].reshape(-1)
+        tU = flat[1:].view(K, R)
+        tS = tS[0]
+        assert tx.is_contiguous() and tU.is_contiguous()
+        assert tx.data_ptr() % 16 and tU.data_ptr() % 16
+    return tx, tU, tS
+
+
+def _xus_close(got, want, dtype):
+    if dtype == "float32":  # f32 sums of up to 3584 terms in another order
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got, want, **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,s_dtype", [("float32", "float32"), ("bfloat16", "bfloat16"),
+                                           ("bfloat16", "float32")])
+def test_xus_routes_match_plain_version_on_card(dtype, s_dtype):
+    """Runs on an H100 (``pytest -m cuda``): xus against ``ref.xus_ref`` on
+    both routes (M ≤ 16 stream, M > 16 tiled), ragged K (not a multiple of
+    8) and R, with and without S, stacked factors (G = 3), misaligned
+    operand views; and two calls at equal inputs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for M in XUS_CARD_M:
+        for K, R in XUS_CARD_KR:
+            x, U, S = _xus_case(1, M, K, R, M + K, dtype, s_dtype)
+            for s in (S, None):
+                got = xus(x[0], U[0], None if s is None else s[0])
+                _xus_close(got, ref.xus_ref(x[0], U[0], None if s is None else s[0]), dtype)
+        # stacked factors: the leading axis is a grid axis
+        x, U, S = _xus_case(3, M, 1003, 160, M, dtype, s_dtype)
+        for s in (S, None):
+            got = xus(x, U, s)
+            assert got.shape == (3, M, 160)
+            _xus_close(got, ref.xus_ref(x, U, s), dtype)
+            assert torch.equal(got, xus(x, U, s))  # the same bits again
+        # misaligned views take the element-load variants
+        x, U, S = _xus_case(1, M, 1003, 64, 7 * M, dtype, s_dtype, misaligned=True)
+        for s in (S, None):
+            _xus_close(xus(x, U, s), ref.xus_ref(x, U, s), dtype)
+    x, U, S = _xus_case(1, 4, 18944, 256, 11, dtype, s_dtype)
+    first = xus(x[0], U[0], S[0])
+    assert all(torch.equal(first, xus(x[0], U[0], S[0])) for _ in range(3))
+
+
+@pytest.mark.cuda
+def test_xus_stream_route_tickets_on_card():
+    """Runs on an H100 (``pytest -m cuda``): the stream route's ticket
+    counters are left at 0 by every call, so calls replayed from a CUDA
+    graph, and calls on two streams at once, give the eager call's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    cases = [_xus_case(1, M, K, R, K + R, "bfloat16", "bfloat16")
+             for M, K, R in [(4, 3584, 256), (1, 18944, 256), (16, 3584, 64)]]
+    want = [xus(x[0], U[0], S[0]) for x, U, S in cases]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        xus(*(t[0] for t in cases[0]))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [xus(x[0], U[0], S[0]) for x, U, S in cases]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, w) for o, w in zip(outs, want))
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    got = [[] for _ in streams]
+    for _ in range(20):
+        for st, g in zip(streams, got):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                g.append([xus(x[0], U[0], S[0]) for x, U, S in cases])
+    torch.cuda.synchronize()
+    for g in got:
+        for outs in g:
+            assert all(torch.equal(o, w) for o, w in zip(outs, want))
