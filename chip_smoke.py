@@ -9,9 +9,10 @@ per source, all started together) and drives each of the port's paths:
 - kernels: holds each kernel to its plain PyTorch version at every shape
   its paths give it: ``xus``/``avt`` at the Qwen2-7B serving shapes,
   ``atb`` at the llm-100m training shapes and at Qwen2-7B's, ``xus`` at
-  every shape of an llm-100m round (M = 512, f32), with its time summed
-  over one round; each ``xus`` shape's device launches a call, counted by
-  ``torch.profiler``, are held to ``xus_plan``'s;
+  every shape of an llm-100m round (M = 512, f32); ``atb``'s and ``xus``'s
+  times summed over one round; each ``xus`` and ``atb`` shape's device
+  launches a call, counted by ``torch.profiler``, are held to
+  ``xus_plan``'s and ``atb_plan``'s;
 - backward: ``lowrank_apply``'s kernel-backed gradients against the plain
   chain's at one llm-100m layer's full width, in f32;
 - f32 logits: the serving kernel path against the plain chain, Qwen2-7B at
@@ -593,11 +594,33 @@ def _atb_bound_ms(dtype_name, M, Ka, Kb):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_atb(torch):
+def llm100m_round_calls(torch):
+    """The ``xus`` and ``atb`` calls of one llm-100m FeDLRT round with the
+    spec defaults (:func:`train_xus_calls`, :func:`train_atb_calls`), held
+    to :func:`expected_launches`, and their M (batch × seq)."""
+    from repro_torch.api import ExperimentSpec, ModelSpec, build
+
+    spec = ExperimentSpec(name="chip-calls-llm-100m", seed=0, model=ModelSpec(preset="llm-100m"))
+    exp = build(spec, device="cuda")
+    cfg = exp.engine.cfg
+    calls = dict(xus=train_xus_calls(exp.params, cfg), atb=train_atb_calls(exp.params, cfg))
+    want, _ = expected_launches(exp.params, cfg)
+    del exp
+    torch.cuda.empty_cache()
+    for name, c in calls.items():
+        if sum(c.values()) != want[name]:
+            raise AssertionError(f"train_{name}_calls counts {sum(c.values())} {name} calls a "
+                                 f"round, expected_launches {want[name]}")
+    return dict(calls, M=spec.data.batch * spec.data.seq)
+
+
+def phase_atb(torch, round_calls):
     """``atb`` against its plain version at every training-path shape, f32
-    and bf16, with its time, bound, plain time and ``torch.matmul(A.T, B)``."""
+    and bf16, with its device launches a call (held to ``atb_plan``), its
+    time, bound, plain time and ``torch.matmul(A.T, B)``'s; then the sums
+    over one llm-100m round's calls (``round_calls["atb"]``, f32)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.coeff_grad import atb
+    from repro_torch.kernels.coeff_grad import atb, atb_plan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda")
@@ -617,6 +640,11 @@ def phase_atb(torch):
                 got, want = atb(*sets[0]), ref.atb_ref(*sets[0])
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
+                plan = atb_plan(1, M, Ka, Kb)
+                dev, names = device_launches(torch, lambda: atb(*sets[0]), kernel="atb")
+                if dev != plan.launches:
+                    raise AssertionError(f"atb M={M} Ka={Ka} Kb={Kb} {dtype_name}: {dev:g} device "
+                                         f"launches a call, plan says {plan.launches}")
                 if dtype_name == "float32":
                     ok = err <= ATB_F32_RTOL * want.abs().max().item()
                     tol = f"{ATB_F32_RTOL:g} x max|C|"
@@ -626,7 +654,7 @@ def phase_atb(torch):
                 reps = max(n_sets, 8)
                 rec = dict(
                     kernel="atb", model=model, dtype=dtype_name, M=M, Ka=Ka, Kb=Kb,
-                    max_abs_err=err, ok=ok,
+                    max_abs_err=err, ok=ok, splits=plan.splits, launches=dev,
                     ms=graph_ms(torch, lambda i: atb(*sets[i]), n_sets, reps),
                     plain_ms=graph_ms(torch, lambda i: ref.atb_ref(*sets[i]), n_sets, reps),
                     library_ms=graph_ms(
@@ -634,42 +662,48 @@ def phase_atb(torch):
                     ),
                 )
                 rec["bound_ms"], rec["bound_by"] = _atb_bound_ms(dtype_name, M, Ka, Kb)
+                rec["tflops"] = 2 * M * Ka * Kb / rec["ms"] / 1e9
                 records.append(rec)
                 log(f"[atb] {model:8s} {dtype_name:8s} M={M:<5d} Ka={Ka:<6d} Kb={Kb:<3d} "
                     f"max_abs_err={err:.3g} (max|C| {want.float().abs().max().item():.3g}) "
                     f"tol={tol} {'ok' if ok else 'MISMATCH'}  kernel_ms={rec['ms']:.4f} "
-                    f"plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
-                    f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']})")
+                    f"({rec['tflops']:.1f} TF/s) plain_ms={rec['plain_ms']:.4f} "
+                    f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.6f} "
+                    f"({rec['bound_by']}) splits={plan.splits} launches={dev:g} {','.join(names)}")
                 del sets, got, want
     torch.cuda.empty_cache()
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} atb case(s) disagree with the plain version: {bad}")
-    return records
+    M = round_calls["M"]
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, calls=0, device_launches=0.0)
+    for (Ka, Kb), n in sorted(round_calls["atb"].items()):
+        [rec] = [r for r in records if (r["model"], r["dtype"], r["M"], r["Ka"], r["Kb"])
+                 == ("llm-100m", "float32", M, Ka, Kb)]
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            total[k] += n * rec[k]
+        total["calls"] += n
+        total["device_launches"] += n * rec["launches"]
+    log(f"[atb] round: per llm-100m round (f32, M={M}): {total['calls']} calls, "
+        f"{total['device_launches']:g} device launches; kernel {total['ms']:.3f} ms, plain "
+        f"{total['plain_ms']:.3f} ms, library {total['library_ms']:.3f} ms, bound "
+        f"{total['bound_ms']:.3f} ms; by (Ka, Kb): "
+        + ", ".join(f"{ka}x{kb} x{n}" for (ka, kb), n in sorted(round_calls["atb"].items())))
+    return records, total
 
 
-def phase_xus_train(torch):
+def phase_xus_train(torch, round_calls):
     """``xus`` at every shape of one llm-100m FeDLRT round (M = batch × seq
     = 512, f32, with and without S), each held to its plain version, with
     its device launches a call against the plan, its time, the plain
     version's, the library call's (``torch.linalg.multi_dot``, or
     ``torch.matmul`` without S) and the bound; then the sums over one
-    round's calls (:func:`train_xus_calls`)."""
-    from repro_torch.api import ExperimentSpec, ModelSpec, build
+    round's calls (``round_calls["xus"]``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.lowrank_matmul import xus
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    spec = ExperimentSpec(name="chip-xus-llm-100m", seed=0, model=ModelSpec(preset="llm-100m"))
-    exp = build(spec, device="cuda")
-    calls = train_xus_calls(exp.params, exp.engine.cfg)
-    want, _ = expected_launches(exp.params, exp.engine.cfg)
-    del exp
-    torch.cuda.empty_cache()
-    if sum(calls.values()) != want["xus"]:
-        raise AssertionError(f"train_xus_calls counts {sum(calls.values())} xus calls a round, "
-                             f"expected_launches {want['xus']}")
-    M = spec.data.batch * spec.data.seq
+    calls, M = round_calls["xus"], round_calls["M"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     records = []
@@ -1050,8 +1084,7 @@ def phase_train(torch, counters):
     log(f"[train] repeat of round 0: all {len(a_leaves)} tensors bit-identical (torch.equal)")
     del exp_rep
     torch.cuda.empty_cache()
-    return dict(rounds=rounds, path_s=path_s, profile=profile,
-                atb_calls=train_atb_calls(params0, cfg))
+    return dict(rounds=rounds, path_s=path_s, profile=profile)
 
 
 # ---------------------------------------------------------------------------
@@ -1401,10 +1434,11 @@ def phase_spec(torch, counters, workdir):
                 int8_uplink_ratio=ratio, serve_s=serve_s, spec_hash=spec.spec_hash())
 
 
-def kernel_summary(records, atb_records, flash_records, counters, cfg, atb_calls, xus_round):
+def kernel_summary(records, atb_records, flash_records, counters, cfg, atb_round, xus_round):
     """Per kernel: ``xus``/``avt`` as the sum over one Qwen2-7B decode
     step's launches (M = 4) of each measured number; ``atb`` as the sum over
-    one llm-100m FeDLRT round's launches (M = 512, f32); ``flash_attention``
+    one llm-100m FeDLRT round's calls (M = 512, f32: ``phase_atb``'s
+    ``[atb] round``); ``flash_attention``
     as one Qwen2-7B 4096-token causal prefill (bf16). ``launches`` is the
     count over the paths' runs; the worst error is over every checked case."""
 
@@ -1436,21 +1470,18 @@ def kernel_summary(records, atb_records, flash_records, counters, cfg, atb_calls
         if name == "xus":  # the training path's calls, summed over one round
             out[-1]["round"] = {**xus_round, "bound_by": "operations",
                                 "unit": "one llm-100m FeDLRT round (f32, M=512)"}
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    bound_by = set()
-    for (Ka, Kb), n in atb_calls.items():
-        [rec] = [r for r in atb_records if (r["model"], r["dtype"], r["M"], r["Ka"], r["Kb"])
-                 == ("llm-100m", "float32", 512, Ka, Kb)]
-        for k in tot:
-            tot[k] += n * rec[k]
-        bound_by.add(rec["bound_by"])
+    bound_by = {r["bound_by"] for r in atb_records
+                if r["model"] == "llm-100m" and r["dtype"] == "float32" and r["M"] == 512}
     out.append({
         "name": "atb", "route": "cuda", "source": SOURCES["atb"], "replaces": REPLACES["atb"],
         **launches("atb"),
         "max_abs_err": max(r["max_abs_err"] for r in atb_records),
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "ms": atb_round["ms"], "plain_ms": atb_round["plain_ms"],
+        "bound_ms": atb_round["bound_ms"],
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
-        "library_ms": tot["library_ms"], "unit": "one llm-100m FeDLRT round (f32, M=512)",
+        "library_ms": atb_round["library_ms"], "calls": atb_round["calls"],
+        "device_launches": atb_round["device_launches"],
+        "unit": "one llm-100m FeDLRT round (f32, M=512)",
     })
     [pre] = [r for r in flash_records if r["case"] == "qwen2-7b prefill"]
     out.append({
@@ -1484,9 +1515,10 @@ def main() -> int:
     done("build")
     records = phase_kernels(torch, cfg)
     done("kernels")
-    atb_records = phase_atb(torch)
+    round_calls = llm100m_round_calls(torch)
+    atb_records, atb_round = phase_atb(torch, round_calls)
     done("atb")
-    xus_train, xus_round = phase_xus_train(torch)
+    xus_train, xus_round = phase_xus_train(torch, round_calls)
     done("xus-train")
     phase_backward(torch)
     done("backward")
@@ -1502,11 +1534,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spec_") as workdir:
         spec_stats = phase_spec(torch, counters, workdir)
     done("spec")
-    log("[summary] " + json.dumps({"card": smi, "serve": serve_stats, "train": {
-        k: v for k, v in train.items() if k != "atb_calls"}, "flash": flash_records,
-        "spec": spec_stats, "xus_train": xus_train}))
+    log("[summary] " + json.dumps({"card": smi, "serve": serve_stats, "train": train,
+                                   "flash": flash_records, "spec": spec_stats,
+                                   "xus_train": xus_train}))
     print(json.dumps({"kernels": kernel_summary(
-        records, atb_records, flash_records, counters, cfg, train["atb_calls"], xus_round)}))
+        records, atb_records, flash_records, counters, cfg, atb_round, xus_round)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

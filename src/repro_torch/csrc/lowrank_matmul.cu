@@ -87,35 +87,16 @@
 // grid axis), returns cudaGetLastError(), and launches on the caller's
 // stream without synchronising. Buffers are allocated by the caller.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 constexpr int MAX_SMEM = 48 * 1024;  // dynamic shared memory without opt-in
-
-__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // ---------------------------------------------------------------- xus
 // route codes, as kernels/lowrank_matmul.py::XUS_ROUTES numbers them
 constexpr int XUS_STREAM = 0;
 constexpr int XUS_TILED = 1;
-// ticket counters a call may use: the slot size of the wrapper's pool
-// (kernels/lowrank_matmul.py::COUNTER_INTS)
-constexpr long long XUS_COUNTER_INTS = 4096;
 
 // 16 bytes of T as f32: 4 floats or 8 bf16
 __device__ __forceinline__ void unpack16(const uint4& v, float (&f)[4]) {
@@ -132,35 +113,6 @@ __device__ __forceinline__ void unpack16(const uint4& v, float (&f)[8]) {
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
   }
-}
-
-// A block's ticket: one thread adds 1 to the counter after a barrier, with
-// release and acquire semantics at device scope. Release publishes the
-// whole block's earlier stores (the barrier orders them before it); acquire
-// makes the stores of every block that took a ticket before visible to the
-// block that reads the last one (it reads them past L1, with __ldcg).
-__device__ __forceinline__ unsigned take_ticket(unsigned* counter) {
-  unsigned old;
-  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
-               : "=r"(old)
-               : "l"(counter)
-               : "memory");
-  return old;
-}
-
-// 16 bytes global -> shared, or 16 zero bytes when !ok (src-size 0: no read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- the stream route (M <= 16)
@@ -514,54 +466,6 @@ __host__ __device__ constexpr int tl_smem_bytes() {
                       TL_K * (TL_N + 8) * (int)sizeof(TB));
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = big + small, both tf32: big carries v's top 11 significant bits, small
-// the next 11, so big*big + big*small + small*big misses v*w by about 2^-22
-// of it (3xTF32). A bf16 value is a tf32 value: small is 0.
-template <bool EXACT>
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
-  if constexpr (EXACT) {
-    big = __float_as_uint(v);
-    small = 0u;
-  } else {
-    big = to_tf32(v);
-    small = to_tf32(v - __uint_as_float(big));
-  }
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two values of an output row, at columns n and n + 1 (avail of them inside)
-__device__ __forceinline__ void store2(float* p, float a, float b, int avail, bool vec) {
-  if (vec && avail >= 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  } else {
-    if (avail > 0) p[0] = a;
-    if (avail > 1) p[1] = b;
-  }
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b, int avail,
-                                       bool vec) {
-  if (vec && avail >= 2) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  } else {
-    if (avail > 0) p[0] = __float2bfloat16_rn(a);
-    if (avail > 1) p[1] = __float2bfloat16_rn(b);
-  }
-}
-
 // A (M x K, batches ag elements apart) times B (K x N): C in f32 for the
 // block's tile over its K split. One split: C rounded to TO in `out`, or in
 // f32 at `xu` (to_xu). Several: each split's partial at `part`, and the
@@ -826,8 +730,6 @@ void launch_tiled(bool vec, dim3 grid, const TA* A, size_t ag, const TB* B, TO* 
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
 template <typename T, typename TS, int MB>
 void launch_stream(dim3 grid, bool vec, const T* x, const T* U, const TS* S, T* out, float* w,
                    unsigned* cnt, int M, int K, int R, int kc, int nsplit, cudaStream_t st) {
@@ -863,7 +765,7 @@ int launch_xus(const void* x_, const void* U_, const void* S_, void* out_, void*
                                 (S != nullptr && ctiles > 1 ? (long long)G * ctiles * per_g : 0));
     const int mb = M <= 4 ? 4 : 16;  // the kernel instance's rows
     if (M > XS_MAX_M || mb * kc > XS_SMEM_FLOATS || nsplit > 65535 || counters == nullptr ||
-        (long long)G * (ctiles + 1) > XUS_COUNTER_INTS ||
+        (long long)G * (ctiles + 1) > COUNTER_INTS ||
         need > work_floats || ((vec & 1) && !(aligned16(U) && R % V == 0))) {
       return (int)cudaErrorInvalidValue;
     }
@@ -888,7 +790,7 @@ int launch_xus(const void* x_, const void* U_, const void* S_, void* out_, void*
   constexpr int VS = 16 / sizeof(TS);
   const bool vec1 = vec & 1, vec_s = vec & 2;
   if (kc_s < 1 || (nsplit > 1 && kc % TL_K != 0) || (nsplit_s > 1 && kc_s % TL_K != 0) ||
-      ((nsplit > 1 || nsplit_s > 1) && (counters == nullptr || 2 * tiles > XUS_COUNTER_INTS)) ||
+      ((nsplit > 1 || nsplit_s > 1) && (counters == nullptr || 2 * tiles > COUNTER_INTS)) ||
       (long long)G * nsplit > 65535 || (long long)G * nsplit_s > 65535 ||
       cdiv(M, TL_M) > 65535 || xu_n + p1_n + p2_n > work_floats ||
       (vec1 && !(aligned16(x) && aligned16(U) && K % V == 0 && R % V == 0)) ||

@@ -7,8 +7,9 @@ that includes PyTorch's headers takes minutes. Each source is compiled to
 an object by its own ``nvcc``, all started together, and the objects are
 linked into one library. The library is built at first use into
 ``build/repro_torch/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of the sources and flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.
+``.gitignore``), named by a hash of the flags and of every source and
+header under ``csrc`` (``*.cu``, ``*.cuh``), so an edited source or header
+is rebuilt and an unchanged tree is loaded as it is.
 """
 from __future__ import annotations
 
@@ -24,7 +25,6 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("lowrank_matmul.cu", "coeff_grad.cu", "flash_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,10 +50,17 @@ def _nvcc() -> str:
     )
 
 
+def sources() -> list:
+    """The sources compiled, one object each: every ``*.cu`` under ``CSRC``."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
+    """The library's path, named by a hash of the flags and of every source
+    and header under ``CSRC`` (names and contents)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
+    for path in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"repro_torch_kernels-{h.hexdigest()[:16]}.so"
 
 
@@ -69,9 +76,9 @@ def build() -> Path:
     # builds never see (or load) a half-written one
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         compiles = []
-        for name in SOURCES:
-            obj = os.path.join(tmp, Path(name).stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / name)]
+        for src in sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
             compiles.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )))
@@ -107,9 +114,7 @@ def load_library() -> ctypes.CDLL:
         lib.lr_capture_id.restype = ctypes.c_ulonglong
         lib.lr_avt.argtypes = [i, p, p, p, i, i, i, i, p]
         lib.lr_avt.restype = i
-        lib.lr_atb_workspace.argtypes = [i, i, i, i]
-        lib.lr_atb_workspace.restype = ctypes.c_longlong
-        lib.lr_atb.argtypes = [i, p, p, p, p, i, i, i, i, p]
+        lib.lr_atb.argtypes = [i, p, p, p, p, ctypes.c_longlong, p, i, i, i, i, i, i, p]
         lib.lr_atb.restype = i
         lib.lr_flash_attention.argtypes = [
             i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, i, p,

@@ -92,6 +92,7 @@ TILED_BLOCKS = 200
 WAVE = 132
 #: ticket counters one call may use (a slot of the pool): a stream route
 #: call takes G · (column tiles + 1), a tiled one with K splits one a tile
+#: a pass, an ``atb`` call with M splits one a tile (``coeff_grad.py``)
 COUNTER_INTS = 4096
 GRID_YZ_MAX = 65535
 
@@ -165,7 +166,7 @@ def xus_plan(G: int, M: int, K: int, R: int, has_s: bool) -> XusPlan:
 
 
 class _Counters:
-    """Ticket counters of ``xus`` on one card: a pool of zeroed
+    """Ticket counters of ``xus`` and ``atb`` on one card: a pool of zeroed
     slots of :data:`COUNTER_INTS`, each call's kernel leaves its counters
     at 0 again. A stream keeps one slot, so calls on two streams never
     share one; a graph capture takes a slot of its own (cycling over the
@@ -177,7 +178,7 @@ class _Counters:
     def __init__(self, device: torch.device):
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
-                "xus: the first call that takes ticket counters on a card must not be inside "
+                "xus/atb: the first call that takes ticket counters on a card must not be inside "
                 "a CUDA graph capture (its counter pool is zeroed then)"
             )
         self.pool = torch.zeros((self.SLOTS, COUNTER_INTS), dtype=torch.int32, device=device)
@@ -194,7 +195,7 @@ class _Counters:
                 held = set(self.by_stream.values())
                 free = [j for j in range(self.SLOTS) if j not in held]
                 if len(free) < 2:
-                    raise RuntimeError(f"xus: more than {self.SLOTS - 2} streams in use")
+                    raise RuntimeError(f"xus/atb: more than {self.SLOTS - 2} streams in use")
                 i = self.by_stream[stream] = free[0]
             return self.base + 4 * COUNTER_INTS * i
         key = (stream, load_library().lr_capture_id(stream))

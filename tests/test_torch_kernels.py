@@ -39,6 +39,13 @@ from repro_torch.kernels.lowrank_matmul import (
     xus,
     xus_plan,
 )
+from repro_torch.kernels.coeff_grad import (
+    ATB_BLOCKS,
+    ATB_PARTIALS,
+    ATB_STEP,
+    ATB_TILE,
+    atb_plan,
+)
 
 # f32: both sides accumulate in f32 and differ only in summation order.
 # bf16: both round once from f32 to bf16 at the output (x·U and S in f32 on
@@ -329,22 +336,90 @@ def test_atb_refuses_devices_without_a_kernel():
         atb(torch.empty(4, 3, device="meta"), torch.empty(4, 2, device="meta"))
 
 
+def _atb_close(C, W, dtype):
+    if dtype == "float32":  # error relative to the sum's magnitude
+        assert (C - W).abs().max() <= 1e-4 * W.abs().max()
+    else:
+        torch.testing.assert_close(C, W, **TOL[dtype])
+
+
 @pytest.mark.cuda
 def test_atb_matches_plain_version_on_card():
     """Runs on an H100 (``pytest -m cuda``): atb against atb_ref at the
-    training path's shapes, both working types."""
+    training path's shapes (split and unsplit M, M = 8192), ragged ones,
+    stacked factors (G = 3) and views offset by a row or an element (the
+    element-load variant), both working types; a second call gives the
+    first one's bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     for dtype in ("float32", "bfloat16"):
         tdt = DTYPES[dtype][1]
-        for M, Ka, Kb in [(512, 320, 320), (512, 8192, 160), (8192, 2560, 160), (37, 70, 33)]:
+        for M, Ka, Kb in [(512, 320, 320), (512, 640, 160), (512, 160, 160), (512, 2560, 160),
+                          (512, 8192, 160), (8192, 2560, 160), (8192, 160, 160), (37, 70, 33),
+                          (1, 5, 3), (600, 100, 36)]:
             A, B = (torch.from_numpy(a).to("cuda", tdt) for a in _ab(M, Ka, Kb))
             C, W = atb(A, B), ref.atb_ref(A, B)
-            if dtype == "float32":  # error relative to the sum's magnitude
-                assert (C - W).abs().max() <= 1e-4 * W.abs().max()
-            else:
-                torch.testing.assert_close(C, W, **TOL[dtype])
+            _atb_close(C, W, dtype)
+            assert torch.equal(C, atb(A, B))  # the same bits again
+        # stacked factors: the leading axis is a grid axis (split and unsplit M)
+        for M, Ka, Kb in [(512, 320, 160), (512, 2560, 160), (130, 33, 70)]:
+            A, B = (torch.from_numpy(np.stack([a, -2 * a, a[::-1].copy()])).to("cuda", tdt)
+                    for a in _ab(M, Ka, Kb, seed=M))
+            C = atb(A, B)
+            assert C.shape == (3, Ka, Kb)
+            _atb_close(C, ref.atb_ref(A, B), dtype)
+            assert torch.equal(C, atb(A, B))
+        # contiguous views at an offset: A one row on, B one element on
+        for M, Ka, Kb in [(512, 320, 320), (512, 2560, 160)]:
+            a, b = (torch.from_numpy(t).to("cuda", tdt) for t in _ab(M, Ka, Kb, seed=3))
+            bufa = torch.zeros((M + 1, Ka), device="cuda", dtype=tdt)
+            bufa[1:] = a
+            A = bufa[1:]
+            flat = torch.zeros(M * Kb + 1, device="cuda", dtype=tdt)
+            flat[1:] = b.reshape(-1)
+            B = flat[1:].view(M, Kb)
+            assert A.is_contiguous() and B.is_contiguous() and B.data_ptr() % 16
+            C = atb(A, B)
+            _atb_close(C, ref.atb_ref(A, B), dtype)
+            assert torch.equal(C, atb(a, b))  # the vector variant's bits
+
+
+@pytest.mark.cuda
+def test_atb_tickets_on_card():
+    """Runs on an H100 (``pytest -m cuda``): the split-M calls leave their
+    ticket counters at 0, so calls replayed from a CUDA graph, and calls on
+    two streams at once, give the eager call's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    cases = [tuple(torch.from_numpy(a).to("cuda") for a in _ab(M, Ka, Kb, seed=Ka))
+             for M, Ka, Kb in [(512, 320, 320), (512, 160, 160), (8192, 640, 160),
+                               (512, 2560, 160)]]
+    assert all(atb_plan(1, A.shape[0], A.shape[1], B.shape[1]).splits > 1 for A, B in cases[:3])
+    want = [atb(A, B) for A, B in cases]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        atb(*cases[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [atb(A, B) for A, B in cases]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, w) for o, w in zip(outs, want))
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    got = [[] for _ in streams]
+    for _ in range(20):
+        for st, g in zip(streams, got):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                g.append([atb(A, B) for A, B in cases])
+    torch.cuda.synchronize()
+    for g in got:
+        for outs in g:
+            assert all(torch.equal(o, w) for o, w in zip(outs, want))
 
 
 @pytest.mark.cuda
@@ -458,6 +533,126 @@ def test_xus_plan_depends_on_shapes_only(monkeypatch):
     assert [xus_plan(*s) for s in shapes] == cached
     with pytest.raises(ValueError, match="positive"):
         xus_plan.__wrapped__(1, 0, 8, 8, True)
+
+
+# ---------------------------------------------------------------------------
+# atb_plan: the tile, M splits, launches, workspace and counters of an atb call
+# ---------------------------------------------------------------------------
+
+#: (Ka, Kb) of every atb call of an llm-100m FeDLRT round (dS̃ 320², dU / dV
+#: of the 640-wide layers, dS 160², dU / dV of the MLP, the embedding's
+#: vocab-wide dV and gather backward) and of Qwen2-7B's training path
+ATB_ROUND = [(320, 320), (640, 160), (160, 160), (2560, 160), (8192, 160)]
+ATB_QWEN = [(256, 256), (64, 64), (512, 512), (128, 128), (3584, 256), (3584, 64),
+            (18944, 256), (512, 64), (152064, 256)]
+
+
+def _check_atb_plan(plan, G, M, Ka, Kb):
+    """What ``lr_atb`` checks before it launches, and the grid it makes."""
+    assert plan.tile == ATB_TILE and plan.launches == 1
+    assert plan.splits >= 1 and plan.mc >= 1
+    # the splits cover M exactly: every split but the last is mc long
+    assert (plan.splits - 1) * plan.mc < M <= plan.splits * plan.mc
+    tiles = G * _cdiv(Ka, ATB_TILE[0]) * _cdiv(Kb, ATB_TILE[1])
+    if plan.splits == 1:
+        assert plan.workspace == 0 and plan.counters == 0
+    else:
+        assert plan.mc % ATB_STEP == 0 and plan.mc >= 64
+        assert tiles < ATB_BLOCKS  # M is split only under ~1.5 waves of tiles
+        assert plan.workspace == plan.splits * G * Ka * Kb
+        # the partials stay in proportion to the operands' elements
+        assert plan.workspace <= ATB_PARTIALS * G * M * (Ka + Kb)
+        assert plan.counters == tiles <= COUNTER_INTS  # a ticket a tile
+    gx, gy, gz = _cdiv(Ka, ATB_TILE[0]), _cdiv(Kb, ATB_TILE[1]), G * plan.splits
+    assert 1 <= gx < 2**31 and 1 <= gy <= GRID_YZ_MAX and 1 <= gz <= GRID_YZ_MAX
+
+
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("M", [512, 8192])
+@pytest.mark.parametrize("Ka,Kb", ATB_ROUND + ATB_QWEN)
+def test_atb_plan_training_shapes_are_one_launch(Ka, Kb, M, G):
+    plan = atb_plan(G, M, Ka, Kb)
+    _check_atb_plan(plan, G, M, Ka, Kb)
+    tiles = G * _cdiv(Ka, 64) * _cdiv(Kb, 32)
+    # enough blocks: at least a wave of the card's 132 SMs, or the splits go
+    # as far as the partials' bytes or the 64-row floor allow
+    assert (tiles * plan.splits >= 132 or plan.mc == 64
+            or (plan.splits + 1) * Ka * Kb > ATB_PARTIALS * M * (Ka + Kb))
+
+
+def test_atb_plan_llm_100m_round():
+    """The five shapes of an llm-100m round at M = 512: the small ones split
+    M (4-8 splits, 4 x C at 320², not 8 x), the large ones fill the card."""
+    plans = {s: atb_plan(1, 512, *s) for s in ATB_ROUND}
+    assert [plans[s].splits for s in ATB_ROUND] == [4, 4, 8, 1, 1]
+    assert plans[(320, 320)].workspace == 4 * 320 * 320
+    assert all(p.launches == 1 for p in plans.values())
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_atb_plan_ragged_and_stacked_shapes(seed):
+    """Random ragged shapes, stacked factors included: the plan is one
+    ``lr_atb`` accepts, its splits cover M and its workspace is exact."""
+    rng = np.random.default_rng(seed)
+    for _ in range(200):
+        G = int(rng.choice([1, 3, 12, 1000]))
+        M = int(rng.choice([1, 31, 64, 65, 512, 8192, int(rng.integers(1, 20000))]))
+        Ka = int(rng.integers(1, 20000))
+        Kb = int(rng.integers(1, 600))
+        _check_atb_plan(atb_plan(G, M, Ka, Kb), G, M, Ka, Kb)
+
+
+def test_atb_plan_depends_on_shapes_only(monkeypatch):
+    """The plan reads nothing of the card: it is the same with CUDA
+    unavailable, and the cached plan equals a fresh one."""
+    shapes = [(1, 512, 320, 320), (3, 8192, 160, 160), (1, 512, 152064, 256), (2, 37, 70, 33)]
+    cached = [atb_plan(*s) for s in shapes]
+    for name in ("is_available", "device_count", "get_device_properties", "current_device"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: pytest.fail("plan read the card"))
+    assert [atb_plan.__wrapped__(*s) for s in shapes] == cached
+    assert [atb_plan(*s) for s in shapes] == cached
+
+
+@pytest.mark.parametrize("G,M,Ka,Kb", [(GRID_YZ_MAX + 1, 512, 8192, 160),
+                                       (1, 512, 64, 32 * GRID_YZ_MAX + 1),
+                                       (1, 512, 64 * (2**31 - 1) + 1, 32)])
+def test_atb_plan_refuses_a_grid_too_large(G, M, Ka, Kb):
+    with pytest.raises(ValueError, match=f"grid too large for G={G} M={M} Ka={Ka} Kb={Kb}"):
+        atb_plan.__wrapped__(G, M, Ka, Kb)
+
+
+def test_atb_plan_refuses_empty_sizes():
+    with pytest.raises(ValueError, match="positive"):
+        atb_plan.__wrapped__(1, 0, 8, 8)
+
+
+# ---------------------------------------------------------------------------
+# the build: one library named by every source and header under csrc
+# ---------------------------------------------------------------------------
+
+
+def test_library_path_covers_headers(tmp_path, monkeypatch):
+    """Editing a shared header renames the library (a rebuild), and only the
+    ``.cu`` sources are compiled."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "csrc holds no shared header"
+    before = build.library_path()
+    assert build.library_path() == before  # the same tree, the same name
+    assert [p.name for p in build.sources()] == sorted(
+        p.name for p in csrc.iterdir() if p.suffix == ".cu")
+    assert not any(p.suffix == ".cuh" for p in build.sources())
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    edited = build.library_path()
+    assert edited != before
+    (csrc / "extra.cuh").write_text("#pragma once\n")  # a new header counts too
+    assert build.library_path() not in (before, edited)
 
 
 # ---------------------------------------------------------------------------
