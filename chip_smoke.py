@@ -8,11 +8,12 @@ per source, all started together) and drives each of the port's paths:
 
 - kernels: holds each kernel to its plain PyTorch version at every shape
   its paths give it: ``xus``/``avt`` at the Qwen2-7B serving shapes,
-  ``atb`` at the llm-100m training shapes and at Qwen2-7B's, ``xus`` at
-  every shape of an llm-100m round (M = 512, f32); ``atb``'s and ``xus``'s
-  times summed over one round; each ``xus`` and ``atb`` shape's device
-  launches a call, counted by ``torch.profiler``, are held to
-  ``xus_plan``'s and ``atb_plan``'s;
+  ``atb`` at the llm-100m training shapes and at Qwen2-7B's, ``xus`` and
+  ``avt`` at every shape of an llm-100m round (M = 512, f32); ``atb``'s,
+  ``xus``'s and ``avt``'s times summed over one round; each ``xus``,
+  ``avt`` and ``atb`` shape's device launches a call, counted in a CUDA
+  graph captured around one call, are held to ``xus_plan``'s,
+  ``avt_plan``'s and ``atb_plan``'s;
 - backward: ``lowrank_apply``'s kernel-backed gradients against the plain
   chain's at one llm-100m layer's full width, in f32;
 - f32 logits: the serving kernel path against the plain chain, Qwen2-7B at
@@ -169,28 +170,39 @@ def host_us(torch, fn, n: int = 200) -> float:
     return (t1 - t0) / n * 1e6
 
 
-def device_launches(torch, fn, calls: int = 8, kernel: str = "xus_"):
-    """Kernels whose name holds ``kernel`` that one call of ``fn()`` runs
-    on the card (the mean over ``calls`` calls, read from a
-    ``torch.profiler`` trace), with their names. A kernel of PyTorch's own
-    runs first inside the trace, so the counted calls start on a trace that
-    is already recording."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def device_launches(torch, fn) -> int:
+    """Kernels that one call of ``fn()`` launches on the card: the kernel
+    nodes of a CUDA graph captured around the call, counted through the
+    driver API. A capture records every launch the call makes, so the
+    count does not rest on a profiler's trace (``torch.profiler`` returned
+    traces without the calls' kernels in two runs on an H100)."""
+    import ctypes
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-             and kernel in e.name]
-    short = sorted({n.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
-                    for n in names})
-    return len(names) / calls, short
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+
+    def check(code):
+        if code != 0:
+            raise RuntimeError(f"CUDA driver call failed with CUresult {code}")
+
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)))
+        kinds.append(kind.value)
+    del graph
+    return sum(k == 0 for k in kinds)  # CU_GRAPH_NODE_TYPE_KERNEL
 
 
 def _xus_route(x, U, S, got_launches):
@@ -204,6 +216,21 @@ def _xus_route(x, U, S, got_launches):
         raise AssertionError(f"xus M={M} K={K} R={U.shape[1]} S={S is not None}: "
                              f"{got_launches} device launches a call, plan says {plan.launches}")
     return plan
+
+
+def _avt_route(A, V, got_launches):
+    """The plan of an ``avt`` call and its device launches, held to each
+    other, with the route's sizes as text."""
+    from repro_torch.kernels.lowrank_matmul import avt_plan
+
+    M, N, R = A.shape[0], V.shape[0], A.shape[1]
+    plan = avt_plan(1, M, N, R)
+    if got_launches != plan.launches:
+        raise AssertionError(f"avt M={M} N={N} R={R}: {got_launches} device launches a call, "
+                             f"plan says {plan.launches}")
+    sizes = (f"rows={plan.rows} warps={plan.warps}" if plan.route == "stream"
+             else f"tile={plan.tile[0]}x{plan.tile[1]}")
+    return plan, f"route={plan.route} {sizes} launches={got_launches}"
 
 
 # ---------------------------------------------------------------------------
@@ -323,15 +350,20 @@ def phase_kernels(torch, cfg):
                 )
                 rec["bound_ms"], rec["bound_by"] = _bound_ms(kernel, dtype_name, M, dim, R)
                 route = ""
+                if kernel == "avt":
+                    n = device_launches(torch, lambda: avt(*sets[0]))
+                    plan, desc = _avt_route(*sets[0], n)
+                    rec.update(route=plan.route, launches=n)
+                    route = f" {desc}"
                 if kernel == "xus":
                     # device launches a call, with S (the serving path) and without
                     for with_s in (True, False):
                         s = sets[0][2] if with_s else None
-                        n, names = device_launches(torch, lambda: xus(sets[0][0], sets[0][1], s))
+                        n = device_launches(torch, lambda: xus(sets[0][0], sets[0][1], s))
                         plan = _xus_route(sets[0][0], sets[0][1], s, n)
                         rec["launches_s" if with_s else "launches_no_s"] = n
                         route += (f" [{'S' if with_s else 'no S'}: {plan.route} "
-                                  f"splits={plan.splits} launches={n:g} {','.join(names)}]")
+                                  f"splits={plan.splits} launches={n}]")
                 records.append(rec)
                 dimname = "K" if kernel == "xus" else "N"
                 log(f"[kernels] {kernel} {dtype_name:8s} M={M:<3d} {dimname}={dim:<6d} R={R:<3d} "
@@ -595,15 +627,17 @@ def _atb_bound_ms(dtype_name, M, Ka, Kb):
 
 
 def llm100m_round_calls(torch):
-    """The ``xus`` and ``atb`` calls of one llm-100m FeDLRT round with the
-    spec defaults (:func:`train_xus_calls`, :func:`train_atb_calls`), held
-    to :func:`expected_launches`, and their M (batch × seq)."""
+    """The ``xus``, ``avt`` and ``atb`` calls of one llm-100m FeDLRT round
+    with the spec defaults (:func:`train_xus_calls`, :func:`train_avt_calls`,
+    :func:`train_atb_calls`), held to :func:`expected_launches`, and their M
+    (batch × seq)."""
     from repro_torch.api import ExperimentSpec, ModelSpec, build
 
     spec = ExperimentSpec(name="chip-calls-llm-100m", seed=0, model=ModelSpec(preset="llm-100m"))
     exp = build(spec, device="cuda")
     cfg = exp.engine.cfg
-    calls = dict(xus=train_xus_calls(exp.params, cfg), atb=train_atb_calls(exp.params, cfg))
+    calls = dict(xus=train_xus_calls(exp.params, cfg), avt=train_avt_calls(exp.params, cfg),
+                 atb=train_atb_calls(exp.params, cfg))
     want, _ = expected_launches(exp.params, cfg)
     del exp
     torch.cuda.empty_cache()
@@ -641,9 +675,9 @@ def phase_atb(torch, round_calls):
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 plan = atb_plan(1, M, Ka, Kb)
-                dev, names = device_launches(torch, lambda: atb(*sets[0]), kernel="atb")
+                dev = device_launches(torch, lambda: atb(*sets[0]))
                 if dev != plan.launches:
-                    raise AssertionError(f"atb M={M} Ka={Ka} Kb={Kb} {dtype_name}: {dev:g} device "
+                    raise AssertionError(f"atb M={M} Ka={Ka} Kb={Kb} {dtype_name}: {dev} device "
                                          f"launches a call, plan says {plan.launches}")
                 if dtype_name == "float32":
                     ok = err <= ATB_F32_RTOL * want.abs().max().item()
@@ -669,7 +703,7 @@ def phase_atb(torch, round_calls):
                     f"tol={tol} {'ok' if ok else 'MISMATCH'}  kernel_ms={rec['ms']:.4f} "
                     f"({rec['tflops']:.1f} TF/s) plain_ms={rec['plain_ms']:.4f} "
                     f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.6f} "
-                    f"({rec['bound_by']}) splits={plan.splits} launches={dev:g} {','.join(names)}")
+                    f"({rec['bound_by']}) splits={plan.splits} launches={dev}")
                 del sets, got, want
     torch.cuda.empty_cache()
     bad = [r for r in records if not r["ok"]]
@@ -718,7 +752,7 @@ def phase_xus_train(torch, round_calls):
         torch.cuda.synchronize()
         err = (got - plain).abs().max().item()
         ok = torch.allclose(got, plain, **TOL["float32"])
-        dev, names = device_launches(torch, lambda: xus(*sets[0]))
+        dev = device_launches(torch, lambda: xus(*sets[0]))
         plan = _xus_route(sets[0][0], sets[0][1], sets[0][2], dev)
         if has_s:
             lib = lambda i: torch.linalg.multi_dot(list(sets[i]))  # noqa: E731
@@ -738,8 +772,7 @@ def phase_xus_train(torch, round_calls):
             f"max_abs_err={err:.3g} tol={TOL['float32']} {'ok' if ok else 'MISMATCH'}  "
             f"kernel_ms={rec['ms']:.4f} ({rec['tflops']:.1f} TF/s) plain_ms={rec['plain_ms']:.4f} "
             f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.6f} "
-            f"({rec['bound_by']}) route={plan.route} splits={plan.splits} launches={dev:g} "
-            f"{','.join(names)}")
+            f"({rec['bound_by']}) route={plan.route} splits={plan.splits} launches={dev}")
         del sets, got, plain
     torch.cuda.empty_cache()
     bad = [r for r in records if not r["ok"]]
@@ -751,6 +784,62 @@ def phase_xus_train(torch, round_calls):
     total["calls"] = sum(r["calls"] for r in records)
     total["device_launches"] = sum(r["calls"] * r["launches"] for r in records)
     log(f"[xus-train] per llm-100m round: {total['calls']} calls, {total['device_launches']:g} "
+        f"device launches; kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
+        f"library {total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms")
+    return records, total
+
+
+def phase_avt_train(torch, round_calls):
+    """``avt`` at every shape of one llm-100m FeDLRT round (M = batch × seq
+    = 512, f32), each held to its plain version, with its device launches a
+    call against the plan, its time, the plain version's, the library
+    call's (``torch.matmul(A, V.t())``, TF32 off) and the bound; then the
+    sums over one round's calls (``round_calls["avt"]``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lowrank_matmul import avt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    calls, M = round_calls["avt"], round_calls["M"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    records = []
+    for (N, R), n in sorted(calls.items()):
+        set_bytes = (M * R + N * R) * 4
+        n_sets = max(2, min(64, math.ceil(L2_DEFEAT_BYTES / set_bytes)))
+        sets = [(torch.randn(M, R, generator=gen, device="cuda"),
+                 torch.randn(N, R, generator=gen, device="cuda") / math.sqrt(R))
+                for _ in range(n_sets)]
+        got, plain = avt(*sets[0]), ref.avt_ref(*sets[0])
+        torch.cuda.synchronize()
+        err = (got - plain).abs().max().item()
+        ok = torch.allclose(got, plain, **TOL["float32"])
+        dev = device_launches(torch, lambda: avt(*sets[0]))
+        plan, desc = _avt_route(*sets[0], dev)
+        reps = max(n_sets, 20)
+        rec = dict(N=N, R=R, calls=n, max_abs_err=err, ok=ok, route=plan.route, launches=dev,
+                   ms=graph_ms(torch, lambda i: avt(*sets[i]), n_sets, reps),
+                   plain_ms=graph_ms(torch, lambda i: ref.avt_ref(*sets[i]), n_sets, reps),
+                   library_ms=graph_ms(torch, lambda i: torch.matmul(sets[i][0], sets[i][1].t()),
+                                       n_sets, reps))
+        rec["bound_ms"], rec["bound_by"] = _bound_ms("avt", "float32", M, N, R)
+        rec["tflops"] = 2 * M * N * R / rec["ms"] / 1e9
+        records.append(rec)
+        log(f"[avt-train] M={M} N={N:<5d} R={R:<3d} x{n:<5d} max_abs_err={err:.3g} "
+            f"tol={TOL['float32']} {'ok' if ok else 'MISMATCH'}  kernel_ms={rec['ms']:.4f} "
+            f"({rec['tflops']:.1f} TF/s) plain_ms={rec['plain_ms']:.4f} "
+            f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.6f} "
+            f"({rec['bound_by']}) {desc}")
+        del sets, got, plain
+    torch.cuda.empty_cache()
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(
+            f"{len(bad)} avt training case(s) disagree with the plain version: {bad}")
+    total = {k: sum(r["calls"] * r[k] for r in records)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    total["calls"] = sum(r["calls"] for r in records)
+    total["device_launches"] = sum(r["calls"] * r["launches"] for r in records)
+    log(f"[avt-train] per llm-100m round: {total['calls']} calls, {total['device_launches']:g} "
         f"device launches; kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
         f"library {total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms")
     return records, total
@@ -865,6 +954,38 @@ def train_atb_calls(params, cfg):
             add((f.n_in, r), C * n)  # dU
             add((f.n_out, r), C * n)  # dV
         add((2 * r, 2 * r), C * steps * n)  # dS̃ (embedding: its dU slot)
+    return calls
+
+
+def train_avt_calls(params, cfg):
+    """(N, R) → ``avt`` launches of one FeDLRT round (as counted in
+    :func:`expected_launches`), all at M = batch × seq.
+
+    A linear slice (n_in → n_out, rank r): the basis pass runs the forward
+    (N = n_out) and the backward's ``dx`` (N = n_in); a client step the same
+    at the augmented rank 2r; the evaluation one forward at r. The
+    embedding runs the chain on ``U[tok]`` with its S in the U slot: the
+    basis pass forward (N = d) and ``dx`` into ``U[tok]`` (N = r); a client
+    step the forward at 2r.
+    """
+    import math
+
+    calls = {}
+
+    def add(key, n):
+        calls[key] = calls.get(key, 0) + n
+
+    C, steps = cfg.num_clients, cfg.s_star + (1 if cfg.correction == "full" else 0)
+    evals = 1 if cfg.eval_after else 0
+    for path, f in _factors(params):
+        n, r = math.prod(f.U.shape[:-2]), f.r_max
+        add((f.n_out, r), C * n * (1 + evals))  # forward (and the evaluation)
+        add((f.n_out, 2 * r), C * steps * n)
+        if path == "['embed']":
+            add((r, r), C * n)  # dx into U[tok]: N is the U slot's rows, S's r
+        else:
+            add((f.n_in, r), C * n)  # dx
+            add((f.n_in, 2 * r), C * steps * n)
     return calls
 
 
@@ -1434,9 +1555,11 @@ def phase_spec(torch, counters, workdir):
                 int8_uplink_ratio=ratio, serve_s=serve_s, spec_hash=spec.spec_hash())
 
 
-def kernel_summary(records, atb_records, flash_records, counters, cfg, atb_round, xus_round):
+def kernel_summary(records, atb_records, flash_records, counters, cfg, atb_round, xus_round,
+                   avt_round):
     """Per kernel: ``xus``/``avt`` as the sum over one Qwen2-7B decode
-    step's launches (M = 4) of each measured number; ``atb`` as the sum over
+    step's launches (M = 4) of each measured number, with the sum over one
+    llm-100m round's calls under ``round``; ``atb`` as the sum over
     one llm-100m FeDLRT round's calls (M = 512, f32: ``phase_atb``'s
     ``[atb] round``); ``flash_attention``
     as one Qwen2-7B 4096-token causal prefill (bf16). ``launches`` is the
@@ -1467,9 +1590,10 @@ def kernel_summary(records, atb_records, flash_records, counters, cfg, atb_round
             "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
             "library_ms": tot["library_ms"], "unit": "one Qwen2-7B decode step (bf16, M=4)",
         })
-        if name == "xus":  # the training path's calls, summed over one round
-            out[-1]["round"] = {**xus_round, "bound_by": "operations",
-                                "unit": "one llm-100m FeDLRT round (f32, M=512)"}
+        # the training path's calls, summed over one round
+        out[-1]["round"] = {**(xus_round if name == "xus" else avt_round),
+                            "bound_by": "operations",
+                            "unit": "one llm-100m FeDLRT round (f32, M=512)"}
     bound_by = {r["bound_by"] for r in atb_records
                 if r["model"] == "llm-100m" and r["dtype"] == "float32" and r["M"] == 512}
     out.append({
@@ -1520,6 +1644,8 @@ def main() -> int:
     done("atb")
     xus_train, xus_round = phase_xus_train(torch, round_calls)
     done("xus-train")
+    avt_train, avt_round = phase_avt_train(torch, round_calls)
+    done("avt-train")
     phase_backward(torch)
     done("backward")
     phase_f32_check(torch)
@@ -1536,9 +1662,9 @@ def main() -> int:
     done("spec")
     log("[summary] " + json.dumps({"card": smi, "serve": serve_stats, "train": train,
                                    "flash": flash_records, "spec": spec_stats,
-                                   "xus_train": xus_train}))
+                                   "xus_train": xus_train, "avt_train": avt_train}))
     print(json.dumps({"kernels": kernel_summary(
-        records, atb_records, flash_records, counters, cfg, atb_round, xus_round)}))
+        records, atb_records, flash_records, counters, cfg, atb_round, xus_round, avt_round)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

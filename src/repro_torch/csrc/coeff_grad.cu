@@ -77,24 +77,6 @@ constexpr int AT_STAGES = 4;                     // cp.async ring (dynamic share
 constexpr int AT_PAD = 8;                        // elements a staged row is padded by
 constexpr int AT_AP = AT_KA + AT_PAD, AT_BP = AT_KB + AT_PAD;  // row pitches
 
-// v = big + small as the tensor core reads them (3xTF32, as split_tf32 in
-// common.cuh, without its two cvt instructions): big is v rounded to tf32
-// by an integer add and mask (nearest, ties away from zero: cvt.rna's
-// value), small the rest, exact in f32, which the tensor core reads
-// truncated to tf32. The products miss v*w by about 2^-21 of it. The split
-// costs as much issue as the mma.sync it feeds: without the cvt a call at
-// the round's shapes took less time on the card.
-template <bool EXACT>
-__device__ __forceinline__ void split_tf32_rhu(float v, uint32_t& big, uint32_t& small) {
-  if constexpr (EXACT) {
-    big = __float_as_uint(v);
-    small = 0u;
-  } else {
-    big = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-    small = __float_as_uint(v - __uint_as_float(big));
-  }
-}
-
 // shared memory of a block: the ring's A and B tiles
 template <typename T>
 __host__ __device__ constexpr int at_smem_bytes() {

@@ -1,6 +1,7 @@
 // Device helpers shared by the port's Hopper (sm_90a) kernels: conversions
 // between the working types and f32, ticket counters, cp.async staging and
-// the split-precision (3xTF32) tensor-core product of mma.sync m16n8k8.
+// the split-precision (3xTF32) tensor-core product of mma.sync m16n8k8, with
+// the two ways of splitting an f32 value into its tf32 parts.
 //
 // Everything sits in an anonymous namespace: each source that includes this
 // header gets its own copy, and nothing here is part of the C API.
@@ -78,6 +79,24 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& sma
   } else {
     big = to_tf32(v);
     small = to_tf32(v - __uint_as_float(big));
+  }
+}
+
+// v = big + small as the tensor core reads them (3xTF32, as split_tf32
+// without its two cvt instructions): big is v rounded to tf32 by an integer
+// add and mask (nearest, ties away from zero: cvt.rna's value), small the
+// rest, exact in f32, which the tensor core reads truncated to tf32. The
+// products miss v*w by about 2^-21 of it. The split costs as much issue as
+// the mma.sync it feeds: without the cvt an atb call at an llm-100m round's
+// shapes took less time on the card.
+template <bool EXACT>
+__device__ __forceinline__ void split_tf32_rhu(float v, uint32_t& big, uint32_t& small) {
+  if constexpr (EXACT) {
+    big = __float_as_uint(v);
+    small = 0u;
+  } else {
+    big = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+    small = __float_as_uint(v - __uint_as_float(big));
   }
 }
 

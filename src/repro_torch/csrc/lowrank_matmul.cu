@@ -78,10 +78,51 @@
 // (History: the first xus summed the splits in its S epilogue, one thread
 // walking every split, and was 2.5-5.5x slower than cuBLAS's at M = 4.)
 //
-// avt. One warp computes a few outputs y[m, n] for up to 8 rows m: its 32
-// lanes walk the rank dimension of a row of V (coalesced), the rows of A sit
-// in shared memory, and a shuffle reduction finishes each dot product. The
-// grid covers N (152064 for the LM head), so the card fills even at M = 1.
+// avt. The TPU kernel held a (bm, bn) block of y and contracted all of R in
+// one dot. Here the contraction is the rank (at most 320 on the port's
+// paths), short enough that no route splits it: ONE launch a call, no
+// workspace, no counters. The wrapper's plan (avt_plan) picks the route and
+// its sizes from the shapes alone.
+//
+// "stream" (M <= 16: serving decode) is bound by the bytes of V: a Qwen2-7B
+// decode call reads 0.06-78 MB of V at 2-8 FLOPs a byte, 0.02-24 us at
+// 3.35 TB/s. What is left above that is latency, so a warp has every load
+// of V it makes in flight at once and starts from it:
+// - a warp owns a few rows of V and the outputs of up to 4 rows of A in
+//   each. The lanes of a row read neighbouring 16-byte pieces, 8 elements a
+//   lane a pass (one piece in bf16, two in f32): at R = 256 in bf16 one load
+//   instruction of a warp is a whole row; narrower rows share a warp
+//   (R = 64: 8 lanes a row, 4 rows an instruction). A group of lanes owns 4
+//   rows and a block is 4 warps (on the card 4 beat 8 for both at every
+//   decode shape). Every load of V is issued before the first product, and
+//   V is marked evict-first (__ldcs);
+// - each lane loads its pieces of the rows of A straight into registers
+//   (from L1 / L2 while V is on its way): no shared memory, no barrier, no
+//   integer division in the loads;
+// - the warp's rows x (up to) 4 f32 sums leave the lanes by one transposed
+//   butterfly: at each xor step a lane keeps half of its sums, so 16
+//   outputs take 15 shuffles, not 16 x 5, in a fixed order;
+// - M > 4 runs as blocks of 4 rows of A, neighbours in the grid that read
+//   the same rows of V together (all but the first from L2): a block that
+//   held 16 rows' sums needed 172 registers and ran slower on the card;
+//
+// "tiled" (M > 16: training at M = 512 in f32, serving prefill) is bound by
+// operations: 67 TF of f32 products at every llm-100m round shape. So the
+// products run on the tensor cores in 3xTF32 (the small part unrounded, as
+// atb), on xus's tiles: mma.sync m16n8k8 on 64 x 32 tiles of y, four 32 x 16
+// warp tiles, 32-deep R steps of A's and V's rows through the four-stage
+// cp.async ring. V, row-major (N, R), is the MMA's "col" B operand as it
+// stands (b[r][n] = V[n][r]), so both tiles are staged [row][r], no
+// transpose. A row pitch of 32 + one 16-byte vector (36 floats; 40 bf16 =
+// 20 words) puts a warp's fragment reads of either tile, lanes (row lg,
+// column lt), in 32 distinct banks (lg * 4 + lt; lg * 20 + lt / 2, pairs
+// of lanes sharing a word) and keeps the rows whole vectors for cp.async.
+// Each R step is summed from zero and added to the total with a rounded
+// f32 add, as xus does. R <= 320 is at most 10 steps and the smallest round
+// shape (640 x 320) makes 160 tiles: nothing to split.
+// Both routes mask ragged M, N and R; an A or V that is not 16-byte aligned,
+// or rows that are not whole 16-byte vectors, take the same kernels with
+// element loads (the wrapper picks the variant, the launcher checks it).
 //
 // Every entry point takes a leading batch count G (stacked factors, one
 // grid axis), returns cudaGetLastError(), and launches on the caller's
@@ -91,12 +132,10 @@
 
 namespace {
 
-constexpr int MAX_SMEM = 48 * 1024;  // dynamic shared memory without opt-in
-
 // ---------------------------------------------------------------- xus
-// route codes, as kernels/lowrank_matmul.py::XUS_ROUTES numbers them
-constexpr int XUS_STREAM = 0;
-constexpr int XUS_TILED = 1;
+// route codes of xus and avt, as kernels/lowrank_matmul.py::ROUTES numbers them
+constexpr int ROUTE_STREAM = 0;
+constexpr int ROUTE_TILED = 1;
 
 // 16 bytes of T as f32: 4 floats or 8 bf16
 __device__ __forceinline__ void unpack16(const uint4& v, float (&f)[4]) {
@@ -759,7 +798,7 @@ int launch_xus(const void* x_, const void* U_, const void* S_, void* out_, void*
   float* w = static_cast<float*>(work);
   const int nsplit = cdiv(K, kc);
   const long long per_g = (long long)M * R;
-  if (route == XUS_STREAM) {
+  if (route == ROUTE_STREAM) {
     const int ctiles = cdiv(R, XS_COLS);
     const long long need = 2 * ((long long)G * nsplit * per_g +
                                 (S != nullptr && ctiles > 1 ? (long long)G * ctiles * per_g : 0));
@@ -778,7 +817,7 @@ int launch_xus(const void* x_, const void* U_, const void* S_, void* out_, void*
     }
     return (int)cudaGetLastError();
   }
-  if (route != XUS_TILED) return (int)cudaErrorInvalidValue;
+  if (route != ROUTE_TILED) return (int)cudaErrorInvalidValue;
   // workspace: x.U in f32 with S [G][M][R] (pass 2 reads it), pass 1's split
   // partials [G][splits][M][R], pass 2's [G][splits_s][M][R]; counters: one
   // a tile for each pass that splits
@@ -814,81 +853,389 @@ int launch_xus(const void* x_, const void* U_, const void* S_, void* out_, void*
 }
 
 // ---------------------------------------------------------------- avt
-constexpr int AVT_WARPS = 8;
-constexpr int AVT_NPW = 4;  // outputs (rows of V) per warp
+// ---- the stream route (M <= 16)
+constexpr int AS_MAX_M = 16;      // rows of A the route takes
+constexpr int AS_ELEMS = 8;       // elements of a row a lane takes a pass (16 B bf16, 32 B f32)
+constexpr int AS_WARPS = 4;       // warps a block
+constexpr int AS_ROWS = 4;        // rows of V a lane group owns
+constexpr int AS_M_BLOCK = 4;     // rows of A a block at M > 1 (the wrapper's AVT_M_BLOCK)
 
-template <typename T, int BM>
-__global__ void __launch_bounds__(AVT_WARPS * 32)
-avt_kernel(const T* __restrict__ A, const T* __restrict__ V, T* __restrict__ y,
-           int M, int N, int R) {
-  extern __shared__ float As[];  // [BM][R]
-  const int g = blockIdx.z;
-  const int m0 = blockIdx.y * BM;
+__host__ __device__ constexpr int ilog2(int v) { return v > 1 ? 1 + ilog2(v >> 1) : 0; }
+
+// log2 of the lanes that share a row of V: the power of two that covers the
+// row's R / 8 lane pieces, at most 32 (kernels/lowrank_matmul.py::_avt_lanes)
+inline int avt_lanes_log2(int R) {
+  int l = 0;
+  while ((1 << l) < cdiv(R, AS_ELEMS) && l < 5) ++l;
+  return l;
+}
+
+__device__ __forceinline__ uint32_t bits_of(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t bits_of(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
+
+// 16 bytes of a row from its element c, zero past R or where the row is
+// outside (!ok): one 16-byte load (V's marked evict-first, A's through the
+// read-only cache), or element loads in the element variant. A load that
+// would fall outside reads `safe` and drops the value instead of branching.
+template <bool VEC, bool STREAM, typename T>
+__device__ __forceinline__ uint4 load16(const T* row, int c, int R, bool ok, const T* safe) {
+  if constexpr (VEC) {
+    const bool in = ok && c < R;
+    const uint4* p = reinterpret_cast<const uint4*>(in ? row + c : safe);
+    const uint4 v = STREAM ? __ldcs(p) : __ldg(p);
+    return in ? v : make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    constexpr int VE = 16 / sizeof(T);
+    uint32_t b[VE];
+#pragma unroll
+    for (int e = 0; e < VE; ++e) {
+      const bool in = ok && c + e < R;
+      const T t = *(in ? row + c + e : safe);
+      b[e] = in ? bits_of(t) : 0u;
+    }
+    if constexpr (VE == 4) {
+      return make_uint4(b[0], b[1], b[2], b[3]);
+    } else {
+      return make_uint4(b[0] | b[1] << 16, b[2] | b[3] << 16, b[4] | b[5] << 16,
+                        b[6] | b[7] << 16);
+    }
+  }
+}
+
+// The steps of a transposed butterfly from xor offset o down, while o > 0,
+// over the first C of the sums: a lane keeps the half its bit o names, adds
+// its partner's copy and sends the other half. C is a template argument so
+// that every step's loop has a constant trip count and the sums stay in
+// registers.
+template <int C, int NS>
+__device__ __forceinline__ void transposed_butterfly(float (&acc)[NS], int li, int& o) {
+  if constexpr (C > 1) {
+    if (o > 0) {
+      constexpr int H = C / 2;
+      const bool up = (li & o) != 0;
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        const float send = up ? acc[i] : acc[i + H];
+        const float keep = up ? acc[i + H] : acc[i];
+        acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+      }
+      o >>= 1;
+      transposed_butterfly<H>(acc, li, o);
+    }
+  }
+}
+
+// y[m, n] for the warp's rows n of V and the block's MB rows m of A. A
+// group of 2^lanes_log2 lanes shares a row of V; a lane holds AS_ROWS rows'
+// sums for each of the MB rows. Blocks that differ only in their rows of A
+// are neighbours in the grid, so they read the same rows of V together and
+// all but the first find them in L2.
+// The vector variant is held to 64 registers (8 blocks an SM): more warps,
+// more loads in flight; at 80 it was slower on the card.
+template <typename T, int MB, bool VEC>
+__global__ void __launch_bounds__(AS_WARPS * 32, VEC ? 8 : 4)
+avt_stream_kernel(const T* __restrict__ A, const T* __restrict__ V, T* __restrict__ y, int M,
+                  int N, int R, int lanes_log2) {
+  constexpr int VE = 16 / sizeof(T);    // elements a 16-byte piece
+  constexpr int PPL = AS_ELEMS / VE;    // pieces a lane takes a pass: 1 (bf16) or 2 (f32)
+  constexpr int NR = AS_ROWS;
+  constexpr int NS = MB * NR;           // sums a lane holds, [m * NR + j]
+  const int lane = threadIdx.x % 32;
+  const int lpr = 1 << lanes_log2, groups = 32 >> lanes_log2;
+  const int li = lane & (lpr - 1), gi = lane >> lanes_log2;
+  const int mblocks = cdiv(M, MB);
+  const int m0 = (blockIdx.x % mblocks) * MB;
+  // the lane's rows of V: n0 + j * groups + gi, j < NR, so a load
+  // instruction of the warp reads `groups` neighbouring rows
+  const int n0 = ((blockIdx.x / mblocks) * AS_WARPS + threadIdx.x / 32) * NR * groups;
+  const int g = blockIdx.y;
   A += (size_t)g * M * R;
   V += (size_t)g * N * R;
   y += (size_t)g * M * N;
-  for (int i = threadIdx.x; i < BM * R; i += AVT_WARPS * 32) {
-    const int m = i / R, r = i % R;
-    As[i] = (m0 + m < M) ? to_f32(A[(size_t)(m0 + m) * R + r]) : 0.f;
-  }
-  __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n0 = (blockIdx.x * AVT_WARPS + warp) * AVT_NPW;
-  if (n0 >= N) return;
-  float acc[BM][AVT_NPW];
+  float acc[NS];
 #pragma unroll
-  for (int m = 0; m < BM; ++m) {
+  for (int i = 0; i < NS; ++i) acc[i] = 0.f;
+  // a pass: elements [c0, c0 + lpr * 8) of every row; one pass up to R = 256
+  for (int c0 = 0; c0 < R; c0 += lpr * AS_ELEMS) {
+    // every load of V in the pass is in flight before the first product
+    uint4 vr[PPL][NR];
 #pragma unroll
-    for (int j = 0; j < AVT_NPW; ++j) acc[m][j] = 0.f;
-  }
-#pragma unroll 2
-  for (int r = lane; r < R; r += 32) {
-    float v[AVT_NPW];
+    for (int k = 0; k < PPL; ++k) {
+      const int c = c0 + (k * lpr + li) * VE;
 #pragma unroll
-    for (int j = 0; j < AVT_NPW; ++j) {
-      v[j] = (n0 + j < N) ? to_f32(V[(size_t)(n0 + j) * R + r]) : 0.f;
+      for (int j = 0; j < NR; ++j) {
+        const int n = n0 + j * groups + gi;
+        vr[k][j] = load16<VEC, true>(V + (size_t)n * R, c, R, n < N, V);
+      }
     }
 #pragma unroll
-    for (int m = 0; m < BM; ++m) {
-      const float a = As[m * R + r];
+    for (int k = 0; k < PPL; ++k) {
+      const int c = c0 + (k * lpr + li) * VE;
+      // the lane's pieces of the rows of A (rows past M repeat row M - 1:
+      // their sums are never stored), from L1 / L2 while V is on its way
+      uint4 ar[MB];
 #pragma unroll
-      for (int j = 0; j < AVT_NPW; ++j) acc[m][j] = fmaf(a, v[j], acc[m][j]);
+      for (int m = 0; m < MB; ++m) {
+        ar[m] = load16<VEC, false>(A + (size_t)min(m0 + m, M - 1) * R, c, R, true, A);
+      }
+      float vf[NR][VE];
+#pragma unroll
+      for (int j = 0; j < NR; ++j) unpack16(vr[k][j], vf[j]);
+#pragma unroll
+      for (int m = 0; m < MB; ++m) {
+        float a[VE];
+        unpack16(ar[m], a);
+#pragma unroll
+        for (int e = 0; e < VE; ++e) {
+#pragma unroll
+          for (int j = 0; j < NR; ++j) acc[m * NR + j] = fmaf(a[e], vf[j][e], acc[m * NR + j]);
+        }
+      }
     }
   }
+
+  // The lane group's sums, by a transposed butterfly: at each xor step a
+  // lane keeps the half of its sums that its lane bit names, adds its
+  // partner's copy of them and sends the other half, so the sums a lane
+  // holds halve and NS outputs take about NS shuffles. Where a group has
+  // more lanes than sums, the steps left are a plain butterfly. The order is
+  // fixed: equal inputs give equal bits.
+  int o = lpr >> 1;
+  transposed_butterfly<NS>(acc, li, o);
+  for (; o > 0; o >>= 1) acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], o);
+
+  // the lane now holds sums [first, first + held); lanes that differ only in
+  // the plain butterfly's bits hold the same ones, and the lowest stores them
+  const int steps = min(ilog2(NS), lanes_log2);
+  const int held = NS >> steps, plain = lanes_log2 - steps;
+  if ((li & ((1 << plain) - 1)) != 0) return;
+  const int first = held * (li >> plain);
 #pragma unroll
-  for (int m = 0; m < BM; ++m) {
+  for (int s = 0; s < NS; ++s) {
+    if (s < held) {
+      const int i = first + s, m = m0 + i / NR, n = n0 + (i % NR) * groups + gi;
+      if (m < M && n < N) y[(size_t)m * N + n] = from_f32<T>(acc[s]);
+    }
+  }
+}
+
+template <typename T, int MB>
+void launch_avt_stream(bool vec, dim3 grid, const T* A, const T* V, T* y, int M, int N, int R,
+                       int lanes_log2, cudaStream_t st) {
+  if (vec) {
+    avt_stream_kernel<T, MB, true><<<grid, AS_WARPS * 32, 0, st>>>(A, V, y, M, N, R, lanes_log2);
+  } else {
+    avt_stream_kernel<T, MB, false><<<grid, AS_WARPS * 32, 0, st>>>(A, V, y, M, N, R, lanes_log2);
+  }
+}
+
+// ---- the tiled route (M > 16): y = A V^T on the tensor cores in split
+// precision, on xus's block and warp tiles (TL_*)
+
+// shared memory of a block: the ring's A and V tiles, rows of TL_K + one
+// 16-byte vector
+template <typename T>
+__host__ __device__ constexpr int av_smem_bytes() {
+  return TL_STAGES * (TL_M + TL_N) * (TL_K + 16 / (int)sizeof(T)) * (int)sizeof(T);
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(TL_THREADS)
+avt_tiled_kernel(const T* __restrict__ A, const T* __restrict__ V, T* __restrict__ y, int M,
+                 int N, int R) {
+  constexpr int VE = 16 / sizeof(T);
+  // row pitch of both staged tiles: a warp's fragment reads fall in 32
+  // different banks (see the note at the top) and rows stay 16-byte vectors
+  constexpr int P = TL_K + VE;
+  static_assert(TL_M * TL_K / VE % TL_THREADS == 0, "whole chunks of A a thread");
+  extern __shared__ __align__(16) unsigned char av_smem[];
+  T (*As)[TL_M * P] = reinterpret_cast<T (*)[TL_M * P]>(av_smem);  // [stage][m][r]
+  T (*Vs)[TL_N * P] = reinterpret_cast<T (*)[TL_N * P]>(          // [stage][n][r]
+      av_smem + TL_STAGES * TL_M * P * sizeof(T));
+  static_assert(av_smem_bytes<T>() == TL_STAGES * (TL_M + TL_N) * P * (int)sizeof(T),
+                "shared memory layout");
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int lg = lane / 4, lt = lane % 4;  // the mma fragments' group and thread
+  const int wm = (warp / 2) * TL_WM, wn = (warp % 2) * TL_WN;
+  const int n0 = blockIdx.x * TL_N, m0 = blockIdx.y * TL_M, g = blockIdx.z;
+  A += (size_t)g * M * R;
+  V += (size_t)g * N * R;
+  y += (size_t)g * M * N;
+
+  // R step t of the tile's rows of A and V into stage st; zeros past M, N or
+  // R. With VEC a 16-byte chunk is wholly inside or outside: R is whole vectors.
+  auto stage = [&](int st, int t) {
+    const int kt = t * TL_K;
+    if constexpr (VEC) {
+      for (int c = tid; c < TL_M * TL_K / VE; c += TL_THREADS) {
+        const int m = c / (TL_K / VE), kq = (c % (TL_K / VE)) * VE;
+        const bool ok = m0 + m < M && kt + kq < R;
+        cp_async16(&As[st][m * P + kq], ok ? A + (size_t)(m0 + m) * R + kt + kq : A, ok);
+      }
+      for (int c = tid; c < TL_N * TL_K / VE; c += TL_THREADS) {
+        const int n = c / (TL_K / VE), kq = (c % (TL_K / VE)) * VE;
+        const bool ok = n0 + n < N && kt + kq < R;
+        cp_async16(&Vs[st][n * P + kq], ok ? V + (size_t)(n0 + n) * R + kt + kq : V, ok);
+      }
+    } else {
+      for (int i = tid; i < TL_M * TL_K; i += TL_THREADS) {
+        const int m = i / TL_K, k = i % TL_K;
+        As[st][m * P + k] = (m0 + m < M && kt + k < R) ? A[(size_t)(m0 + m) * R + kt + k]
+                                                        : from_f32<T>(0.f);
+      }
+      for (int i = tid; i < TL_N * TL_K; i += TL_THREADS) {
+        const int n = i / TL_K, k = i % TL_K;
+        Vs[st][n * P + k] = (n0 + n < N && kt + k < R) ? V[(size_t)(n0 + n) * R + kt + k]
+                                                        : from_f32<T>(0.f);
+      }
+    }
+  };
+
+  float acc[TL_MT][TL_NT][4];
 #pragma unroll
-    for (int j = 0; j < AVT_NPW; ++j) {
-      float s = acc[m][j];
+  for (int i = 0; i < TL_MT; ++i) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == (m * AVT_NPW + j) % 32 && m0 + m < M && n0 + j < N) {
-        y[(size_t)(m0 + m) * N + n0 + j] = from_f32<T>(s);
+    for (int j = 0; j < TL_NT; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+    }
+  }
+  const int nsteps = cdiv(R, TL_K);
+#pragma unroll
+  for (int t = 0; t < TL_STAGES - 1; ++t) {
+    if (t < nsteps) stage(t, t);
+    cp_async_commit();
+  }
+  constexpr bool EXACT = sizeof(T) == 2;  // bf16: exact in tf32
+  for (int t = 0; t < nsteps; ++t) {
+    cp_async_wait<TL_STAGES - 2>();  // step t has landed
+    __syncthreads();                 // ... for every thread, and step t - 1 is done
+    if (t + TL_STAGES - 1 < nsteps) stage((t + TL_STAGES - 1) % TL_STAGES, t + TL_STAGES - 1);
+    cp_async_commit();
+    // fragment bases: A's (m lg, r lt) of the warp tile; V's "col" B
+    // operand b[r][n] = V[n][r], (n lg, r lt)
+    const T* as = As[t % TL_STAGES] + (wm + lg) * P + lt;
+    const T* vs = Vs[t % TL_STAGES] + (wn + lg) * P + lt;
+    // the step summed from zero, then added to acc with a rounded f32 add
+    float step[TL_MT][TL_NT][4];
+#pragma unroll
+    for (int i = 0; i < TL_MT; ++i) {
+#pragma unroll
+      for (int j = 0; j < TL_NT; ++j) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) step[i][j][r] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < TL_K; kk += 8) {
+      uint32_t ab[TL_MT][4], as_[TL_MT][4], bb[TL_NT][2], bs_[TL_NT][2];
+#pragma unroll
+      for (int i = 0; i < TL_MT; ++i) {
+        const T* a = as + i * 16 * P + kk;
+        split_tf32_rhu<EXACT>(to_f32(a[0]), ab[i][0], as_[i][0]);
+        split_tf32_rhu<EXACT>(to_f32(a[8 * P]), ab[i][1], as_[i][1]);
+        split_tf32_rhu<EXACT>(to_f32(a[4]), ab[i][2], as_[i][2]);
+        split_tf32_rhu<EXACT>(to_f32(a[8 * P + 4]), ab[i][3], as_[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < TL_NT; ++j) {
+        const T* b = vs + j * 8 * P + kk;
+        split_tf32_rhu<EXACT>(to_f32(b[0]), bb[j][0], bs_[j][0]);
+        split_tf32_rhu<EXACT>(to_f32(b[4]), bb[j][1], bs_[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < TL_MT; ++i) {
+#pragma unroll
+        for (int j = 0; j < TL_NT; ++j) {
+          // the small terms first, then big * big
+          if constexpr (!EXACT) {
+            mma_tf32(step[i][j], as_[i], bb[j]);
+            mma_tf32(step[i][j], ab[i], bs_[j]);
+          }
+          mma_tf32(step[i][j], ab[i], bb[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TL_MT; ++i) {
+#pragma unroll
+      for (int j = 0; j < TL_NT; ++j) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][r] += step[i][j][r];
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // this thread's outputs: rows m0 + wm + 16 i + lg (+ 8), columns
+  // n0 + wn + 8 j + 2 lt (+ 1); a pair is one store where rows of y hold
+  // whole pairs
+  const bool pairs = (N & 1) == 0;
+  const int mr = m0 + wm + lg, nc = n0 + wn + 2 * lt;
+#pragma unroll
+  for (int i = 0; i < TL_MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = mr + 16 * i + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < TL_NT; ++j) {
+        const int n = nc + 8 * j;
+        if (n >= N) continue;
+        store2(y + (size_t)m * N + n, acc[i][j][2 * h], acc[i][j][2 * h + 1], N - n, pairs);
       }
     }
   }
 }
 
-template <typename T, int BM>
-int launch_avt_bm(const void* A, const void* V, void* y, int G, int M, int N, int R,
-                  cudaStream_t stream) {
-  const size_t smem = (size_t)BM * R * sizeof(float);
-  if (smem > (size_t)MAX_SMEM || G > 65535 || cdiv(M, BM) > 65535) {
+// The launch of one call, after checking the plan the wrapper passes
+// (route, its two sizes, vector variant) against the shapes and the
+// pointers: a plan that does not fit is refused, never patched up here.
+template <typename T>
+int launch_avt(const void* A_, const void* V_, void* y_, int G, int M, int N, int R, int route,
+               int size0, int size1, int vec, cudaStream_t stream) {
+  constexpr int VE = 16 / sizeof(T);
+  const T* A = static_cast<const T*>(A_);
+  const T* V = static_cast<const T*>(V_);
+  T* y = static_cast<T*>(y_);
+  if (G > 65535 || (vec && !(aligned16(A) && aligned16(V) && R % VE == 0))) {
     return (int)cudaErrorInvalidValue;
   }
-  dim3 grid(cdiv(N, AVT_WARPS * AVT_NPW), cdiv(M, BM), G);
-  avt_kernel<T, BM><<<grid, AVT_WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(A), static_cast<const T*>(V), static_cast<T*>(y), M, N, R);
+  if (route == ROUTE_STREAM) {
+    // size0: rows of V a warp, size1: warps a block
+    const int ll = avt_lanes_log2(R), rows = size0, warps = size1;
+    if (M > AS_MAX_M || warps != AS_WARPS || rows != AS_ROWS * (32 >> ll)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    // rows of A a block: the kernel instance
+    const int mb = M == 1 ? 1 : AS_M_BLOCK;
+    const dim3 grid(cdiv(cdiv(N, rows), warps) * cdiv(M, mb), G);
+    if (mb == 1) {
+      launch_avt_stream<T, 1>(vec != 0, grid, A, V, y, M, N, R, ll, stream);
+    } else {
+      launch_avt_stream<T, AS_M_BLOCK>(vec != 0, grid, A, V, y, M, N, R, ll, stream);
+    }
+    return (int)cudaGetLastError();
+  }
+  // size0 x size1: the block tile of y
+  if (route != ROUTE_TILED || size0 != TL_M || size1 != TL_N || cdiv(M, TL_M) > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  constexpr int smem = av_smem_bytes<T>();  // above 48 KB in f32: opted in once
+  static const bool opted_in =
+      cudaFuncSetAttribute(avt_tiled_kernel<T, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem) == cudaSuccess &&
+      cudaFuncSetAttribute(avt_tiled_kernel<T, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem) == cudaSuccess;
+  (void)opted_in;  // a refused opt-in shows as the launch's error
+  const dim3 grid(cdiv(N, TL_N), cdiv(M, TL_M), G);
+  if (vec) {
+    avt_tiled_kernel<T, true><<<grid, TL_THREADS, smem, stream>>>(A, V, y, M, N, R);
+  } else {
+    avt_tiled_kernel<T, false><<<grid, TL_THREADS, smem, stream>>>(A, V, y, M, N, R);
+  }
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_avt(const void* A, const void* V, void* y, int G, int M, int N, int R,
-               cudaStream_t stream) {
-  if (M == 1) return launch_avt_bm<T, 1>(A, V, y, G, M, N, R, stream);
-  if (M <= 4) return launch_avt_bm<T, 4>(A, V, y, G, M, N, R, stream);
-  return launch_avt_bm<T, 8>(A, V, y, G, M, N, R, stream);
 }
 
 }  // namespace
@@ -936,13 +1283,19 @@ unsigned long long lr_capture_id(void* stream) {
 }
 
 
-// y = A V^T.  A (G, M, R), V (G, N, R), y (G, M, N), all in dtype dt.
-int lr_avt(int dt, const void* A, const void* V, void* y, int G, int M, int N, int R,
-           void* stream) {
+// y = A V^T.  A (G, M, R), V (G, N, R), y (G, M, N), all in dtype dt. The
+// plan comes from the wrapper (kernels/lowrank_matmul.py::avt_plan): route
+// (0 stream, 1 tiled) and two sizes, the rows of V a warp and the warps a
+// block (stream) or the block tile of y (tiled: 64 x 32); vec = 16-byte
+// loads of A and V.
+int lr_avt(int dt, const void* A, const void* V, void* y, int G, int M, int N, int R, int route,
+           int size0, int size1, int vec, void* stream) {
   if (G < 1 || M < 1 || N < 1 || R < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dt == 0) return launch_avt<float>(A, V, y, G, M, N, R, s);
-  if (dt == 1) return launch_avt<__nv_bfloat16>(A, V, y, G, M, N, R, s);
+  if (dt == 0) return launch_avt<float>(A, V, y, G, M, N, R, route, size0, size1, vec, s);
+  if (dt == 1) {
+    return launch_avt<__nv_bfloat16>(A, V, y, G, M, N, R, route, size0, size1, vec, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -112,7 +112,7 @@ def load_library() -> ctypes.CDLL:
         lib.lr_xus.restype = i
         lib.lr_capture_id.argtypes = [p]
         lib.lr_capture_id.restype = ctypes.c_ulonglong
-        lib.lr_avt.argtypes = [i, p, p, p, i, i, i, i, p]
+        lib.lr_avt.argtypes = [i, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.lr_avt.restype = i
         lib.lr_atb.argtypes = [i, p, p, p, p, ctypes.c_longlong, p, i, i, i, i, i, i, p]
         lib.lr_atb.restype = i

@@ -29,6 +29,7 @@ from repro_torch.kernels.build import load_library
 from repro_torch.kernels.lowrank_matmul import (
     _DTYPE_CODE,
     COUNTER_INTS,
+    GRID_X_MAX,
     GRID_YZ_MAX,
     _batched,
     _call,
@@ -50,7 +51,6 @@ ATB_MC_MIN = 64
 #: elements (4 splits at the round's 320², 1.25x: on the card 3 splits, the
 #: most that 1x allows, were slower)
 ATB_PARTIALS = 2
-GRID_X_MAX = 2**31 - 1
 
 
 class AtbPlan(NamedTuple):

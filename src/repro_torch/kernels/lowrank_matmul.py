@@ -8,7 +8,11 @@
   decode: one launch that streams U and finishes in its last block) or
   ``"tiled"`` (larger M, training: a split-precision tensor-core product,
   and a second launch of it that applies S).
-- :func:`avt` computes ``y = A Vᵀ`` with f32 accumulation.
+- :func:`avt` computes ``y = A Vᵀ``: f32 accumulation, one rounding to
+  ``A.dtype``. It takes one of two routes, each one launch, planned by
+  :func:`avt_plan` from the shapes alone: ``"stream"`` (M ≤ 16, decode:
+  warps that stream their rows of V with 16-byte loads) or ``"tiled"``
+  (larger M: a split-precision tensor-core product).
 
 Both take 2-D operands or operands with one leading batch dim (stacked
 factors), which the kernels run as a grid axis. A CUDA tensor launches the
@@ -22,7 +26,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -73,11 +77,11 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-#: route codes of ``lr_xus`` (``csrc/lowrank_matmul.cu``)
-XUS_ROUTES = {"stream": 0, "tiled": 1}
-#: the stream route: rows of x it takes, rank columns per block, and K per
-#: split: at least, and at most with up to 4 rows and with up to 16 (a
-#: block stages its split's x rows in 32 KB of shared memory)
+#: route codes of ``lr_xus`` and ``lr_avt`` (``csrc/lowrank_matmul.cu``)
+ROUTES = {"stream": 0, "tiled": 1}
+#: the stream routes: rows of x (of A) they take; xus's rank columns per
+#: block, and K per split: at least, and at most with up to 4 rows and with
+#: up to 16 (a block stages its split's x rows in 32 KB of shared memory)
 STREAM_MAX_M = 16
 STREAM_COLS = 64
 STREAM_KC = (256, 1024, 512)
@@ -94,7 +98,17 @@ WAVE = 132
 #: call takes G · (column tiles + 1), a tiled one with K splits one a tile
 #: a pass, an ``atb`` call with M splits one a tile (``coeff_grad.py``)
 COUNTER_INTS = 4096
+GRID_X_MAX = 2**31 - 1
 GRID_YZ_MAX = 65535
+#: avt's stream route: elements of a row of V a lane takes a pass (16 bytes
+#: of bf16, 32 of f32), rows of V a lane group owns and warps a block (on
+#: the card 4 rows beat 8 and 4 warps beat 8 at every decode shape)
+AVT_ELEMS = 8
+AVT_ROWS = 4
+AVT_WARPS = 4
+#: rows of A a block of avt's stream route takes at M > 1 (more rows are
+#: more blocks, which read the same rows of V together)
+AVT_M_BLOCK = 4
 
 
 class XusPlan(NamedTuple):
@@ -262,10 +276,61 @@ def xus(x: torch.Tensor, U: torch.Tensor, S: Optional[torch.Tensor] = None) -> t
         _call(
             lib.lr_xus, _DTYPE_CODE[x3.dtype], _DTYPE_CODE[s_dtype], xp, up, sp,
             out.data_ptr(), work.data_ptr(), plan.workspace, counters, G, M, K, R,
-            XUS_ROUTES[plan.route], plan.kc, plan.kc_s, vec, ctypes.c_void_p(stream),
+            ROUTES[plan.route], plan.kc, plan.kc_s, vec, ctypes.c_void_p(stream),
         )
     xus.launches += 1
     return out if x.dim() == 3 else out[0]
+
+
+class AvtPlan(NamedTuple):
+    """How one ``avt`` call runs on the card (see :func:`avt_plan`)."""
+
+    route: str                        # "stream" or "tiled"
+    rows: int                         # stream: rows of V a warp owns (0: tiled)
+    warps: int                        # stream: warps a block (0: tiled)
+    tile: Optional[Tuple[int, int]]   # tiled: a block's tile of y, (M, N) (None: stream)
+    launches: int                     # device kernels the call launches
+    workspace: int                    # f32 elements of scratch
+    counters: int                     # ticket counters (0: none)
+
+
+def _avt_lanes(R: int) -> int:
+    """Lanes that share a row of V on the stream route: the power of two
+    that covers the row's ``R / 8`` lane pieces, at most a warp."""
+    return min(32, 1 << (_cdiv(R, AVT_ELEMS) - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=1024)
+def avt_plan(G: int, M: int, N: int, R: int) -> AvtPlan:
+    """Route and sizes of ``avt`` on ``G`` stacked ``(M, R) · (N, R)ᵀ``
+    products: one launch at every shape, no workspace, no counters (the
+    contraction is the rank, which neither route splits).
+
+    - ``"stream"`` for ``M ≤ 16`` (decode): bound by V's bytes. A group of
+      :func:`_avt_lanes` lanes reads a row of V in 16-byte pieces, a warp
+      has ``32 / lanes`` groups of :data:`AVT_ROWS` rows each, and a block
+      :data:`AVT_WARPS` warps and :data:`AVT_M_BLOCK` rows of A (1 at
+      M = 1).
+    - ``"tiled"`` otherwise (training at M = 512, prefill): bound by f32
+      operations. 64 × 32 tiles of y, a 3xTF32 tensor-core product over R.
+    The plan reads constants and the shapes, never the card, so the
+    summation order (and the bits) depend on the shapes alone.
+    """
+    if min(G, M, N, R) < 1:
+        raise ValueError(f"avt_plan: sizes must be positive, got G={G} M={M} N={N} R={R}")
+    if M <= STREAM_MAX_M:
+        rows, warps = AVT_ROWS * (32 // _avt_lanes(R)), AVT_WARPS
+        blocks = _cdiv(N, rows * warps) * _cdiv(M, 1 if M == 1 else AVT_M_BLOCK)
+        if blocks > GRID_X_MAX or G > GRID_YZ_MAX:
+            raise ValueError(f"avt: grid too large for G={G} M={M} N={N} R={R}: {blocks} x {G} "
+                             f"blocks; at most {GRID_X_MAX} x {GRID_YZ_MAX}")
+        return AvtPlan("stream", rows, warps, None, 1, 0, 0)
+    tiles = (_cdiv(N, TILE_N), _cdiv(M, TILE_M))
+    if tiles[0] > GRID_X_MAX or tiles[1] > GRID_YZ_MAX or G > GRID_YZ_MAX:
+        raise ValueError(f"avt: grid too large for G={G} M={M} N={N} R={R}: {tiles[0]} x "
+                         f"{tiles[1]} x {G} tiles; at most {GRID_X_MAX} x {GRID_YZ_MAX} x "
+                         f"{GRID_YZ_MAX}")
+    return AvtPlan("tiled", 0, 0, (TILE_M, TILE_N), 1, 0, 0)
 
 
 def avt(A: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
@@ -285,11 +350,16 @@ def avt(A: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     if V3.dtype != A3.dtype:
         raise TypeError(f"avt dtypes: A {A.dtype}, V {V.dtype} must match")
     lib = load_library()
+    plan = avt_plan(G, M, N, R)
+    sizes = (plan.rows, plan.warps) if plan.route == "stream" else plan.tile
     y = torch.empty((G, M, N), dtype=A.dtype, device=A.device)
+    # 16-byte loads where the rows are whole vectors and the data is aligned
+    ap, vp = A3.data_ptr(), V3.data_ptr()
+    vec = int(R % (16 // A3.element_size()) == 0 and ap % 16 == 0 and vp % 16 == 0)
     with _on_device(A):
         _call(
-            lib.lr_avt, _DTYPE_CODE[A3.dtype], A3.data_ptr(), V3.data_ptr(),
-            y.data_ptr(), G, M, N, R, _stream(),
+            lib.lr_avt, _DTYPE_CODE[A3.dtype], ap, vp, y.data_ptr(), G, M, N, R,
+            ROUTES[plan.route], *sizes, vec, _stream(),
         )
     avt.launches += 1
     return y if A.dim() == 3 else y[0]

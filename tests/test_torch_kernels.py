@@ -7,6 +7,9 @@ them. The same numpy inputs feed both. The backward of the port's
 ``lowrank_apply`` (an autograd Function on the kernels) is held to the JAX
 package's custom VJP through the interpreted kernels.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,10 +35,12 @@ from repro_torch.kernels import (
 )
 from repro_torch.kernels.lowrank_matmul import (
     COUNTER_INTS,
+    GRID_X_MAX,
     GRID_YZ_MAX,
     STREAM_KC,
     TILED_BLOCKS,
     avt,
+    avt_plan,
     xus,
     xus_plan,
 )
@@ -536,6 +541,130 @@ def test_xus_plan_depends_on_shapes_only(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# avt_plan: the route, its sizes and the launches of an avt call
+# ---------------------------------------------------------------------------
+
+#: (N, R) of every avt call of a Qwen2-7B decode step (k / v, q / o / down,
+#: gate / up, the LM head) and of an llm-100m FeDLRT round (n_out / n_in
+#: 640, 2560, 8192 at r 160 and augmented 320; the embedding's dx 160²)
+DECODE_AVT = [(512, 64), (3584, 256), (18944, 256), (152064, 256)]
+ROUND_AVT = [(640, 320), (640, 160), (2560, 320), (2560, 160), (8192, 320), (8192, 160),
+             (160, 160)]
+
+
+def _check_avt_plan(plan, G, M, N, R):
+    """What ``lr_avt`` checks before it launches, and the grid it makes."""
+    assert plan.launches == 1 and plan.workspace == 0 and plan.counters == 0
+    if plan.route == "stream":
+        assert M <= 16 and plan.tile is None
+        lanes = 1
+        while lanes < min(32, _cdiv(R, 8)):  # lanes of a row: 8 elements each a pass
+            lanes *= 2
+        assert plan.rows == 4 * (32 // lanes)  # 4 rows a group of lanes
+        assert 1 <= plan.warps <= 8
+        grid = (_cdiv(N, plan.rows * plan.warps) * _cdiv(M, 1 if M == 1 else 4), G)
+    else:
+        assert plan.route == "tiled" and M > 16
+        assert plan.tile == (64, 32) and plan.rows == plan.warps == 0
+        grid = (_cdiv(N, 32), _cdiv(M, 64), G)
+    assert 1 <= grid[0] <= GRID_X_MAX and all(1 <= d <= GRID_YZ_MAX for d in grid[1:])
+    return grid
+
+
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("N,R", DECODE_AVT)
+def test_avt_plan_decode_shapes_take_the_stream_route(N, R, M):
+    plan = avt_plan(1, M, N, R)
+    assert plan.route == "stream"
+    grid = _check_avt_plan(plan, 1, M, N, R)
+    if N >= 3584:  # about a wave of blocks or more: one per SM of the card's 132
+        assert grid[0] >= 132
+
+
+@pytest.mark.parametrize("M,N,R", [(512, n, r) for n, r in ROUND_AVT]
+                         + [(m, n, r) for m in (17, 64) for n, r in DECODE_AVT])
+def test_avt_plan_training_and_prefill_shapes_take_the_tiled_route(M, N, R):
+    plan = avt_plan(1, M, N, R)
+    assert plan.route == "tiled"
+    _check_avt_plan(plan, 1, M, N, R)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_avt_plan_ragged_and_stacked_shapes(seed):
+    """Random ragged shapes, stacked factors included: the plan is one
+    ``lr_avt`` accepts, one launch with no workspace and no counters."""
+    rng = np.random.default_rng(seed)
+    for _ in range(200):
+        G = int(rng.choice([1, 3, 12, 1000]))
+        M = int(rng.choice([1, 2, 3, 4, 5, 16, 17, 130, 512, int(rng.integers(1, 5000))]))
+        N = int(rng.integers(1, 200000))
+        R = int(rng.integers(1, 600))
+        _check_avt_plan(avt_plan(G, M, N, R), G, M, N, R)
+
+
+def test_avt_plan_depends_on_shapes_only(monkeypatch):
+    """The plan reads nothing of the card: it is the same with CUDA
+    unavailable, and the cached plan equals a fresh one."""
+    shapes = [(1, 4, 152064, 256), (3, 17, 1003, 5), (1, 512, 2560, 320), (2, 1, 77, 24)]
+    cached = [avt_plan(*s) for s in shapes]
+    for name in ("is_available", "device_count", "get_device_properties", "current_device"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: pytest.fail("plan read the card"))
+    assert [avt_plan.__wrapped__(*s) for s in shapes] == cached
+    assert [avt_plan(*s) for s in shapes] == cached
+    with pytest.raises(ValueError, match="positive"):
+        avt_plan.__wrapped__(1, 4, 0, 8)
+
+
+@pytest.mark.parametrize("G,M,N,R", [(GRID_YZ_MAX + 1, 4, 3584, 256),
+                                     (GRID_YZ_MAX + 1, 512, 640, 320),
+                                     (1, 64 * GRID_YZ_MAX + 1, 640, 320),
+                                     (1, 512, 32 * GRID_X_MAX + 1, 320),
+                                     (1, 1, 64 * GRID_X_MAX + 1, 256)])
+def test_avt_plan_refuses_a_grid_too_large(G, M, N, R):
+    with pytest.raises(ValueError, match=f"grid too large for G={G} M={M} N={N} R={R}"):
+        avt_plan.__wrapped__(G, M, N, R)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_calls", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_train_avt_calls_sum_to_the_round_launches():
+    """``chip_smoke.train_avt_calls`` (the avt calls of a FeDLRT round by
+    shape, which the card's round sum weighs) counts what
+    ``expected_launches`` counts, on an llm-tiny experiment built here."""
+    from repro_torch.api import ExperimentSpec, ModelSpec, build
+
+    smoke = _chip_smoke()
+    exp = build(ExperimentSpec(name="avt-calls", model=ModelSpec(preset="llm-tiny")),
+                device="cpu")
+    calls = smoke.train_avt_calls(exp.params, exp.engine.cfg)
+    want, _ = smoke.expected_launches(exp.params, exp.engine.cfg)
+    assert sum(calls.values()) == want["avt"]
+
+
+def test_train_avt_calls_llm_100m_round():
+    """llm-100m's factors (no data, no engine) with the spec defaults: the
+    seven (N, R) shapes of a round and their calls, 3,768 in all."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.api.tasks import PRESETS
+    from repro_torch.models.model import build_params
+
+    smoke = _chip_smoke()
+    params = build_params(PRESETS["llm-100m"], torch.Generator().manual_seed(0))
+    cfg = ExperimentSpec().fed.to_fed_config()
+    calls = smoke.train_avt_calls(params, cfg)
+    assert calls == {(640, 320): 2144, (640, 160): 780, (2560, 320): 576, (2560, 160): 240,
+                     (8192, 320): 16, (8192, 160): 8, (160, 160): 4}
+    assert sum(calls.values()) == smoke.expected_launches(params, cfg)[0]["avt"] == 3768
+    assert sorted(calls) == sorted(ROUND_AVT)
+
+
+# ---------------------------------------------------------------------------
 # atb_plan: the tile, M splits, launches, workspace and counters of an atb call
 # ---------------------------------------------------------------------------
 
@@ -758,3 +887,88 @@ def test_xus_stream_route_tickets_on_card():
     for g in got:
         for outs in g:
             assert all(torch.equal(o, w) for o, w in zip(outs, want))
+
+
+# ---------------------------------------------------------------------------
+# avt on the card: both routes, ragged, misaligned, stacked, repeatable
+# ---------------------------------------------------------------------------
+
+AVT_CARD_M = [1, 4, 16, 17, 64, 512]
+AVT_CARD_NR = [(3584, 256), (512, 64), (640, 320), (1000, 160), (77, 24), (513, 77)]
+
+
+def _avt_case(G, M, N, R, seed, dtype, misaligned=False):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((G, M, R)).astype(np.float32)
+    V = (rng.standard_normal((G, N, R)) / np.sqrt(R)).astype(np.float32)
+    tA, tV = (torch.from_numpy(a).to("cuda", DTYPES[dtype][1]) for a in (A, V))
+    if misaligned:
+        # contiguous views one element on: 16-byte loads would be misaligned
+        views = []
+        for t in (tA, tV):
+            flat = torch.zeros(t.numel() + 1, device="cuda", dtype=t.dtype)
+            flat[1:] = t.reshape(-1)
+            views.append(flat[1:].view(t.shape))
+        tA, tV = views
+        assert tA.data_ptr() % 16 and tV.data_ptr() % 16
+    return tA, tV
+
+
+def _avt_close(got, want, dtype):
+    if dtype == "float32":  # f32 sums of up to 320 products in another order
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    else:
+        torch.testing.assert_close(got, want, **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_avt_routes_match_plain_version_on_card(dtype):
+    """Runs on an H100 (``pytest -m cuda``): avt against ``ref.avt_ref`` on
+    both routes (M ≤ 16 stream, M > 16 tiled), ragged N and R, stacked
+    factors (G = 3), views offset by one element (the element-load
+    variant), the LM head at M = 4 and 64; a second call and a CUDA graph's
+    replay give the eager call's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for M in AVT_CARD_M:
+        for N, R in AVT_CARD_NR:
+            A, V = _avt_case(1, M, N, R, M + N + R, dtype)
+            got = avt(A[0], V[0])
+            assert got.shape == (M, N) and got.dtype == A.dtype
+            _avt_close(got, ref.avt_ref(A[0], V[0]), dtype)
+        # stacked factors: the leading axis is a grid axis
+        A, V = _avt_case(3, M, 1000, 160, M, dtype)
+        got = avt(A, V)
+        assert got.shape == (3, M, 1000)
+        _avt_close(got, ref.avt_ref(A, V), dtype)
+        assert torch.equal(got, avt(A, V))  # the same bits again
+        # misaligned views take the element-load variant, to the same bits
+        a, v = _avt_case(1, M, 640, 320, 7 * M, dtype)
+        A, V = _avt_case(1, M, 640, 320, 7 * M, dtype, misaligned=True)
+        got = avt(A[0], V[0])
+        _avt_close(got, ref.avt_ref(A[0], V[0]), dtype)
+        assert torch.equal(got, avt(a[0], v[0]))
+    # the LM head, at decode and at a prefill bucket
+    for M in (4, 64):
+        A, V = _avt_case(1, M, 152064, 256, M, dtype)
+        _avt_close(avt(A[0], V[0]), ref.avt_ref(A[0], V[0]), dtype)
+        del A, V
+    # repeat bits, and a CUDA graph replaying the calls
+    cases = [_avt_case(1, M, N, R, M * N, dtype) for M, N, R in
+             [(4, 18944, 256), (1, 512, 64), (16, 3584, 256), (512, 640, 320), (64, 2560, 160)]]
+    want = [avt(A[0], V[0]) for A, V in cases]
+    assert all(torch.equal(w, avt(A[0], V[0])) for w, (A, V) in zip(want, cases))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        avt(cases[0][0][0], cases[0][1][0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [avt(A[0], V[0]) for A, V in cases]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, w) for o, w in zip(outs, want))
