@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, all started together) and drives each of the port's paths:
 
 - kernels: holds each kernel to its plain PyTorch version at every shape
-  its paths give it: ``xus``/``avt`` at the Qwen2-7B serving shapes,
+  its paths give it: ``xus``/``avt`` at the Qwen2-7B serving shapes (full
+  width and rank-sliced to 128),
   ``atb`` at the llm-100m training shapes and at Qwen2-7B's, ``xus`` and
   ``avt`` at every shape of an llm-100m round (M = 512, f32); ``atb``'s,
   ``xus``'s and ``avt``'s times summed over one round; each ``xus``,
@@ -20,6 +21,15 @@ per source, all started together) and drives each of the port's paths:
   full width and 2 layers;
 - serve: Qwen2-7B at full width and depth in bf16 (fresh seeded weights)
   through ``repro_torch.api.serve``, counting the kernel launches;
+- serve-quant: the same model and requests through serving's at-rest
+  transforms, one session at a time: int8 factors (dequantized on the
+  device within ``quantization_error_bound``, resident bytes against
+  bf16's, the dequantization's share of the decode step's device time,
+  launches held to 198 ``xus`` + 198 ``avt`` a forward); every factor cut
+  to rank 128 and served at r_max 256 and rank-sliced (prefill logits held
+  within ``SLICE_LOGIT_RTOL``, factor bytes and device time of both decode
+  steps); the materialized dense baseline (no ``xus`` / ``avt`` launch,
+  peak memory, ``decode_matmul_flops`` both ways);
 - train: three FeDLRT rounds of llm-100m at full width and depth in f32
   through ``repro_torch.api.build(spec).run()``, counting the launches
   against the counts the model's factors imply; one more round under
@@ -39,8 +49,12 @@ per source, all started together) and drives each of the port's paths:
   and a checkpoint per round; a fresh experiment resumed from the first
   checkpoint, held bit-identical to the uninterrupted run; one round with
   the identity codec held bit-identical to one with the wire off, its
-  measured bytes held equal to ``cost_model.wire_round_bytes``; then 4
-  greedy requests served from the written checkpoint.
+  measured bytes held equal to ``cost_model.wire_round_bytes``; the two
+  rounds again with the jsonl, perfetto and memory telemetry sinks, held
+  bit-identical to telemetry off, the event log held to ``validate_jsonl``
+  and the trace loaded; then 4 greedy requests served from the written
+  checkpoint (the ``serve.tokens`` counter held to the tokens produced),
+  and again rank-sliced and materialized, held token-identical (f32).
 
 Every failure raises and exits non-zero. The last two lines of standard
 output are one JSON object with each kernel's numbers and one with the
@@ -77,7 +91,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 KERNELS = tuple(SOURCES)
-PATHS = ("serve", "train", "flash", "spec")
+PATHS = ("serve", "serve-quant", "train", "flash", "spec")
 #: tolerance of a kernel against its plain version, with the reason
 TOL = {
     # both round once from f32 to bf16; f32 sums taken in different orders
@@ -126,6 +140,21 @@ def decode_step_calls(cfg):
     add("xus", dt, d, r(d, V), 1)  # LM head
     add("avt", dt, V, r(d, V), 1)
     return calls
+
+
+#: the active rank the serve-quant phase gives every factor before slicing
+SLICE_RANK = 128
+
+
+def sliced_shapes(cfg, rank):
+    """(kernel, K or N, R) of the decode step once every factor of ``cfg``
+    is rank-sliced to ``min(rank, r_max)``: R shrinks, and so does the
+    embedding's ``xus`` K, which is its rank (``(U[tok] S) I``)."""
+    out = set()
+    for kernel, _dt, dim, R in decode_step_calls(cfg):
+        r = min(rank, R)
+        out.add((kernel, r if kernel == "xus" and dim == R else dim, r))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -321,7 +350,8 @@ def phase_kernels(torch, cfg):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    shapes = sorted({(k, dim, R) for (k, _dt, dim, R) in decode_step_calls(cfg)})
+    shapes = sorted({(k, dim, R) for (k, _dt, dim, R) in decode_step_calls(cfg)}
+                    | sliced_shapes(cfg, SLICE_RANK))
     fns = {
         "xus": (xus, ref.xus_ref, lambda x, U, S: torch.linalg.multi_dot([x, U, S])),
         "avt": (avt, ref.avt_ref, lambda A, V: torch.matmul(A, V.t())),
@@ -478,34 +508,37 @@ def factor_bytes_per_step(params) -> int:
     return total
 
 
-def phase_serve(torch, counters):
-    """Qwen2-7B at full width and depth, bf16, continuous batching: the
-    slice's main path, with the kernel launch counts of the run."""
-    import numpy as np
+#: xus and avt launches of one Qwen2-7B forward: 28 layers x 7 factorized
+#: linears + the embedding + the LM head
+PER_FORWARD = 198
 
-    from repro_torch.api import ExperimentSpec, ModelSpec, ServeSpec, serve
-    from repro_torch.launch.serve import synthetic_requests
 
-    spec = ExperimentSpec(
+def serve_spec(**serve_kw):
+    """The Qwen2-7B serving spec of the serve phases: bf16, full width and
+    depth, 4 slots, prompts up to 64, 16 new tokens, continuous batching."""
+    from repro_torch.api import ExperimentSpec, ModelSpec, ServeSpec
+
+    return ExperimentSpec(
         name="chip-serve-qwen2-7b", seed=0,
         model=ModelSpec(arch="qwen2-7b"),
         serve=ServeSpec(max_batch=4, max_prompt=64, prompt_bucket=16,
-                        max_new_tokens=16, mode="continuous"),
+                        max_new_tokens=16, mode="continuous", **serve_kw),
     )
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    session = serve(spec, device="cuda")
-    torch.cuda.synchronize()
-    log(f"[serve] built {spec.model.arch} ({session.engine.model.cfg.num_layers} layers, "
-        f"{session.engine.model.cfg.compute_dtype}) in {time.perf_counter() - t0:.1f} s")
-    log(session.describe())
+
+
+def drive_session(torch, session, spec, tag, per_forward=PER_FORWARD):
+    """The 8 seeded greedy requests of ``spec`` through ``session`` (a short
+    warm-up request first, not counted), every logits tensor checked finite
+    on the device, the kernel launch counts set to 0 just before the run and
+    read just after. Holds ``xus`` and ``avt`` to ``per_forward`` launches a
+    forward. Returns (completions, counts, stats)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import synthetic_requests
+
     eng = session.engine
-
-    # a short warm-up request (cuBLAS handles, allocator pools), not counted
     session.generate([np.arange(1, 9)], max_new_tokens=2)
-
-    # every logits tensor the run produces is checked on the device
-    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    finite = torch.ones((), dtype=torch.bool, device=eng.device)
     step_fn, prefill_fn = eng.step, eng.prefill
 
     def checked_step(state, last):
@@ -522,43 +555,52 @@ def phase_serve(torch, counters):
     reqs = synthetic_requests(spec, 8, spread=True)
     sched = session.scheduler
     steps0 = sched.decode_steps
-    # the main path: counts at 0 just before, read just after
     _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     comps = session.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counters["serve"] = got = _launch_counts()
+    got = _launch_counts()
     eng.step, eng.prefill = step_fn, prefill_fn
 
     steps = sched.decode_steps - steps0
     prefills = len(reqs)
     if len(comps) != len(reqs) or any(len(c.tokens) != 16 for c in comps):
-        raise AssertionError(f"not every request completed 16 tokens: {[len(c.tokens) for c in comps]}")
+        raise AssertionError(f"{tag}: not every request completed 16 tokens: "
+                             f"{[len(c.tokens) for c in comps]}")
     if not bool(finite):
-        raise AssertionError("NaN/inf logits in the serve run")
-    per_forward = 198  # 28 layers x 7 factorized linears + embedding + LM head
+        raise AssertionError(f"{tag}: NaN/inf logits in the serve run")
     for name in ("xus", "avt"):
         want = per_forward * (steps + prefills)
         if got[name] != want:
             raise AssertionError(
-                f"{name}: {got[name]} launches, expected {per_forward} x "
+                f"{tag} {name}: {got[name]} launches, expected {per_forward} x "
                 f"({steps} decode steps + {prefills} prefills) = {want}"
             )
     if got["atb"] or got["flash_attention"]:
-        raise AssertionError(f"serving (forward only) launched atb / flash_attention: {got}")
-    log(f"[serve] launches: xus {got['xus']}, avt {got['avt']} = "
+        raise AssertionError(f"{tag}: serving (forward only) launched atb / flash_attention: {got}")
+    log(f"{tag} launches: xus {got['xus']}, avt {got['avt']} = "
         f"{per_forward} per forward x ({steps} decode steps + {prefills} prefills); "
         f"{per_forward} xus + {per_forward} avt per decode step")
     toks = sum(len(c.tokens) for c in comps)
     per_tok = np.concatenate([np.full(len(c.tokens), c.decode_s / len(c.tokens)) for c in comps])
     p50, p99 = np.percentile(per_tok, [50, 99])
-    log(f"[serve] wall {wall:.3f} s for {toks} tokens = {toks / wall:.2f} tok/s; "
+    log(f"{tag} wall {wall:.3f} s for {toks} tokens = {toks / wall:.2f} tok/s; "
         f"per-token decode latency p50 {p50 * 1e3:.2f} ms, p99 {p99 * 1e3:.2f} ms")
+    return comps, got, dict(tok_s=toks / wall, p50_ms=p50 * 1e3, p99_ms=p99 * 1e3)
 
-    # one decode step: host clock (what the scheduler sees) and device time
-    state = sched.state
+
+def decode_step_ms(torch, session):
+    """One decode step over the session's slots, from the scheduler's state
+    after its run: host ms (median of 10 ``step`` calls, each ending in a
+    sync) and device ms (the step's forward, dequantization included,
+    replayed as a CUDA graph)."""
+    import numpy as np
+
+    from repro_torch.serve import dequantize_params
+
+    eng, state = session.engine, session.scheduler.state
     last = np.ones(eng.max_batch, np.int64)
     host = []
     for _ in range(10):
@@ -567,27 +609,230 @@ def phase_serve(torch, counters):
         eng.step(state, last)
         torch.cuda.synchronize()
         host.append(time.perf_counter() - t0)
-    tokens = torch.ones((eng.max_batch, 1), dtype=torch.int64, device="cuda")
+    tokens = torch.ones((eng.max_batch, 1), dtype=torch.int64, device=eng.device)
     with torch.inference_mode():
-        dev_ms = graph_ms(torch, lambda i: eng.model.serve_step(eng.params, state, tokens), 1, 5)
+        dev_ms = graph_ms(torch, lambda i: eng.model.serve_step(
+            dequantize_params(eng.params), state, tokens), 1, 5)
+    return float(np.median(host) * 1e3), dev_ms, state, last
+
+
+def phase_serve(torch, counters):
+    """Qwen2-7B at full width and depth, bf16, continuous batching: the
+    slice's main path, with the kernel launch counts of the run."""
+    from repro_torch.api import serve
+    from repro_torch.serve import resident_bytes
+
+    spec = serve_spec()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session = serve(spec, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[serve] built {spec.model.arch} ({session.engine.model.cfg.num_layers} layers, "
+        f"{session.engine.model.cfg.compute_dtype}) in {time.perf_counter() - t0:.1f} s")
+    log(session.describe())
+    eng = session.engine
+    # the main path: counts at 0 just before, read just after (drive_session)
+    comps, counters["serve"], stats = drive_session(torch, session, spec, "[serve]")
+
+    host_ms, dev_ms, state, last = decode_step_ms(torch, session)
     dispatches = count_dispatches(torch, lambda: eng.step(state, last))
     nbytes = factor_bytes_per_step(eng.params)
     floor_ms = nbytes / HBM_BYTES_PER_S * 1e3
     peak = torch.cuda.max_memory_allocated()
-    host_ms = float(np.median(host) * 1e3)
     log(f"[serve] decode step: host {host_ms:.2f} ms (median of 10), device "
         f"{dev_ms:.3f} ms (CUDA graph replay); floor {floor_ms:.3f} ms = "
         f"{nbytes / 1e9:.3f} GB of factors / 3.35 TB/s; device idle "
         f"{100 * (1 - dev_ms / host_ms):.1f} % of the eager step")
     log(f"[serve] ATen dispatches in one decode step: {dispatches} "
-        f"(plus {2 * per_forward} ctypes kernel calls)")
+        f"(plus {2 * PER_FORWARD} ctypes kernel calls)")
     # where one decode step's device time goes, kernel by kernel
     n, busy_s, _ = device_profile(torch, lambda: eng.step(state, last), "[serve] profile", 8)
     log(f"[serve] profile: one decode step, {n} kernels, device busy {busy_s * 1e3:.3f} ms")
     log(f"[serve] torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB")
-    return dict(tok_s=toks / wall, p50_ms=p50 * 1e3, p99_ms=p99 * 1e3,
-                step_host_ms=host_ms, step_device_ms=dev_ms,
-                floor_ms=floor_ms, peak_gib=peak / 2**30, aten_dispatches=dispatches)
+    stats.update(step_host_ms=host_ms, step_device_ms=dev_ms, floor_ms=floor_ms,
+                 peak_gib=peak / 2**30, aten_dispatches=dispatches,
+                 resident_bytes=resident_bytes(eng.params))
+    tokens = [c.tokens.tolist() for c in comps]
+    del session, eng, state
+    return stats, tokens
+
+
+#: prefill logits of the rank-sliced tree against the full-width one, both
+#: bf16: the same products over fewer zero columns, but the kernels' plans
+#: (and so their summation orders) follow R, and one bf16 rounding flip in
+#: an early layer carries through 28 layers; relative to max |logit|
+SLICE_LOGIT_RTOL = 5e-2
+#: dequantized f32 factors against their bf16 source: the bound
+#: (max scale / 2) plus the f32 rounding of the decode's two operations
+DEQUANT_SLACK = 1e-6
+
+
+def fresh_params(torch, spec):
+    """The parameters ``serve(spec)`` initializes from ``spec.seed``."""
+    from repro_torch.api.tasks import lm_model_config
+    from repro_torch.models import build_model
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(spec.seed)
+    with torch.inference_mode():
+        return build_model(lm_model_config(spec.model)).init(gen)
+
+
+def with_active_rank(torch, params, r):
+    """Every factor of ``params`` cut to active rank ``min(r, r_max)``: the
+    columns of U and V past it and the rows and columns of S past it
+    zeroed, so the zero-inactive-columns invariant holds."""
+    from repro_torch.core.factorization import LowRankFactor, is_factor, mask_coeff, rank_mask
+    from repro_torch.utils.tree import tree_map
+
+    def one(f):
+        if not is_factor(f):
+            return f
+        rank = torch.full_like(f.rank, float(min(r, f.r_max)))
+        m = rank_mask(rank, f.r_max).to(f.U.dtype)
+        return LowRankFactor(U=f.U * m[..., None, :], S=mask_coeff(f.S, m.to(f.S.dtype)),
+                             V=f.V * m[..., None, :], rank=rank)
+
+    with torch.inference_mode():
+        return tree_map(one, params, is_leaf=is_factor)
+
+
+def _add_counts(total, got):
+    for name, n in got.items():
+        total[name] = total.get(name, 0) + n
+
+
+def _same_tokens(tokens, ref_tokens):
+    """Share of generated tokens (a list per request) equal, position by
+    position, to the reference run's."""
+    same = sum(int(a == b) for t, r in zip(tokens, ref_tokens, strict=True)
+               for a, b in zip(t, r, strict=True))
+    return same / sum(len(r) for r in ref_tokens)
+
+
+def phase_serve_quant(torch, counters, serve_stats, bf16_tokens):
+    """Qwen2-7B at full width and depth through serving's at-rest
+    transforms, one session at a time, each freed before the next: int8
+    factors; a rank-128 model served at r_max 256 and rank-sliced; the
+    materialized dense baseline."""
+    from repro_torch.api import serve
+    from repro_torch.core.factorization import is_factor
+    from repro_torch.serve import (
+        decode_matmul_flops,
+        dequantize_params,
+        quantization_error_bound,
+        resident_bytes,
+    )
+    from repro_torch.serve.quantize import dequantize_factor, is_quantized
+    from repro_torch.utils.tree import tree_leaves
+
+    counters["serve-quant"] = total = {}
+    out = {}
+    source = fresh_params(torch, serve_spec())
+
+    # 1. int8 at rest
+    spec = serve_spec(quantize="int8")
+    session = serve(spec, params=source, device="cuda")
+    eng = session.engine
+    log(session.describe())
+    src = [f for f in tree_leaves(source, is_leaf=is_factor) if is_factor(f)]
+    qfs = [q for q in tree_leaves(eng.params, is_leaf=is_quantized) if is_quantized(q)]
+    worst = 0.0
+    with torch.inference_mode():
+        for f, q in zip(src, qfs, strict=True):
+            back, bound = dequantize_factor(q), quantization_error_bound(q)
+            for a, b in ((back.U, f.U), (back.V, f.V)):
+                err = (a - b.float()).abs().max().item()
+                limit = bound + DEQUANT_SLACK * b.float().abs().max().item()
+                worst = max(worst, err / limit)
+                if err > limit:
+                    raise AssertionError(f"[int8] dequantized factor off by {err} > {limit}")
+    q_bytes, b_bytes = resident_bytes(eng.params), serve_stats["resident_bytes"]
+    log(f"[int8] {len(qfs)} factors dequantized on the device within quantization_error_bound "
+        f"(worst err / (bound + {DEQUANT_SLACK} max|x|) = {worst:.3f}); resident bytes int8 "
+        f"{q_bytes / 1e9:.3f} GB vs bf16 {b_bytes / 1e9:.3f} GB = {q_bytes / b_bytes:.3f}x")
+    comps, got, stats = drive_session(torch, session, spec, "[int8]")
+    _add_counts(total, got)
+    host_ms, dev_ms, state, last = decode_step_ms(torch, session)
+    with torch.inference_mode():
+        deq_ms = graph_ms(torch, lambda i: dequantize_params(eng.params), 1, 5)
+    device_profile(torch, lambda: eng.step(state, last), "[int8] profile", 5)
+    same = _same_tokens([c.tokens.tolist() for c in comps], bf16_tokens)
+    log(f"[int8] decode step: host {host_ms:.2f} ms (median of 10), device {dev_ms:.3f} ms "
+        f"(CUDA graph replay), of which dequantization {deq_ms:.3f} ms = "
+        f"{100 * deq_ms / dev_ms:.1f} %; bf16 step device {serve_stats['step_device_ms']:.3f} ms")
+    log(f"[int8] greedy tokens identical to the bf16 run: {100 * same:.1f} % "
+        f"(not gated: int8 changes the logits)")
+    out["int8"] = dict(stats, step_host_ms=host_ms, step_device_ms=dev_ms, dequant_ms=deq_ms,
+                       resident_bytes=q_bytes, bf16_resident_bytes=b_bytes,
+                       same_tokens_as_bf16=same)
+    del session, eng, state, qfs, src
+    torch.cuda.empty_cache()
+
+    # 2. rank 128 of r_max 256: served at full width, then rank-sliced
+    params128 = with_active_rank(torch, source, 128)
+    prompts = [list(range(1, 1 + n)) for n in (5, 23, 64)]
+    logits, sliced = {}, {}
+    for mode in ("full", "sliced"):
+        spec = serve_spec(rank_slice=mode == "sliced")
+        session = serve(spec, params=params128, device="cuda")
+        eng = session.engine
+        if mode == "sliced":
+            log(session.describe())
+        widths = sorted({f.r_max for f in tree_leaves(eng.params, is_leaf=is_factor)
+                         if is_factor(f)})
+        logits[mode] = [eng.prefill(p)[0].float() for p in prompts]
+        comps, got, stats = drive_session(torch, session, spec, f"[rank-slice {mode}]")
+        _add_counts(total, got)
+        host_ms, dev_ms, state, last = decode_step_ms(torch, session)
+        device_profile(torch, lambda: eng.step(state, last), f"[rank-slice {mode}] profile", 4)
+        nbytes = factor_bytes_per_step(eng.params)
+        log(f"[rank-slice {mode}] r_max {widths}; decode step factor bytes {nbytes / 1e9:.3f} GB; "
+            f"host {host_ms:.2f} ms (median of 10), device {dev_ms:.3f} ms (CUDA graph replay)")
+        sliced[mode] = dict(stats, r_max=widths, factor_bytes=nbytes, step_host_ms=host_ms,
+                            step_device_ms=dev_ms, tokens=[c.tokens.tolist() for c in comps])
+        del session, eng, state
+        torch.cuda.empty_cache()
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(logits["sliced"], logits["full"]))
+    same = _same_tokens(sliced["sliced"].pop("tokens"), sliced["full"].pop("tokens"))
+    ratio = sliced["sliced"]["factor_bytes"] / sliced["full"]["factor_bytes"]
+    log(f"[rank-slice] prefill logits sliced vs full width: max |diff| / max |logit| = "
+        f"{worst:.3g} (tol {SLICE_LOGIT_RTOL}); greedy tokens identical {100 * same:.1f} %; "
+        f"factor bytes {ratio:.3f}x of full width")
+    if not worst <= SLICE_LOGIT_RTOL:
+        raise AssertionError(f"rank-sliced prefill logits differ by {worst} of max |logit|")
+    out["rank_slice"] = dict(sliced, logits_rel_diff=worst, same_tokens=same, bytes_ratio=ratio)
+    del params128, logits
+    torch.cuda.empty_cache()
+
+    # 3. the materialized dense baseline
+    spec = serve_spec(materialize=True)
+    flops = {fr: decode_matmul_flops(source, factor_resident=fr) for fr in (True, False)}
+    torch.cuda.reset_peak_memory_stats()
+    session = serve(spec, params=source, device="cuda")
+    eng = session.engine
+    del source
+    torch.cuda.empty_cache()
+    log(session.describe())
+    dense_bytes = resident_bytes(eng.params)
+    comps, got, stats = drive_session(torch, session, spec, "[materialize]", per_forward=0)
+    _add_counts(total, got)
+    host_ms, dev_ms, state, last = decode_step_ms(torch, session)
+    device_profile(torch, lambda: eng.step(state, last), "[materialize] profile", 4)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[materialize] resident {dense_bytes / 1e9:.3f} GB; peak "
+        f"{peak:.2f} GiB; decode step host {host_ms:.2f} ms (median of 10), device "
+        f"{dev_ms:.3f} ms (CUDA graph replay) vs factor-resident bf16 "
+        f"{serve_stats['step_device_ms']:.3f} ms")
+    log(f"[materialize] decode_matmul_flops per token: factor-resident {flops[True]:.4g}, "
+        f"dense {flops[False]:.4g} ({flops[False] / flops[True]:.2f}x)")
+    out["materialize"] = dict(stats, resident_bytes=dense_bytes, peak_gib=peak,
+                              step_host_ms=host_ms, step_device_ms=dev_ms,
+                              flops_factor_resident=flops[True], flops_dense=flops[False])
+    del session, eng, state
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1415,6 +1660,8 @@ def phase_spec(torch, counters, workdir):
     from repro_torch.api.__main__ import main as api_main
     from repro_torch.checkpoint import load_checkpoint
     from repro_torch.core import cost_model
+    from repro_torch.core.factorization import is_factor
+    from repro_torch.telemetry import NULL_HUB, set_hub, validate_jsonl
     from repro_torch.utils.tree import tree_leaves
 
     base = os.path.join(ROOT, "examples", "configs", "sync_baseline.toml")
@@ -1450,6 +1697,39 @@ def phase_spec(torch, counters, workdir):
         f"launches {counters['spec']}; peak {peak:.2f} GiB; checkpoints {sorted(os.listdir(ckdir))}")
     if meta2.get("spec_hash") != spec.spec_hash() or meta2.get("round") != 2:
         raise AssertionError(f"checkpoint meta {meta2}")
+
+    # 1b. the same rounds with every telemetry sink on: the same bits, a
+    #     valid event log, a loadable trace
+    teldir = os.path.join(workdir, "telemetry")
+    tel_spec = spec.with_overrides(["telemetry.enabled=true",
+                                    "telemetry.sinks=jsonl,perfetto,memory",
+                                    f"telemetry.dir={teldir}", "checkpoint.dir=none"])
+    exp = build(tel_spec, device="cuda")
+    t0 = time.perf_counter()
+    exp.run(log_every=0)
+    torch.cuda.synchronize()
+    tel_s = time.perf_counter() - t0
+    exp.hub.close()
+    set_hub(NULL_HUB)
+    if not _tensor_bits_equal(torch, exp.params, params_full):
+        raise AssertionError("telemetry-on params differ from the telemetry-off run's")
+    if _history_rows(exp.history) != _history_rows(hist_full):
+        raise AssertionError("telemetry-on history differs from the telemetry-off run's")
+    events = os.path.join(teldir, "events.jsonl")
+    errs = validate_jsonl(events)
+    if errs:
+        raise AssertionError(f"{events}: {errs[:5]}")
+    [mem] = [x for x in exp.hub.sinks if x.name == "memory"]
+    with open(os.path.join(teldir, "trace.json")) as fh:
+        trace = json.load(fh)
+    names = sorted({f"{e['kind']}:{e['name']}" for e in mem.events})
+    log(f"[spec] telemetry on (jsonl, perfetto, memory), {len(exp.history)} rounds: params "
+        f"and history bit-identical to telemetry off; {len(mem.events)} events, "
+        f"validate_jsonl ok ({os.path.getsize(events) / 1e6:.3f} MB), trace.json loads "
+        f"({len(trace['traceEvents'])} trace events); rounds {tel_s:.3f} s host vs "
+        f"{sum(r['seconds'] for r in hist_full):.3f} s off; events {names}")
+    del exp, mem
+    torch.cuda.empty_cache()
 
     # 2. a fresh experiment from the same TOML, resumed from round 1
     exp = build(load_spec(toml), device="cuda")
@@ -1529,10 +1809,13 @@ def phase_spec(torch, counters, workdir):
     if not ratio >= 3.0:
         raise AssertionError(f"int8 uplink only {ratio:.3f}x below identity")
 
-    # 4. serve 4 short greedy requests from the written checkpoint
+    # 4. serve 4 short greedy requests from the written checkpoint, with a
+    #    memory sink counting the tokens; then rank-sliced and materialized,
+    #    both held token-identical to it (f32)
     srv_spec = spec.with_overrides([f"serve.checkpoint={ckdir}", "serve.max_batch=4",
                                     "serve.max_prompt=16", "serve.prompt_bucket=8",
-                                    "serve.max_new_tokens=8", "serve.temperature=0.0"])
+                                    "serve.max_new_tokens=8", "serve.temperature=0.0",
+                                    "telemetry.enabled=true", "telemetry.sinks=memory"])
     session = serve(srv_spec, device="cuda")
     log(session.describe())
     if not _tensor_bits_equal(torch, session.engine.params, params_full):
@@ -1547,12 +1830,30 @@ def phase_spec(torch, counters, workdir):
     if [len(o) for o in outs] != [8] * 4 or not all(
             0 <= int(t) < vocab for o in outs for t in o):
         raise AssertionError(f"served outputs {outs}")
+    [mem] = session.hub.sinks
+    counted = sum(e["value"] for e in mem.events if e["name"] == "serve.tokens")
+    if counted != sum(len(o) for o in outs):
+        raise AssertionError(f"serve.tokens counted {counted}, produced {sum(map(len, outs))}")
     log(f"[spec] served 4 greedy requests x 8 tokens from {os.path.basename(ck2)} in "
-        f"{serve_s:.3f} s; first tokens {[list(map(int, o[:4])) for o in outs]}")
+        f"{serve_s:.3f} s; first tokens {[list(map(int, o[:4])) for o in outs]}; "
+        f"serve.tokens counter {counted:g} = tokens produced")
     del session
+    set_hub(NULL_HUB)
+    for sets in (["serve.rank_slice=true"], ["serve.materialize=true"]):
+        other = serve(srv_spec.with_overrides(["telemetry.enabled=false", *sets]), device="cuda")
+        got, _ = other.generate(prompts)
+        if [o.tolist() for o in got] != [o.tolist() for o in outs]:
+            raise AssertionError(f"{sets[0]}: greedy tokens differ from factor-resident: "
+                                 f"{got} vs {outs}")
+        widths = sorted({f.r_max for f in tree_leaves(other.engine.params, is_leaf=is_factor)
+                         if is_factor(f)})
+        log(f"[spec] {sets[0]} (r_max {widths or 'dense'}): greedy tokens identical to "
+            f"factor-resident (f32)")
+        del other
     torch.cuda.empty_cache()
     return dict(rounds=rounds, run_s=run_s, resumed_rounds=len(resumed_hist),
-                int8_uplink_ratio=ratio, serve_s=serve_s, spec_hash=spec.spec_hash())
+                int8_uplink_ratio=ratio, serve_s=serve_s, spec_hash=spec.spec_hash(),
+                telemetry_rounds_s=tel_s, telemetry_events=len(trace["traceEvents"]))
 
 
 def kernel_summary(records, atb_records, flash_records, counters, cfg, atb_round, xus_round,
@@ -1651,8 +1952,10 @@ def main() -> int:
     phase_f32_check(torch)
     done("f32")
     counters = {}
-    serve_stats = phase_serve(torch, counters)
+    serve_stats, bf16_tokens = phase_serve(torch, counters)
     done("serve")
+    quant_stats = phase_serve_quant(torch, counters, serve_stats, bf16_tokens)
+    done("serve-quant")
     train = phase_train(torch, counters)
     done("train")
     flash_records = phase_flash(torch, counters)
@@ -1660,7 +1963,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spec_") as workdir:
         spec_stats = phase_spec(torch, counters, workdir)
     done("spec")
-    log("[summary] " + json.dumps({"card": smi, "serve": serve_stats, "train": train,
+    log("[summary] " + json.dumps({"card": smi, "serve": serve_stats,
+                                   "serve_quant": quant_stats, "train": train,
                                    "flash": flash_records, "spec": spec_stats,
                                    "xus_train": xus_train, "avt_train": avt_train}))
     print(json.dumps({"kernels": kernel_summary(

@@ -3,8 +3,11 @@ place the port's training engine and serving stack are constructed (the
 JAX package's ``repro.api.experiment``).
 
 Both run on the card (``device="cuda"``) unless the caller asks for the
-CPU; asking for CUDA without a card raises. Spec values the port parses but
-does not run yet raise :class:`NotImplementedError` here, naming ROADMAP.md.
+CPU; asking for CUDA without a card raises. Both install the spec's
+telemetry hub as the process-global one (``set_hub``), as the JAX package
+does. Spec values the port parses but does not run yet (the async and hier
+engines, ``sim.profile``) raise :class:`NotImplementedError` here, naming
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ from repro_torch.checkpoint import load_checkpoint, load_checkpoint_meta
 from repro_torch.fed.engine import FederatedEngine
 from repro_torch.models import build_model
 from repro_torch.serve import ContinuousScheduler, Request, ServeEngine
+from repro_torch.serve.quantize import materialize_params, quantize_params, rank_slice_params
+from repro_torch.telemetry import hub_from_spec, set_hub
 from repro_torch.utils.tree import tree_map
 
 
@@ -57,20 +62,16 @@ def _check_trainable(spec: ExperimentSpec) -> None:
         raise _not_ported(f"the {spec.engine.kind} engine (engine.kind={spec.engine.kind!r})")
     if spec.sim.profile is not None:
         raise _not_ported(f"the system simulator (sim.profile={spec.sim.profile!r})")
-    if spec.telemetry.enabled:
-        raise _not_ported("the telemetry sinks (telemetry.enabled=true)")
 
 
-def _check_servable(spec: ExperimentSpec) -> None:
-    sv = spec.serve
-    if sv.quantize != "none":
-        raise _not_ported(f"quantized serving (serve.quantize={sv.quantize!r})")
-    if sv.rank_slice:
-        raise _not_ported("rank-sliced serving (serve.rank_slice=true)")
-    if sv.materialize:
-        raise _not_ported("materialized serving (serve.materialize=true)")
-    if spec.telemetry.enabled:
-        raise _not_ported("the telemetry sinks (telemetry.enabled=true)")
+def _spec_hub(spec: ExperimentSpec, telemetry):
+    """The run's hub: ``telemetry`` if given, else the spec's; installed as
+    the process-global hub (kernel dispatch counters read it)."""
+    hub = telemetry if telemetry is not None else hub_from_spec(
+        spec.telemetry, meta={"spec_hash": spec.spec_hash(), "spec_name": spec.name},
+    )
+    set_hub(hub)
+    return hub
 
 
 def build(spec: ExperimentSpec, *, params=None, device="cuda", telemetry=None) -> "Experiment":
@@ -78,9 +79,10 @@ def build(spec: ExperimentSpec, *, params=None, device="cuda", telemetry=None) -
     ``device``. ``params`` (optional) replaces the task's fresh
     initialization, e.g. parameters carried over from the JAX package by
     :func:`repro_torch.checkpoint.params_from_numpy`; they are moved to
-    ``device``."""
+    ``device``. ``telemetry`` (a hub) replaces the spec's telemetry section."""
     _check_trainable(spec)
     dev = resolve_device(device)
+    hub = _spec_hub(spec, telemetry)
     task = build_task(spec, dev)
     if params is not None:
         task = dataclasses.replace(task, params=tree_map(lambda t: t.to(dev), params))
@@ -99,9 +101,9 @@ def build(spec: ExperimentSpec, *, params=None, device="cuda", telemetry=None) -
         checkpoint_every=spec.checkpoint.effective_every,
         wire_codec=spec.wire.codec,
         checkpoint_meta=ckpt_meta,
-        telemetry=telemetry,
+        telemetry=hub,
     )
-    return Experiment(spec=spec, task=task, engine=engine, hub=telemetry)
+    return Experiment(spec=spec, task=task, engine=engine, hub=hub)
 
 
 @dataclasses.dataclass
@@ -126,6 +128,12 @@ class Experiment:
     @property
     def history(self) -> List:
         return self.engine.history
+
+    @property
+    def is_simulated(self) -> bool:
+        """True when rounds are priced on a virtual clock (a non-sync engine
+        or a fleet profile); ``build()`` refuses both in the port today."""
+        return self.spec.engine.kind != "sync" or self.spec.sim.profile is not None
 
     def run(self, rounds: Optional[int] = None, *, log_every: Optional[int] = None):
         """Train ``rounds`` (default ``spec.rounds``) aggregation rounds."""
@@ -169,12 +177,34 @@ class Experiment:
     def comm_total_bytes(self) -> float:
         return self.engine.comm_total_bytes()
 
+    def serve(self) -> "ServeSession":
+        """Serve this experiment's current params in-process, on its device
+        and hub (the spec's ``serve.checkpoint`` is ignored; everything
+        else applies)."""
+        return serve(self.spec, params=self.engine.params, device=self.engine.device,
+                     telemetry=self.hub)
+
     def describe(self) -> str:
         s = self.spec
         ckpt = (
             f"{s.checkpoint.dir} every {s.checkpoint.effective_every}"
             if s.checkpoint.dir else "(off)"
         )
+        tel = (
+            f"{s.telemetry.sinks}"
+            + (f" → {s.telemetry.dir}" if s.telemetry.dir else "")
+            + (f" (every {s.telemetry.sample_every} rounds)"
+               if s.telemetry.sample_every > 1 else "")
+            if s.telemetry.enabled else "(off)"
+        )
+        srv = s.serve
+        srv_line = f"{srv.mode}  batch={srv.max_batch}  cache={srv.max_prompt}+{srv.max_new_tokens}"
+        if srv.quantize != "none":
+            srv_line += f"  quantize={srv.quantize}"
+        if srv.rank_slice:
+            srv_line += "  rank_slice"
+        if srv.materialize:
+            srv_line += "  materialize"
         return "\n".join([
             f"experiment {s.name or '(unnamed)'}  [spec {s.spec_hash()}]  "
             f"[device {self.engine.device}]",
@@ -188,6 +218,8 @@ class Experiment:
             f"  engine         {s.engine.kind}",
             f"  wire           {s.wire.codec}",
             f"  checkpoint     {ckpt}",
+            f"  telemetry      {tel}",
+            f"  serve          {srv_line}",
             f"  data           batch={s.data.batch}"
             + (f"  seq={s.data.seq}" if s.model.kind == "lm" else "")
             + f"  partition={s.data.partition}",
@@ -202,14 +234,18 @@ def serve(spec: ExperimentSpec, *, params=None, device="cuda", telemetry=None) -
     the checkpoint named by ``spec.serve.checkpoint`` (a ``round_*.npz``
     file written by either package's engine, or a directory whose latest
     round wins), or fresh initialization from ``spec.seed`` (smoke runs).
+    Then the at-rest transforms: rank slicing first (smaller buffers to
+    compress), then materialization, else quantization; ``ServeSpec``
+    refuses the combinations that do not compose. ``telemetry`` (a hub)
+    replaces the spec's telemetry section.
     """
     if spec.model.kind != "lm":
         raise ValueError(
             f"serving decodes tokens; model.kind={spec.model.kind!r} has no "
             f"decode path (use kind='lm')"
         )
-    _check_servable(spec)
     dev = resolve_device(device)
+    hub = _spec_hub(spec, telemetry)
     cfg = lm_model_config(spec.model)
     model = build_model(cfg)
     sv = spec.serve
@@ -226,6 +262,14 @@ def serve(spec: ExperimentSpec, *, params=None, device="cuda", telemetry=None) -
             with torch.inference_mode():
                 params = model.init(gen)
 
+    with torch.inference_mode():
+        if sv.rank_slice:
+            params = rank_slice_params(params)
+        if sv.materialize:
+            params = materialize_params(params)
+        elif sv.quantize != "none":
+            params = quantize_params(params, sv.quantize)
+
     # repro-lint: disable=RPL001 -- this is the port's serve() seam, the
     # twin of repro.api.experiment.serve(); the lint's path rules only know
     # the JAX package's own tree, so the sanctioned home needs saying here
@@ -237,13 +281,13 @@ def serve(spec: ExperimentSpec, *, params=None, device="cuda", telemetry=None) -
         max_new_tokens=sv.max_new_tokens,
         temperature=sv.temperature,
         seed=spec.seed,
-        telemetry=telemetry,
+        telemetry=hub,
     )
     # repro-lint: disable=RPL001 -- the port's serve() seam (see above)
     scheduler = ContinuousScheduler(
-        engine, max_queue=sv.max_queue, mode=sv.mode, telemetry=telemetry,
+        engine, max_queue=sv.max_queue, mode=sv.mode, telemetry=hub,
     )
-    return ServeSession(spec=spec, engine=engine, scheduler=scheduler, hub=telemetry)
+    return ServeSession(spec=spec, engine=engine, scheduler=scheduler, hub=hub)
 
 
 @dataclasses.dataclass
@@ -298,7 +342,9 @@ class ServeSession:
             + ("  (smoke)" if m.smoke else "")
             + f"  layers={cfg.num_layers}  dtype={cfg.compute_dtype}"
             + f"  kernels={m.kernels}",
-            f"  params    {sv.checkpoint or '(fresh init)'}  quantize={sv.quantize}",
+            f"  params    {sv.checkpoint or '(fresh init)'}  quantize="
+            + ("materialized-dense" if sv.materialize else sv.quantize)
+            + ("  rank_slice" if sv.rank_slice else ""),
             f"  batching  {sv.mode}  slots={sv.max_batch}  queue≤{sv.max_queue}",
             f"  shapes    prompt≤{sv.max_prompt} (bucket {sv.prompt_bucket})"
             f"  decode≤{sv.max_new_tokens}  cache={sv.cache_len}",

@@ -11,9 +11,7 @@ parses and hashes the same under both packages, which lets a checkpoint
 written by one resume in the other.
 
 Values the port parses but does not run yet (ROADMAP.md) are refused by
-``build()`` / ``serve()``, not here: the async and hier engines, a
-``sim.profile``, ``telemetry.enabled``, ``serve.quantize`` other than
-``none``, ``serve.rank_slice`` and ``serve.materialize``.
+``build()``, not here: the async and hier engines and a ``sim.profile``.
 """
 import dataclasses
 from dataclasses import field
@@ -28,17 +26,14 @@ from repro_torch.api.serialization import (
     toml_dumps,
     toml_loads,
 )
-from repro_torch.kernels.ops import use_kernels_for
+from repro_torch.kernels.ops import check_kernel_policy
+from repro_torch.serve.quantize import QUANT_MODES
 from repro_torch.serve.scheduler import SCHED_MODES
+from repro_torch.telemetry.sinks import SINK_NAMES
 
-#: at-rest factor formats of the JAX package's ``serve.quantize`` (the port
-#: serves "none"; int8 / bf16 come with serve/quantize.py, ROADMAP.md)
-QUANT_MODES = ("none", "int8", "bf16")
 CORRECTIONS = ("auto", "none", "simplified", "full")
 #: engine kinds of the JAX package; the port runs "sync"
 ENGINE_KINDS = ("sync", "async", "hier")
-#: telemetry sink names of the JAX package (``repro.telemetry.sinks``)
-SINK_NAMES = ("console", "memory", "jsonl", "perfetto")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +61,7 @@ class ModelSpec:
     lowrank: bool = True
 
     def __post_init__(self):
-        use_kernels_for(self.kernels)  # parse = validate
+        check_kernel_policy(self.kernels)
         for f_ in ("dim", "classes", "hidden", "r_max"):
             if getattr(self, f_) <= 0:
                 raise ValueError(f"model.{f_} must be positive")
@@ -355,9 +350,8 @@ class CheckpointSpec:
 class TelemetrySpec:
     """Structured telemetry: ``enabled``, a comma-separated subset of
     ``sinks`` (console, memory, jsonl, perfetto), the file sinks' ``dir``
-    and the gauge sampling cadence ``sample_every``. The port parses it;
-    ``build()`` refuses ``enabled = true`` (the JSONL / Perfetto sinks and
-    ``hub_from_spec`` are not ported, ROADMAP.md)."""
+    and the gauge sampling cadence ``sample_every``
+    (:func:`repro_torch.telemetry.hub_from_spec` builds the hub)."""
 
     enabled: bool = False
     sinks: str = "console"
@@ -387,10 +381,10 @@ class ServeSpec:
     (latest round wins); ``None`` serves fresh seed-initialized params.
     ``mode`` selects continuous batching or the static-wave baseline.
     Prompts are right-padded to ``prompt_bucket`` multiples, and decode runs
-    at ``(max_batch, max_prompt + max_new_tokens)``. ``quantize``,
-    ``rank_slice`` and ``materialize`` are parsed and validated as in the
-    JAX package; ``serve()`` refuses all but their defaults
-    (``serve/quantize.py`` is not ported, ROADMAP.md).
+    at ``(max_batch, max_prompt + max_new_tokens)``. The at-rest transforms
+    (:mod:`repro_torch.serve.quantize`): ``quantize`` (none | int8 | bf16),
+    ``rank_slice`` (drop inactive factor columns) and ``materialize`` (the
+    dense ``U S Vᵀ`` baseline).
     """
 
     checkpoint: Optional[str] = None

@@ -358,8 +358,12 @@ class Wire:
     phase-boundary payload through :meth:`roundtrip`. Stateless across
     rounds."""
 
-    def __init__(self, codec: Union[str, WireCodec] = "identity"):
+    def __init__(self, codec: Union[str, WireCodec] = "identity", telemetry=None):
         self.codec = make_codec(codec)
+        # optional TelemetryHub: an enabled one gets encode / decode spans
+        # and a bytes counter per roundtrip (the JAX package hands one only
+        # to its hier engine's edge-to-cloud wire, which the port lacks)
+        self.telemetry = telemetry
 
     @property
     def name(self) -> str:
@@ -371,6 +375,15 @@ class Wire:
         payloads cost nothing and stay ``None``."""
         if tree is None:
             return None, 0
+        hub = self.telemetry
+        if hub is not None and hub.enabled:
+            with hub.span(f"wire.{self.codec.name}.encode", payload=name):
+                msg = self.codec.encode(Payload(tensors=tree, name=name, batched=batched))
+            with hub.span(f"wire.{self.codec.name}.decode", payload=name):
+                decoded = self.codec.decode(msg).tensors
+            nbytes = self.codec.nbytes(msg)
+            hub.counter(f"wire.{self.codec.name}.bytes", float(nbytes), payload=name)
+            return decoded, nbytes
         msg = self.codec.encode(Payload(tensors=tree, name=name, batched=batched))
         return self.codec.decode(msg).tensors, self.codec.nbytes(msg)
 

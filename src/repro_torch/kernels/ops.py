@@ -38,18 +38,14 @@ import torch
 
 from repro_torch.kernels.coeff_grad import atb
 from repro_torch.kernels.lowrank_matmul import avt, xus
+from repro_torch.telemetry import get_hub
 
 #: model-level kernel policies (``ModelConfig.kernels``)
 KERNEL_POLICIES = ("auto", "off")
 
 
-def use_kernels_for(policy: str) -> bool:
-    """Resolve a kernel policy to the ``lowrank_apply`` flag.
-
-    - ``"auto"``: the kernel wrappers, which launch the Hopper kernels on
-      CUDA tensors and take the plain versions on CPU tensors → ``True``;
-    - ``"off"``: the plain working-dtype chain → ``False``.
-    """
+def check_kernel_policy(policy: str) -> None:
+    """Raise ``ValueError`` unless ``policy`` is one of :data:`KERNEL_POLICIES`."""
     if policy == "interpret":
         raise ValueError(
             "kernels='interpret' runs the JAX package's Pallas interpreter and "
@@ -60,7 +56,23 @@ def use_kernels_for(policy: str) -> bool:
         raise ValueError(
             f"kernels policy must be one of {KERNEL_POLICIES}, got {policy!r}"
         )
-    return policy == "auto"
+
+
+def use_kernels_for(policy: str) -> bool:
+    """Resolve a kernel policy to the ``lowrank_apply`` flag.
+
+    - ``"auto"``: the kernel wrappers, which launch the Hopper kernels on
+      CUDA tensors and take the plain versions on CPU tensors → ``True``;
+    - ``"off"``: the plain working-dtype chain → ``False``.
+
+    Each call counts a ``kernels.dispatch`` event on the process-global hub,
+    as in the JAX package (which resolves once per trace, where the port
+    resolves once per call).
+    """
+    check_kernel_policy(policy)
+    flag = policy == "auto"
+    get_hub().counter("kernels.dispatch", policy=policy, resolved=str(flag))
+    return flag
 
 
 class _LowRankApply(torch.autograd.Function):

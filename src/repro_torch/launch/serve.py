@@ -4,6 +4,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --preset llm-tiny --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --quantize int8
+    PYTHONPATH=src python -m repro_torch.launch.serve --preset llm-tiny --device cpu --rank-slice
 
 Every invocation builds an :class:`~repro_torch.api.spec.ExperimentSpec`
 first, so ``serve(spec)`` stays the one serving construction site. All
@@ -83,6 +85,10 @@ def main(argv=None):
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--quantize", choices=QUANT_MODES, default="none")
+    ap.add_argument("--rank-slice", action="store_true",
+                    help="drop the inactive factor columns at load")
+    ap.add_argument("--materialize", action="store_true",
+                    help="dense U S Vᵀ baseline path")
     ap.add_argument("--mode", choices=("continuous", "static"), default="continuous")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", type=str, default="cuda",
@@ -103,6 +109,8 @@ def main(argv=None):
         serve=ServeSpec(
             checkpoint=args.checkpoint,
             quantize=args.quantize,
+            rank_slice=args.rank_slice,
+            materialize=args.materialize,
             mode=args.mode,
             max_batch=args.batch,
             max_prompt=max_prompt,

@@ -10,8 +10,8 @@ Every invocation resolves an :class:`~repro_torch.api.spec.ExperimentSpec`
 first (``--config`` file < flag aliases < ``--set``), so ``build(spec)``
 stays the one engine construction site. It runs on ``cuda`` unless
 ``--device cpu`` is given. The flags of parts not ported yet (the async /
-hier engines and the system simulator, the edge wire codec, telemetry
-sinks) are accepted by the parser and raise, naming ROADMAP.md.
+hier engines and the system simulator, the edge wire codec) are accepted by
+the parser and raise, naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -41,6 +41,9 @@ FLAG_TO_FIELD = {
     "checkpoint_dir": "checkpoint.dir",
     "checkpoint_every": "checkpoint.every",
     "log_every": "log_every",
+    "telemetry": "telemetry.enabled",
+    "telemetry_dir": "telemetry.dir",
+    "telemetry_sinks": "telemetry.sinks",
 }
 
 #: flags of the JAX package's CLI whose parts the port lacks
@@ -52,9 +55,6 @@ NOT_PORTED = {
     "staleness_power": "the async engine (--staleness-power)",
     "edges": "the hier engine (--edges)",
     "edge_rounds": "the hier engine (--edge-rounds)",
-    "telemetry": "telemetry sinks (--telemetry)",
-    "telemetry_dir": "telemetry sinks (--telemetry-dir)",
-    "telemetry_sinks": "telemetry sinks (--telemetry-sinks)",
 }
 
 
@@ -102,11 +102,18 @@ def _parser() -> argparse.ArgumentParser:
                     help="checkpoint cadence in rounds (with --checkpoint-dir)")
     ap.add_argument("--device", type=str, default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="structured telemetry: round spans, metric streams, JSONL "
+                    "event log + Perfetto trace (repro_torch.telemetry; on ≡ off "
+                    "bit for bit)")
+    ap.add_argument("--telemetry-dir", type=str,
+                    help="output directory of the jsonl / perfetto sinks "
+                    "(events.jsonl, trace.json)")
+    ap.add_argument("--telemetry-sinks", type=str,
+                    help="comma list over console,memory,jsonl,perfetto (default console)")
     for flag in ("--edge-wire-codec", "--engine", "--sim-profile", "--async-buffer",
-                 "--staleness-power", "--edges", "--edge-rounds", "--telemetry-dir",
-                 "--telemetry-sinks"):
+                 "--staleness-power", "--edges", "--edge-rounds"):
         ap.add_argument(flag, type=str, help="not ported yet (ROADMAP.md)")
-    ap.add_argument("--telemetry", action="store_true", help="not ported yet (ROADMAP.md)")
     return ap
 
 

@@ -14,9 +14,13 @@ Serving runs eagerly under ``torch.inference_mode()``, in three shapes:
   decodes the full slot array; inactive slots carry garbage rows that never
   escape (the scheduler ignores them).
 
-Every factorized matmul goes through ``apply_linear`` → ``lowrank_apply``,
-so ``U S Vᵀ`` is never materialized: on a CUDA device each linear layer
-and the embedding launch one ``xus`` and one ``avt`` kernel.
+Params may arrive compressed (:mod:`repro_torch.serve.quantize`): int8
+factors are dequantized immediately before each forward, so only the int8
+buffers stay resident and the f32 views are transient. Every factorized
+matmul goes through ``apply_linear`` → ``lowrank_apply``, so ``U S Vᵀ`` is
+never materialized: on a CUDA device each linear layer and the embedding
+launch one ``xus`` and one ``avt`` kernel. A materialized tree takes the
+dense matmuls instead and launches neither.
 
 Sampling is deterministic and batching-invariant: token ``j`` of request
 ``rid`` is drawn with a ``torch.Generator`` seeded from a fixed function of
@@ -26,10 +30,17 @@ draws; greedy decoding is what is held to the JAX package.)
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import numpy as np
 import torch
 
-from repro_torch.telemetry import NULL_HUB
+from repro_torch.core import cost_model
+from repro_torch.core.factorization import is_factor
+from repro_torch.serve.quantize import dequantize_params, is_factor_like
+from repro_torch.telemetry import get_hub
+from repro_torch.utils.tree import tree_leaves, tree_map_with_path
 
 _MASK64 = (1 << 64) - 1
 
@@ -71,6 +82,33 @@ def _insert_cache(state: dict, one: dict, slot: int, length: int) -> dict:
     return state
 
 
+def decode_matmul_flops(params, *, factor_resident: bool = True) -> float:
+    """Per-token decode FLOPs of the tree's factor leaves (cost-model closed
+    forms).
+
+    Only factor leaves are priced: the dense leaves are the same on the
+    factor-resident and materialized paths and cancel in every comparison.
+    Embedding factors are priced with ``gather=True``: their U row is
+    gathered, and a dense embedding is a pure gather worth 0 FLOPs.
+    """
+    per_leaf = []
+
+    def price(path, leaf):
+        if not is_factor_like(leaf):
+            return
+        u = leaf.U if is_factor(leaf) else leaf.u_q
+        gather = "['embed']" in path
+        if factor_resident:
+            per = cost_model.lowrank_decode_flops(leaf.n_in, leaf.n_out, leaf.r_max,
+                                                  gather=gather)
+        else:
+            per = cost_model.dense_decode_flops(leaf.n_in, leaf.n_out, gather=gather)
+        per_leaf.append(math.prod(u.shape[:-2]) * per)
+
+    tree_map_with_path(price, params, is_leaf=is_factor_like)
+    return float(sum(per_leaf))
+
+
 class ServeEngine:
     """Decode over one parameter tree. Construct via
     ``repro_torch.api.experiment.serve(spec)``."""
@@ -102,7 +140,7 @@ class ServeEngine:
         self.temperature = float(temperature)
         self.seed = int(seed)
         self.cache_len = self.max_prompt + self.max_new_tokens
-        self.hub = telemetry if telemetry is not None else NULL_HUB
+        self.hub = telemetry if telemetry is not None else get_hub()
 
     # ------------------------------------------------------------- state
 
@@ -131,7 +169,7 @@ class ServeEngine:
         tokens[0, :length] = prompt
         with torch.inference_mode():
             return self.model.serve_prefill(
-                self.params,
+                dequantize_params(self.params),
                 {"tokens": torch.from_numpy(tokens).to(self.device)},
                 cache_len=self.cache_len,
                 last_index=length - 1,
@@ -150,7 +188,7 @@ class ServeEngine:
             np.asarray(last_tokens, np.int64).reshape(self.max_batch, 1)
         ).to(self.device)
         with torch.inference_mode():
-            return self.model.serve_step(self.params, state, tokens)
+            return self.model.serve_step(dequantize_params(self.params), state, tokens)
 
     def sample(self, logits, rids, steps) -> np.ndarray:
         """Greedy at temperature 0, else a Gumbel-max draw from a generator
@@ -167,3 +205,14 @@ class ServeEngine:
                 u = u.clamp_(min=torch.finfo(torch.float32).tiny)
                 out.append(torch.argmax(row - torch.log(-torch.log(u))))
             return torch.stack(out).to(torch.int32).cpu().numpy()
+
+    # ----------------------------------------------------------- costing
+
+    def decode_flops_per_token(self) -> Optional[float]:
+        """Factor-leaf decode FLOPs per token per sequence (cost model);
+        ``None`` for a materialized tree, whose ex-factor leaves look like
+        any dense leaf: price the dense path with
+        ``decode_matmul_flops(source_params, factor_resident=False)``."""
+        if not any(is_factor_like(x) for x in tree_leaves(self.params, is_leaf=is_factor_like)):
+            return None
+        return decode_matmul_flops(self.params, factor_resident=True)

@@ -28,7 +28,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from repro_torch.telemetry import NULL_HUB
+from repro_torch.telemetry import get_hub
 from repro_torch.telemetry.clock import perf_seconds
 
 SCHED_MODES = ("continuous", "static")
@@ -91,7 +91,7 @@ class ContinuousScheduler:
         self.engine = engine
         self.max_queue = int(max_queue)
         self.mode = mode
-        self.hub = telemetry if telemetry is not None else NULL_HUB
+        self.hub = telemetry if telemetry is not None else get_hub()
         self.queue: deque = deque()  # (Request, t_submit, submit_step)
         self.slots: List[Optional[_Slot]] = [None] * engine.max_batch
         self.state = engine.new_state()

@@ -17,6 +17,7 @@ validates and hashes the same in both packages.
 import dataclasses
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -24,6 +25,7 @@ import repro.api as japi
 from repro.launch.train import spec_from_argv as jax_spec_from_argv
 from repro_torch import api
 from repro_torch.api.__main__ import main as api_main
+from repro_torch.core.factorization import is_factor
 from repro_torch.launch import train as launch_train
 from repro_torch.utils.tree import tree_leaves
 
@@ -176,9 +178,21 @@ def test_unported_configs_raise_from_build(name):
 @pytest.mark.parametrize("sets", [["serve.rank_slice=true"], ["serve.quantize=bf16"],
                                   ["serve.materialize=true"]], ids=lambda s: s[0])
 def test_unported_serve_values_raise_from_serve(sets):
-    spec = api.load_spec(SYNC).with_overrides(["model.smoke=true", *sets])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        api.serve(spec, device="cpu")
+    """These serve values were refused until serve/quantize.py was ported;
+    now ``serve()`` applies them and serves."""
+    spec = api.load_spec(SYNC).with_overrides(["model.smoke=true", "serve.max_new_tokens=3",
+                                               *sets])
+    session = api.serve(spec, device="cpu")
+    sv = spec.serve
+    factors = [x for x in tree_leaves(session.engine.params, is_leaf=is_factor) if is_factor(x)]
+    if sv.materialize:
+        assert factors == [] and "materialized-dense" in session.describe()
+    elif sv.quantize == "bf16":
+        assert factors and all(f.U.dtype == torch.bfloat16 for f in factors)
+    else:
+        assert factors and "rank_slice" in session.describe()
+    outs, _ = session.generate([np.arange(1, 6)])
+    assert len(outs[0]) == 3
 
 
 def test_model_spec_has_the_reference_fields():

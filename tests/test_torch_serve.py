@@ -224,9 +224,9 @@ def test_completion_stats_and_telemetry():
 
 
 def test_spec_validation():
-    # int8 / bf16 factors parse as in the JAX package; serve() refuses them
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve(tiny_spec(quantize="int8"), device="cpu")
+    # int8 factors parse as in the JAX package and serve
+    outs, _ = serve(tiny_spec(quantize="int8"), device="cpu").generate([np.arange(1, 5)])
+    assert len(outs[0]) == SERVE_KW["max_new_tokens"]
     with pytest.raises(ValueError, match="quantize"):
         ServeSpec(quantize="int4")
     with pytest.raises(ValueError, match="exactly one"):
