@@ -54,7 +54,20 @@ per source, all started together) and drives each of the port's paths:
   bit-identical to telemetry off, the event log held to ``validate_jsonl``
   and the trace loaded; then 4 greedy requests served from the written
   checkpoint (the ``serve.tokens`` counter held to the tokens produced),
-  and again rank-sliced and materialized, held token-identical (f32).
+  and again rank-sliced and materialized, held token-identical (f32);
+- sim: the system simulator (``repro_torch.fed.sim``) at llm-100m's full
+  width and depth through ``build(spec).run()``: the sync engine priced
+  under a 10x straggler fleet, held bit-identical to the plain engine, its
+  virtual seconds recomputed as the straggler barrier; the async engine
+  with a uniform fleet and buffer 4, held bit-identical to the plain
+  rounds with their launches; ``examples/configs/async_straggler.toml``'s
+  FedBuff flushes until the straggler lands, the zero inactive columns
+  held exactly after each, and again with the jsonl, perfetto and memory
+  sinks (the same timeline and bits, a valid log, a trace with both clocks
+  and a track per client); ``examples/configs/hier_int8_wire.toml``'s
+  cloud round (edge bytes against an identity edge wire's, the cloud
+  aggregate's time, the invariant after it) and a 1-edge cloud aggregate
+  held to keep every factor's ``U S Vᵀ``.
 
 Every failure raises and exits non-zero. The last two lines of standard
 output are one JSON object with each kernel's numbers and one with the
@@ -91,7 +104,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 KERNELS = tuple(SOURCES)
-PATHS = ("serve", "serve-quant", "train", "flash", "spec")
+PATHS = ("serve", "serve-quant", "train", "flash", "spec", "sim")
 #: tolerance of a kernel against its plain version, with the reason
 TOL = {
     # both round once from f32 to bf16; f32 sums taken in different orders
@@ -1856,6 +1869,356 @@ def phase_spec(torch, counters, workdir):
                 telemetry_rounds_s=tel_s, telemetry_events=len(trace["traceEvents"]))
 
 
+# ---------------------------------------------------------------------------
+# the system simulator at llm-100m
+# ---------------------------------------------------------------------------
+
+#: the fleet of examples/configs/async_straggler.toml: the last quarter of
+#: the clients 10x slower
+SIM_PROFILE = "straggler:0.25,10"
+#: FedBuff flushes of the async runs: with buffer 2 the three fast clients
+#: flush ~1.5 times a round trip, so the straggler's first round (priced
+#: 10x a fast one) lands after about 26 flushes, and its track with it
+SIM_FLUSHES = 30
+
+
+def _inactive_nonzeros(torch, params) -> int:
+    """Entries that break the zero-inactive-columns invariant in every
+    factor (stacked slices each at their own rank): U / V columns past the
+    rank, S outside its active block. Raises on a rank above r_max."""
+    from repro_torch.core.factorization import rank_mask
+
+    bad = 0
+    for path, f in _factors(params):
+        if bool((f.rank > f.r_max).any()):
+            raise AssertionError(f"{path}: rank {f.rank.max().item()} > r_max {f.r_max}")
+        off = ~rank_mask(f.rank, f.r_max).bool()
+        bad += int(((f.U != 0) & off[..., None, :]).sum())
+        bad += int(((f.V != 0) & off[..., None, :]).sum())
+        bad += int(((f.S != 0) & (off[..., :, None] | off[..., None, :])).sum())
+    return bad
+
+
+def _launch_delta(before):
+    return {k: v - before[k] for k, v in _launch_counts().items() if k != "flash_attention"}
+
+
+def _record_flushes(torch, eng, rows, *, check: bool):
+    """Time every flush of an async engine, count its launches and, with
+    ``check``, hold the zero-inactive-columns invariant after it."""
+    flush = eng._flush
+
+    def recorded():
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        res = flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        row = dict(flush=res.round_idx, host_s=res.seconds, wall_s=wall,
+                   virtual_s=res.virtual_seconds, t_virtual=res.t_virtual,
+                   staleness=res.staleness_mean, cohort=[int(c) for c in res.cohort],
+                   loss_before=res.loss_before, launches=_launch_delta(before))
+        if check:
+            row["inactive_nonzeros"] = _inactive_nonzeros(torch, eng.params)
+            if row["inactive_nonzeros"]:
+                raise AssertionError(f"flush {res.round_idx}: {row['inactive_nonzeros']} "
+                                     f"nonzero entries past the ranks")
+        if not math.isfinite(res.loss_before):
+            raise AssertionError(f"flush {res.round_idx}: loss {res.loss_before}")
+        rows.append(row)
+        return res
+
+    eng._flush = recorded
+
+
+def _svd_drivers(torch, params):
+    """The cloud aggregate's SVD under cuSOLVER's default Jacobi driver
+    (``gesvdj``) and under the QR-based ``gesvd`` the hier engine asks for
+    on CUDA: each factor's ``W`` rebuilt at its rank, the worst
+    ``max|W' - W| / max|W|`` and the SVDs' time over all factors."""
+    from repro_torch.core.factorization import materialize, rank_mask
+
+    Ws = [(f, materialize(f)) for _, f in _factors(params)]
+    out = {}
+    for driver in ("gesvdj", "gesvd"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svds = [torch.linalg.svd(W, full_matrices=False, driver=driver) for _, W in Ws]
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        worst = 0.0
+        for (f, W), (P, s, Qt) in zip(Ws, svds):
+            keep = rank_mask(f.rank, f.r_max, dtype=s.dtype)
+            r = f.r_max
+            W2 = (P[..., :, :r] * (s[..., :r] * keep)[..., None, :]) @ Qt[..., :r, :]
+            worst = max(worst, ((W2 - W).abs().max() / W.abs().max()).item())
+        out[driver] = dict(ms=ms, worst_rel=worst)
+        log(f"[sim hier] cloud SVD driver {driver}: {len(Ws)} factor leaves "
+            f"({sum(math.prod(W.shape[:-2]) for _, W in Ws)} matrices) in {ms:.1f} ms; worst "
+            f"rebuild max|W' - W| / max|W| = {worst:.3g}")
+    return out
+
+
+def phase_sim(torch, counters, workdir):
+    """The system simulator (``repro_torch.fed.sim``) through ``build(spec)``,
+    at llm-100m's full width and depth:
+
+    1. ``[sim sync]``: the sync engine priced under ``SIM_PROFILE``, two
+       rounds, bit-identical to the plain engine's two rounds from the same
+       params and batches; each round's virtual seconds recomputed as the
+       straggler barrier;
+    2. ``[sim async-uniform]``: a uniform fleet with buffer 4, two flushes,
+       bit-identical to the plain rounds, with their launches;
+    3. ``[sim async]``: ``examples/configs/async_straggler.toml`` (buffer 2,
+       staleness power 0.5, downcast wire), ``SIM_FLUSHES`` flushes with the
+       invariant held exactly after each; again with the jsonl, perfetto
+       and memory sinks: the same timeline and bits, a valid event log, a
+       trace with both clocks and a track per client;
+    4. ``[sim hier]``: ``examples/configs/hier_int8_wire.toml`` (2 edges ×
+       2 edge rounds, int8 edge wire), one cloud round: edge bytes against
+       an identity edge wire's, the invariant after the cloud aggregate,
+       the cloud SVD's time; then a 1-edge cloud aggregate of the result
+       held to keep every factor's U S Vᵀ.
+    """
+    import numpy as np
+
+    from repro_torch.api import ExperimentSpec, build, load_spec
+    from repro_torch.core import cost_model
+    from repro_torch.core.factorization import materialize
+    from repro_torch.fed.sim import Fleet, make_sim_engine
+    from repro_torch.fed.wire import Wire
+    from repro_torch.telemetry import NULL_HUB, set_hub, validate_jsonl
+
+    sets = ["model.preset=llm-100m"]
+    configs = os.path.join(ROOT, "examples", "configs")
+    base = ExperimentSpec(name="chip-sim", seed=0, rounds=2, log_every=0).with_overrides(sets)
+
+    # the plain engine's two rounds: what steps 1 and 2 are held to (their
+    # launches are the comparison's, outside the path's count)
+    plain = build(base, device="cuda")
+    params0 = _clone(plain.params)
+    cfg = plain.engine.cfg
+    before = _launch_counts()
+    plain.run(rounds=2)
+    torch.cuda.synchronize()
+    plain_launches = _launch_delta(before)
+    params_plain, plain_hist = plain.params, plain.history
+    log(f"[sim] plain sync engine, 2 rounds: host {[round(r.seconds, 3) for r in plain_hist]} "
+        f"s; launches {plain_launches}")
+    del plain
+
+    # the main path: counts at 0 just before, read after the hier round
+    _zero_counts()
+    t_path = time.perf_counter()
+
+    # 1. sync engine on the virtual clock
+    s_spec = base.with_overrides([f"sim.profile={SIM_PROFILE}"])
+    exp = build(s_spec, params=_clone(params0), device="cuda")
+    fleet = Fleet.from_spec(SIM_PROFILE, cfg.num_clients, seed=s_spec.seed)
+    tokens = s_spec.data.batch * (s_spec.data.seq + 1)  # a window is seq + 1 tokens
+    sync_rows = []
+    for r in range(2):
+        before = _launch_counts()
+        res = exp.run(rounds=1)[-1]
+        torch.cuda.synchronize()
+        got = _launch_delta(before)
+        flops = float(cfg.s_star) * cost_model.client_step_flops(exp.params, tokens)
+        want = max(fleet[int(c)].round_seconds(flops, res.wire_bytes_down_per_client,
+                                               res.wire_bytes_up_per_client)
+                   for c in res.cohort)
+        if res.virtual_seconds != want:
+            raise AssertionError(f"sim sync round {r}: virtual {res.virtual_seconds!r} != "
+                                 f"straggler barrier {want!r}")
+        sync_rows.append(dict(round=r, host_s=res.seconds, virtual_s=res.virtual_seconds,
+                              t_virtual=res.t_virtual, staleness=res.staleness_mean,
+                              launches=got))
+        log(f"[sim sync] round {r}: host {res.seconds:.3f} s; virtual {res.virtual_seconds:.3f} s "
+            f"(= max over the cohort of round_seconds({flops:.4g} flops, "
+            f"{res.wire_bytes_down_per_client / 1e6:.3f} MB down, "
+            f"{res.wire_bytes_up_per_client / 1e6:.3f} MB up)), t {res.t_virtual:.3f} s; "
+            f"staleness {res.staleness_mean:g}; launches {got}")
+    if not _tensor_bits_equal(torch, exp.params, params_plain):
+        raise AssertionError("sim sync params differ from the plain engine's")
+    if [r.loss_before for r in exp.history] != [r.loss_before for r in plain_hist]:
+        raise AssertionError("sim sync losses differ from the plain engine's")
+    log(f"[sim sync] 2 rounds under {SIM_PROFILE}: params bit-identical to the plain engine's")
+    del exp
+
+    # 2. async, uniform fleet, buffer = C: the sync rounds
+    u_spec = base.with_overrides(["engine.kind=async", f"engine.buffer_size={cfg.num_clients}"])
+    exp = build(u_spec, params=_clone(params0), device="cuda")
+    uniform_rows = []
+    _record_flushes(torch, exp.engine, uniform_rows, check=False)
+    before = _launch_counts()
+    exp.run(rounds=2)
+    torch.cuda.synchronize()
+    got = _launch_delta(before)
+    for row in uniform_rows:
+        log(f"[sim async-uniform] flush {row['flush']}: host {row['host_s']:.3f} s; virtual "
+            f"{row['virtual_s']:.3f} s; staleness {row['staleness']:g}; launches "
+            f"{row['launches']}")
+    if not _tensor_bits_equal(torch, exp.params, params_plain):
+        raise AssertionError("async (uniform, buffer C) params differ from the sync engine's")
+    if got != plain_launches:
+        raise AssertionError(f"async (uniform, buffer C) launches {got} != sync {plain_launches}")
+    log(f"[sim async-uniform] 2 flushes of {cfg.num_clients}: params bit-identical to the sync "
+        f"engine's 2 rounds, launches {got} equal")
+    del exp
+
+    # 3. FedBuff under the straggler fleet, twice: telemetry off, then on
+    a_sets = sets + ["name=chip-sim-async", f"rounds={SIM_FLUSHES}", "log_every=0"]
+    a_spec = load_spec(os.path.join(configs, "async_straggler.toml")).with_overrides(a_sets)
+    runs = []
+    for tel in (False, True):
+        spec = a_spec
+        if tel:
+            teldir = os.path.join(workdir, "sim_telemetry")
+            spec = a_spec.with_overrides(["telemetry.enabled=true",
+                                          "telemetry.sinks=jsonl,perfetto,memory",
+                                          f"telemetry.dir={teldir}"])
+        exp = build(spec, params=_clone(params0), device="cuda")
+        rows = []
+        _record_flushes(torch, exp.engine, rows, check=not tel)
+        t0 = time.perf_counter()
+        exp.run()
+        torch.cuda.synchronize()
+        runs.append(dict(exp=exp, rows=rows, wall_s=time.perf_counter() - t0))
+        if tel:
+            exp.hub.close()
+            set_hub(NULL_HUB)
+    off, on = runs
+    for row in off["rows"]:
+        log(f"[sim async] flush {row['flush']}: host {row['host_s']:.3f} s; virtual "
+            f"{row['virtual_s']:.3f} s, t {row['t_virtual']:.3f} s; staleness "
+            f"{row['staleness']:g} (cohort {row['cohort']}); loss {row['loss_before']:.6f}; "
+            f"launches {row['launches']}; nonzeros past the ranks {row['inactive_nonzeros']}")
+    eng = off["exp"].engine
+    if not any(r.staleness_mean > 0 for r in eng.history):
+        raise AssertionError("no stale flush in the async run")
+    first, n_agg = {}, 0  # client → flushes done before its first arrival
+    for e in eng.timeline:
+        n_agg += e.kind == "aggregate"
+        if e.kind == "arrive":
+            first.setdefault(e.client, n_agg)
+    keys_on, keys_off = on["exp"].engine.timeline.keys(), eng.timeline.keys()
+    if keys_on != keys_off:
+        raise AssertionError("same seed, telemetry on: the timeline differs")
+    if not _tensor_bits_equal(torch, on["exp"].params, off["exp"].params):
+        raise AssertionError("same seed, telemetry on: the params differ")
+    if _history_rows(on["exp"].history) != _history_rows(eng.history):
+        raise AssertionError("same seed, telemetry on: the history differs")
+    events = os.path.join(teldir, "events.jsonl")
+    errs = validate_jsonl(events)
+    if errs:
+        raise AssertionError(f"{events}: {errs[:5]}")
+    with open(os.path.join(teldir, "trace.json")) as fh:
+        trace = json.load(fh)["traceEvents"]
+    clocks = {e["args"]["name"] for e in trace if e["ph"] == "M" and e["name"] == "process_name"}
+    tracks = sorted({e["tid"] for e in trace if e["ph"] == "X" and e["pid"] == 2
+                     and e["tid"] != 0})
+    [mem] = [x for x in on["exp"].hub.sinks if x.name == "memory"]
+    names = sorted({f"{e['kind']}:{e['name']}" for e in mem.events})
+    if clocks != {"wall clock", "virtual clock"}:
+        raise AssertionError(f"trace processes {clocks}")
+    if tracks != [c + 1 for c in range(cfg.num_clients)]:
+        raise AssertionError(f"virtual client tracks {tracks}: a client never arrived within "
+                             f"{SIM_FLUSHES} flushes (first arrivals at flush {first})")
+    stale = [r["staleness"] for r in off["rows"]]
+    log(f"[sim async] {SIM_FLUSHES} flushes under {SIM_PROFILE}, buffer 2, downcast wire: "
+        f"staleness mean {np.mean(stale):.3f} (max {max(stale):g}, "
+        f"{sum(s > 0 for s in stale)} stale flushes); every client arrived, first at flushes "
+        f"{first}; the invariant exact after every flush; host {off['wall_s']:.3f} s off vs "
+        f"{on['wall_s']:.3f} s with telemetry; virtual {eng.clock.now:.3f} s")
+    log(f"[sim async] same seed with the jsonl, perfetto and memory sinks: {len(keys_on)} "
+        f"timeline entries identical, params and history bit-identical; validate_jsonl ok "
+        f"({os.path.getsize(events) / 1e6:.3f} MB); trace: {sorted(clocks)}, virtual client "
+        f"tracks {tracks}; events {names}")
+    async_stats = dict(flushes=off["rows"], wall_s=off["wall_s"], telemetry_wall_s=on["wall_s"],
+                       virtual_s=eng.clock.now, first_arrival_flush=first,
+                       timeline_entries=len(keys_on), trace_events=len(trace),
+                       events=len(mem.events))
+    del runs, off, on, eng, mem
+
+    # 4. hier: 2 edges × 2 edge rounds, int8 edge wire, one cloud round
+    h_sets = sets + ["name=chip-sim-hier", "rounds=1", "log_every=0"]
+    h_spec = load_spec(os.path.join(configs, "hier_int8_wire.toml")).with_overrides(h_sets)
+    exp = build(h_spec, params=_clone(params0), device="cuda")
+    heng = exp.engine
+    svd_ms = []
+    aggregate = heng._cloud_aggregate
+
+    def timed(edge_params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = aggregate(edge_params)
+        torch.cuda.synchronize()
+        svd_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    heng._cloud_aggregate = timed
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    [res] = exp.run()
+    torch.cuda.synchronize()
+    hier_wall = time.perf_counter() - t0
+    got = _launch_delta(before)
+    counters["sim"] = _launch_counts()
+    path_s = time.perf_counter() - t_path
+    bad = _inactive_nonzeros(torch, exp.params)
+    if bad:
+        raise AssertionError(f"hier: {bad} nonzero entries past the ranks after the cloud "
+                             f"aggregate")
+    _, id_down = Wire("identity").roundtrip(params0, name="edge_down")
+    _, id_up = Wire("identity").roundtrip(exp.params, name="edge_up")
+    down, up = res.wire_bytes_down_per_client, res.wire_bytes_up_per_client
+    ratio = (id_down + id_up) / (down + up)
+    ranks = np.concatenate([np.ravel(v) for v in res.ranks.values()])
+    log(f"[sim hier] cloud round 0 (2 edges x 2 edge rounds of 2 clients): host "
+        f"{hier_wall:.3f} s; virtual {res.virtual_seconds:.3f} s; edge wire "
+        f"[{res.wire_codec}] {down / 1e6:.6f} MB down, {up / 1e6:.6f} MB up per edge vs "
+        f"identity {id_down / 1e6:.6f} / {id_up / 1e6:.6f} MB = {ratio:.3f}x fewer bytes; cloud "
+        f"aggregate (materialize + SVD + re-factor) {svd_ms[0]:.1f} ms; rank min/mean/max "
+        f"{ranks.min():.0f}/{ranks.mean():.2f}/{ranks.max():.0f}; invariant exact; loss "
+        f"{res.loss_before:.6f}; launches {got}")
+    if not math.isfinite(res.loss_before):
+        raise AssertionError(f"hier loss {res.loss_before}")
+
+    # a 1-edge cloud aggregate keeps every factor's U S Vᵀ (tests/test_sim.py's
+    # single-edge refactorization pin, here on the card)
+    one = make_sim_engine("hier", exp.task.loss_fn, exp.params, cfg, num_edges=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = one._cloud_aggregate([exp.params])
+    torch.cuda.synchronize()
+    one_ms = 1e3 * (time.perf_counter() - t0)
+    worst = 0.0
+    for (path, f), (_, g) in zip(_factors(exp.params), _factors(again)):
+        W, W2 = materialize(f), materialize(g)
+        rel = ((W2 - W).abs().max() / W.abs().max()).item()
+        worst = max(worst, rel)
+        if not rel <= 1e-4:
+            raise AssertionError(f"1-edge cloud aggregate: {path} U S V^T moved by {rel}")
+        if not torch.equal(f.rank, g.rank):
+            raise AssertionError(f"1-edge cloud aggregate: {path} rank changed")
+    if _inactive_nonzeros(torch, again):
+        raise AssertionError("1-edge cloud aggregate broke the invariant")
+    log(f"[sim hier] 1-edge cloud aggregate of the round's params: worst factor max|W' - W| / "
+        f"max|W| = {worst:.3g} <= 1e-4, ranks kept; {one_ms:.1f} ms")
+    drivers = _svd_drivers(torch, exp.params)
+    for name in ("xus", "avt", "atb"):
+        if not counters["sim"][name]:
+            raise AssertionError(f"sim path launched no {name}: {counters['sim']}")
+    log(f"[sim] path (sync, async-uniform, 2 x async, hier) in {path_s:.1f} s; launches "
+        f"{counters['sim']}")
+    hier_stats = dict(host_s=hier_wall, virtual_s=res.virtual_seconds, down_bytes=down,
+                      up_bytes=up, identity_down_bytes=id_down, identity_up_bytes=id_up,
+                      byte_ratio=ratio, cloud_aggregate_ms=svd_ms[0], one_edge_ms=one_ms,
+                      one_edge_worst_rel=worst, svd_drivers=drivers, launches=got)
+    del exp, heng, one, again
+    return dict(sync=sync_rows, uniform=uniform_rows, plain_launches=plain_launches,
+                async_=async_stats, hier=hier_stats, path_s=path_s)
+
+
 def kernel_summary(records, atb_records, flash_records, counters, cfg, atb_round, xus_round,
                    avt_round):
     """Per kernel: ``xus``/``avt`` as the sum over one Qwen2-7B decode
@@ -1963,10 +2326,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spec_") as workdir:
         spec_stats = phase_spec(torch, counters, workdir)
     done("spec")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sim_") as workdir:
+        sim_stats = phase_sim(torch, counters, workdir)
+    done("sim")
     log("[summary] " + json.dumps({"card": smi, "serve": serve_stats,
                                    "serve_quant": quant_stats, "train": train,
                                    "flash": flash_records, "spec": spec_stats,
-                                   "xus_train": xus_train, "avt_train": avt_train}))
+                                   "sim": sim_stats, "xus_train": xus_train,
+                                   "avt_train": avt_train}))
     print(json.dumps({"kernels": kernel_summary(
         records, atb_records, flash_records, counters, cfg, atb_round, xus_round, avt_round)}))
     print(json.dumps({"ok": True, "device": {

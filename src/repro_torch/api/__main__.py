@@ -81,9 +81,15 @@ def main(argv=None):
     if not hist:
         print("done: no rounds run")
         return 0
+    timing = (
+        f"; virtual time {hist[-1].t_virtual:.1f}s [{spec.engine.kind}]"
+        if exp.is_simulated
+        else ""
+    )
     print(
         f"done: loss {hist[0].loss_before:.4f} → {hist[-1].loss_before:.4f}; "
         f"total comm {exp.comm_total_bytes()/1e6:.1f} MB measured [{spec.wire.codec}]"
+        f"{timing}"
     )
     return 0
 

@@ -5,9 +5,9 @@ JAX package's ``repro.api.experiment``).
 Both run on the card (``device="cuda"``) unless the caller asks for the
 CPU; asking for CUDA without a card raises. Both install the spec's
 telemetry hub as the process-global one (``set_hub``), as the JAX package
-does. Spec values the port parses but does not run yet (the async and hier
-engines, ``sim.profile``) raise :class:`NotImplementedError` here, naming
-ROADMAP.md.
+does. A non-sync engine or a ``sim.profile`` goes to the system simulator
+(:func:`repro_torch.fed.sim.make_sim_engine`), the plain synchronous
+engine otherwise.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from repro_torch.api.spec import ExperimentSpec
 from repro_torch.api.tasks import Task, build_task, lm_model_config
 from repro_torch.checkpoint import load_checkpoint, load_checkpoint_meta
 from repro_torch.fed.engine import FederatedEngine
+from repro_torch.fed.sim import make_sim_engine
 from repro_torch.models import build_model
 from repro_torch.serve import ContinuousScheduler, Request, ServeEngine
 from repro_torch.serve.quantize import materialize_params, quantize_params, rank_slice_params
@@ -53,17 +54,6 @@ def _latest_checkpoint(directory: str) -> str:
     return ckpts[-1]
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to PyTorch yet; see ROADMAP.md")
-
-
-def _check_trainable(spec: ExperimentSpec) -> None:
-    if spec.engine.kind != "sync":
-        raise _not_ported(f"the {spec.engine.kind} engine (engine.kind={spec.engine.kind!r})")
-    if spec.sim.profile is not None:
-        raise _not_ported(f"the system simulator (sim.profile={spec.sim.profile!r})")
-
-
 def _spec_hub(spec: ExperimentSpec, telemetry):
     """The run's hub: ``telemetry`` if given, else the spec's; installed as
     the process-global hub (kernel dispatch counters read it)."""
@@ -80,29 +70,61 @@ def build(spec: ExperimentSpec, *, params=None, device="cuda", telemetry=None) -
     initialization, e.g. parameters carried over from the JAX package by
     :func:`repro_torch.checkpoint.params_from_numpy`; they are moved to
     ``device``. ``telemetry`` (a hub) replaces the spec's telemetry section."""
-    _check_trainable(spec)
     dev = resolve_device(device)
     hub = _spec_hub(spec, telemetry)
     task = build_task(spec, dev)
     if params is not None:
         task = dataclasses.replace(task, params=tree_map(lambda t: t.to(dev), params))
+    fc = spec.fed.to_fed_config()
+    participation = spec.participation.build(seed=spec.seed)
+    client_weights = task.client_sizes if spec.fed.weighted else None
     ckpt_meta = {"spec_hash": spec.spec_hash()}
     if spec.name:
         ckpt_meta["spec_name"] = spec.name
-    # repro-lint: disable=RPL001 -- this is the port's build() seam, the
-    # twin of repro.api.experiment.build(); the lint's path rules only know
-    # the JAX package's own tree, so the sanctioned home needs saying here
-    engine = FederatedEngine(
-        task.loss_fn, task.params, spec.fed.to_fed_config(),
-        method=spec.fed.method,
-        participation=spec.participation.build(seed=spec.seed),
-        client_weights=task.client_sizes if spec.fed.weighted else None,
-        checkpoint_dir=spec.checkpoint.dir,
-        checkpoint_every=spec.checkpoint.effective_every,
-        wire_codec=spec.wire.codec,
-        checkpoint_meta=ckpt_meta,
-        telemetry=hub,
-    )
+    if spec.engine.kind != "sync" or spec.sim.profile is not None:
+        # participation and checkpointing always pass through: engines
+        # that cannot honour them refuse instead of dropping them
+        kw = dict(
+            sim_profile=spec.sim.profile,
+            seed=spec.seed,
+            method=spec.fed.method,
+            wire_codec=spec.wire.codec,
+            client_weights=client_weights,
+            participation=participation,
+            checkpoint_dir=spec.checkpoint.dir,
+            checkpoint_every=spec.checkpoint.effective_every,
+            checkpoint_meta=ckpt_meta,
+            telemetry=hub,
+        )
+        # None = unset: make_sim_engine's own defaults apply
+        if spec.engine.kind == "async":
+            kw["buffer_size"] = spec.engine.buffer_size
+            if spec.engine.staleness_power is not None:
+                kw["staleness_power"] = spec.engine.staleness_power
+        elif spec.engine.kind == "hier":
+            kw["edge_wire_codec"] = spec.wire.edge_codec
+            if spec.engine.edges is not None:
+                kw["num_edges"] = spec.engine.edges
+            if spec.engine.edge_rounds is not None:
+                kw["edge_rounds"] = spec.engine.edge_rounds
+        # repro-lint: disable=RPL001 -- the port's build() seam (see below)
+        engine = make_sim_engine(spec.engine.kind, task.loss_fn, task.params, fc, **kw)
+    else:
+        # repro-lint: disable=RPL001 -- this is the port's build() seam, the
+        # twin of repro.api.experiment.build(); the lint's path rules only
+        # know the JAX package's own tree, so the sanctioned home needs
+        # saying here
+        engine = FederatedEngine(
+            task.loss_fn, task.params, fc,
+            method=spec.fed.method,
+            participation=participation,
+            client_weights=client_weights,
+            checkpoint_dir=spec.checkpoint.dir,
+            checkpoint_every=spec.checkpoint.effective_every,
+            wire_codec=spec.wire.codec,
+            checkpoint_meta=ckpt_meta,
+            telemetry=hub,
+        )
     return Experiment(spec=spec, task=task, engine=engine, hub=hub)
 
 
@@ -118,7 +140,7 @@ class Experiment:
 
     spec: ExperimentSpec
     task: Task
-    engine: FederatedEngine
+    engine: object  # a FederatedEngine, or one of repro_torch.fed.sim's engines
     hub: Optional[object] = None
 
     @property
@@ -131,8 +153,8 @@ class Experiment:
 
     @property
     def is_simulated(self) -> bool:
-        """True when rounds are priced on a virtual clock (a non-sync engine
-        or a fleet profile); ``build()`` refuses both in the port today."""
+        """True when rounds are priced on a virtual clock (any non-sync
+        engine, or a sync engine with a fleet profile)."""
         return self.spec.engine.kind != "sync" or self.spec.sim.profile is not None
 
     def run(self, rounds: Optional[int] = None, *, log_every: Optional[int] = None):
@@ -160,6 +182,8 @@ class Experiment:
         spec hash is refused before any state is touched: resuming under
         changed hyperparameters would silently corrupt the run.
         """
+        if not hasattr(self.engine, "restore"):
+            raise ValueError(f"the {self.spec.engine.kind} engine does not support resume")
         if path is None:
             if not self.spec.checkpoint.dir:
                 raise ValueError("resume() needs checkpoint.dir in the spec or an explicit path")
@@ -186,6 +210,29 @@ class Experiment:
 
     def describe(self) -> str:
         s = self.spec
+        eng = s.engine.kind
+        # unset (None) knobs stay with the engine factory's defaults; only
+        # what the spec pins is reported
+        if eng == "async":
+            knobs = [
+                f"buffer_size={s.engine.buffer_size}"
+                if s.engine.buffer_size is not None
+                else f"buffer_size={s.fed.clients} (cohort)",
+            ]
+            if s.engine.staleness_power is not None:
+                knobs.append(f"staleness_power={s.engine.staleness_power:g}")
+            eng += f" ({', '.join(knobs)})"
+        elif eng == "hier":
+            knobs = []
+            if s.engine.edges is not None:
+                knobs.append(f"edges={s.engine.edges}")
+            if s.engine.edge_rounds is not None:
+                knobs.append(f"edge_rounds={s.engine.edge_rounds}")
+            if knobs:
+                eng += f" ({', '.join(knobs)})"
+        wire = s.wire.codec
+        if s.wire.edge_codec is not None:
+            wire += f" (edge: {s.wire.edge_codec})"
         ckpt = (
             f"{s.checkpoint.dir} every {s.checkpoint.effective_every}"
             if s.checkpoint.dir else "(off)"
@@ -215,8 +262,9 @@ class Experiment:
             + f"  C={s.fed.clients}  s*={s.fed.s_star}  lr={s.fed.lr:g}  tau={s.fed.tau:g}"
             + ("  weighted" if s.fed.weighted else ""),
             f"  participation  {s.participation.to_string()}",
-            f"  engine         {s.engine.kind}",
-            f"  wire           {s.wire.codec}",
+            f"  engine         {eng}",
+            f"  wire           {wire}",
+            f"  sim            {s.sim.profile or '(no virtual clock)'}",
             f"  checkpoint     {ckpt}",
             f"  telemetry      {tel}",
             f"  serve          {srv_line}",

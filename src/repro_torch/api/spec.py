@@ -10,8 +10,8 @@ dict / TOML / JSON forms and :meth:`ExperimentSpec.spec_hash`: one spec file
 parses and hashes the same under both packages, which lets a checkpoint
 written by one resume in the other.
 
-Values the port parses but does not run yet (ROADMAP.md) are refused by
-``build()``, not here: the async and hier engines and a ``sim.profile``.
+Every value the JAX package accepts runs in the port: the async and hier
+engines and a ``sim.profile`` go to :mod:`repro_torch.fed.sim`.
 """
 import dataclasses
 from dataclasses import field
@@ -280,53 +280,19 @@ class WireSpec:
             make_codec(self.edge_codec)
 
 
-def _check_fleet_spec(spec: str) -> None:
-    """Validate a system-simulation fleet string as the JAX package's
-    ``Fleet.from_spec`` parses it: ``uniform`` | ``straggler[:FRAC[,SLOWDOWN]]``
-    | ``lognormal[:SIGMA]``, optionally prefixed ``dropout:P,``."""
-    spec = spec.strip()
-    drop = 0.0
-    if spec.startswith("dropout:"):
-        head, _, tail = spec[len("dropout:"):].partition(",")
-        drop, spec = float(head), (tail or "uniform")
-    if not 0.0 <= drop < 1.0:
-        raise ValueError(f"drop_prob must be in [0, 1), got {drop}")
-    kind, _, arg = spec.partition(":")
-    if kind == "uniform":
-        if arg:
-            raise ValueError(f"uniform fleet takes no argument, got {spec!r}")
-        return
-    if kind == "straggler":
-        if arg:
-            parts = arg.split(",")
-            frac = float(parts[0])
-            slowdown = float(parts[1]) if len(parts) > 1 else 10.0
-            if not 0.0 <= frac <= 1.0:
-                raise ValueError(f"slow_frac must be in [0, 1], got {frac}")
-            if slowdown < 1.0:
-                raise ValueError(f"slowdown must be >= 1, got {slowdown}")
-        return
-    if kind == "lognormal":
-        if arg:
-            float(arg)
-        return
-    raise ValueError(
-        f"unknown fleet spec {spec!r}; expected uniform | straggler[:FRAC[,SLOWDOWN]] | "
-        f"lognormal[:SIGMA] (optionally prefixed dropout:P,)"
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class SimSpec:
     """System-simulation fleet (the JAX package's ``Fleet.from_spec``
-    string). ``None`` = no virtual clock. The port parses it; ``build()``
-    refuses a profile (``fed/sim/`` is not ported, ROADMAP.md)."""
+    string). ``None`` = no virtual clock for the sync engine, the uniform
+    fleet for async / hier (which always run on a clock)."""
 
     profile: Optional[str] = None
 
     def __post_init__(self):
         if self.profile is not None:
-            _check_fleet_spec(self.profile)  # parse = validate
+            from repro_torch.fed.sim.profiles import Fleet
+
+            Fleet.from_spec(self.profile, 2)  # parse = validate
 
 
 @dataclasses.dataclass(frozen=True)

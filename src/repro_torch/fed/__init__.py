@@ -1,2 +1,3 @@
-"""Federated runtime of the port: participation policies and the engine."""
+"""Federated runtime of the port: participation policies, the engine and
+(in :mod:`repro_torch.fed.sim`) the system simulator's engines."""
 from repro_torch.fed.participation import MODES, Participation  # noqa: F401

@@ -23,7 +23,9 @@ versioned ``.state.npy`` sidecar (round history, batcher stream state);
 remaining rounds bit-identically. Checkpoints move between the two
 packages in both directions.
 
-Not ported yet (ROADMAP.md): the simulated async / hierarchical engines.
+The system simulator's engines (virtual clock, async FedBuff, the
+hierarchical edge → cloud engine) build on this one in
+:mod:`repro_torch.fed.sim`.
 """
 from __future__ import annotations
 
@@ -93,8 +95,7 @@ register_round_method("fedlrt_naive", fedlrt_naive_round, program=FedLRTNaivePro
 
 @dataclasses.dataclass
 class RoundResult:
-    """One round's record: the JAX package's fields, less those of the
-    virtual clock, which the port does not have yet."""
+    """One round's record, with the JAX package's fields."""
 
     round_idx: int
     loss_before: float
@@ -110,6 +111,14 @@ class RoundResult:
     wire_bytes_down_per_client: float = 0.0
     wire_bytes_up_per_client: float = 0.0
     wire_codec: str = ""
+    # virtual-clock timing (repro_torch.fed.sim): how long the round took in
+    # simulated seconds and the clock reading at its end; 0.0 when the run
+    # is not priced through a system simulator
+    virtual_seconds: float = 0.0
+    t_virtual: float = 0.0
+    # mean staleness (server versions) of the aggregated contributions;
+    # always 0.0 for synchronous rounds
+    staleness_mean: float = 0.0
 
 
 #: version tag of the JAX package's checkpoint state sidecar, whose history
@@ -130,8 +139,9 @@ def history_to_state(history: List[RoundResult]) -> List[dict]:
 
 def history_from_state(rounds: List[dict]) -> List[RoundResult]:
     """Inverse of :func:`history_to_state`, tolerant of field drift: keys
-    the dataclass lacks (the JAX package's virtual-clock fields) are
-    dropped, missing fields take their defaults."""
+    the dataclass lacks are dropped, missing fields take their defaults
+    (a sidecar written before the virtual-clock fields existed reads with
+    0.0 for them)."""
     fields = {f.name for f in dataclasses.fields(RoundResult)}
     out = []
     for d in rounds:

@@ -361,8 +361,8 @@ class Wire:
     def __init__(self, codec: Union[str, WireCodec] = "identity", telemetry=None):
         self.codec = make_codec(codec)
         # optional TelemetryHub: an enabled one gets encode / decode spans
-        # and a bytes counter per roundtrip (the JAX package hands one only
-        # to its hier engine's edge-to-cloud wire, which the port lacks)
+        # and a bytes counter per roundtrip (only the hier engine's
+        # edge-to-cloud wire gets one, as in the JAX package)
         self.telemetry = telemetry
 
     @property

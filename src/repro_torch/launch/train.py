@@ -9,9 +9,11 @@
 Every invocation resolves an :class:`~repro_torch.api.spec.ExperimentSpec`
 first (``--config`` file < flag aliases < ``--set``), so ``build(spec)``
 stays the one engine construction site. It runs on ``cuda`` unless
-``--device cpu`` is given. The flags of parts not ported yet (the async /
-hier engines and the system simulator, the edge wire codec) are accepted by
-the parser and raise, naming ROADMAP.md.
+``--device cpu`` is given. ``--engine async|hier`` and ``--sim-profile``
+run the system simulator (:mod:`repro_torch.fed.sim`)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --preset llm-tiny --smoke \
+        --device cpu --engine async --sim-profile straggler:0.25,10 --async-buffer 2
 """
 from __future__ import annotations
 
@@ -34,6 +36,13 @@ FLAG_TO_FIELD = {
     "tau": "fed.tau",
     "weighted": "fed.weighted",
     "wire_codec": "wire.codec",
+    "edge_wire_codec": "wire.edge_codec",
+    "engine": "engine.kind",
+    "async_buffer": "engine.buffer_size",
+    "staleness_power": "engine.staleness_power",
+    "edges": "engine.edges",
+    "edge_rounds": "engine.edge_rounds",
+    "sim_profile": "sim.profile",
     "rounds": "rounds",
     "batch": "data.batch",
     "seq": "data.seq",
@@ -45,18 +54,6 @@ FLAG_TO_FIELD = {
     "telemetry_dir": "telemetry.dir",
     "telemetry_sinks": "telemetry.sinks",
 }
-
-#: flags of the JAX package's CLI whose parts the port lacks
-NOT_PORTED = {
-    "edge_wire_codec": "the hier engine's edge wire (--edge-wire-codec)",
-    "engine": "engines other than sync (--engine)",
-    "sim_profile": "the system simulator (--sim-profile)",
-    "async_buffer": "the async engine (--async-buffer)",
-    "staleness_power": "the async engine (--staleness-power)",
-    "edges": "the hier engine (--edges)",
-    "edge_rounds": "the hier engine (--edge-rounds)",
-}
-
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -88,6 +85,24 @@ def _parser() -> argparse.ArgumentParser:
                     "the plain PyTorch chain")
     ap.add_argument("--wire-codec", type=str,
                     help="wire codec: identity | downcast[:dtype] | int8_affine | topk_rank")
+    ap.add_argument("--engine", choices=["sync", "async", "hier"],
+                    help="aggregation engine: sync (one barrier per round), async "
+                    "(FedBuff-style buffered, --async-buffer arrivals per aggregate), hier "
+                    "(two-tier edge→cloud; --edges/--edge-rounds)")
+    ap.add_argument("--sim-profile", type=str,
+                    help="client system-profile fleet for virtual-clock pricing: uniform | "
+                    "straggler[:FRAC[,SLOWDOWN]] | lognormal[:SIGMA] (optionally prefixed "
+                    "dropout:P,). Implied 'uniform' for the async/hier engines; omit "
+                    "entirely for the plain sync engine")
+    ap.add_argument("--async-buffer", type=int,
+                    help="async engine: aggregate every K arrivals (default: #clients)")
+    ap.add_argument("--staleness-power", type=float,
+                    help="async engine: staleness discount (1+s)^-p on stale updates")
+    ap.add_argument("--edges", type=int, help="hier engine: number of edge servers")
+    ap.add_argument("--edge-rounds", type=int,
+                    help="hier engine: local rounds per cloud round")
+    ap.add_argument("--edge-wire-codec", type=str,
+                    help="hier engine: codec for the edge→cloud hop (default: --wire-codec)")
     ap.add_argument("--rounds", type=int)
     ap.add_argument("--local-steps", type=int)
     ap.add_argument("--batch", type=int)
@@ -111,9 +126,6 @@ def _parser() -> argparse.ArgumentParser:
                     "(events.jsonl, trace.json)")
     ap.add_argument("--telemetry-sinks", type=str,
                     help="comma list over console,memory,jsonl,perfetto (default console)")
-    for flag in ("--edge-wire-codec", "--engine", "--sim-profile", "--async-buffer",
-                 "--staleness-power", "--edges", "--edge-rounds"):
-        ap.add_argument(flag, type=str, help="not ported yet (ROADMAP.md)")
     return ap
 
 
@@ -127,10 +139,6 @@ def spec_from_argv(argv=None):
     ap = _parser()
     args = vars(ap.parse_args(argv))
     args.pop("device")
-    for name in sorted(set(args) & set(NOT_PORTED)):
-        raise NotImplementedError(
-            f"{NOT_PORTED[name]} is not ported to PyTorch yet; see ROADMAP.md"
-        )
     sets = args.pop("sets")
     config = args.pop("config")
     spec = load_spec(config) if config else ExperimentSpec()
@@ -176,11 +184,20 @@ def main(argv=None):
     mean_cohort = np.mean([r.cohort_size for r in hist]) if hist else 0.0
     if hist:
         eng = exp.engine
+        # on the scenario, not on t_virtual's truthiness: a zero clock
+        # reading still prints the engine's timing
+        timing = (
+            f"; virtual time {hist[-1].t_virtual:.1f}s [{spec.engine.kind}]"
+            if exp.is_simulated else ""
+        )
+        analytic = (
+            f" vs {eng.comm_total_bytes_analytic()/1e6:.1f} MB analytic"
+            if hasattr(eng, "comm_total_bytes_analytic") else ""
+        )
         print(
             f"done: loss {hist[0].loss_before:.4f} → {hist[-1].loss_before:.4f}; "
-            f"total comm {eng.comm_total_bytes()/1e6:.1f} MB measured [{spec.wire.codec}] "
-            f"vs {eng.comm_total_bytes_analytic()/1e6:.1f} MB analytic "
-            f"(mean cohort {mean_cohort:.1f}/{spec.fed.clients})"
+            f"total comm {eng.comm_total_bytes()/1e6:.1f} MB measured [{spec.wire.codec}]"
+            f"{analytic} (mean cohort {mean_cohort:.1f}/{spec.fed.clients}){timing}"
         )
     return hist
 

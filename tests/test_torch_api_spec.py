@@ -10,11 +10,12 @@ validates and hashes the same in both packages.
 - Within the port, the flag form and the spec-file form of one experiment
   train to the same bits.
 - ``python -m repro_torch.api validate|describe|run --device cpu`` works on
-  ``sync_baseline.toml`` and ``vision_partial.toml``; values the port parses
-  but does not run raise ``NotImplementedError`` naming ROADMAP.md from
-  ``build()`` / ``serve()``.
+  ``sync_baseline.toml`` and ``vision_partial.toml``; the simulator configs
+  (``async_straggler``, ``hier_int8_wire``, ``telemetry_trace``) build and
+  run a round with the JAX package's history fields and virtual clock.
 """
 import dataclasses
+import json
 from pathlib import Path
 
 import numpy as np
@@ -22,10 +23,12 @@ import pytest
 import torch
 
 import repro.api as japi
+from repro.fed.engine import RoundResult as JRoundResult
 from repro.launch.train import spec_from_argv as jax_spec_from_argv
 from repro_torch import api
 from repro_torch.api.__main__ import main as api_main
 from repro_torch.core.factorization import is_factor
+from repro_torch.fed.engine import history_to_state
 from repro_torch.launch import train as launch_train
 from repro_torch.utils.tree import tree_leaves
 
@@ -146,18 +149,24 @@ def test_cli_validate_reports_invalid(tmp_path, capsys):
     assert "INVALID" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("path,small", [(SYNC, SMALL_LM), (VISION, SMALL_MLP)],
-                         ids=["sync_baseline", "vision_partial"])
+ASYNC = next(p for p in CONFIGS if p.name == "async_straggler.toml")
+
+
+@pytest.mark.parametrize("path,small", [(SYNC, SMALL_LM), (VISION, SMALL_MLP), (ASYNC, SMALL_LM)],
+                         ids=["sync_baseline", "vision_partial", "async_straggler"])
 def test_cli_describe_and_run_on_cpu(path, small, capsys):
     sets = [a for s in small for a in ("--set", s)]
     assert api_main(["describe", str(path), "--device", "cpu", *sets]) == 0
     out = capsys.readouterr().out
     spec = api.load_spec(path).with_overrides(small)
     assert f"[spec {spec.spec_hash()}]" in out and f"wire           {spec.wire.codec}" in out
+    assert f"sim            {spec.sim.profile or '(no virtual clock)'}" in out
     assert api_main(["run", str(path), "--device", "cpu", "--rounds", "1", "--log-every", "1",
                      *sets]) == 0
     out = capsys.readouterr().out
     assert f"MB measured [{spec.wire.codec}]" in out and "round    0" in out
+    simulated = spec.engine.kind != "sync" or spec.sim.profile is not None
+    assert ("; virtual time " in out and f"s [{spec.engine.kind}]" in out) == simulated
 
 
 def test_cli_defaults_to_cuda():
@@ -169,10 +178,23 @@ def test_cli_defaults_to_cuda():
 
 @pytest.mark.parametrize("name", ["async_straggler.toml", "hier_int8_wire.toml",
                                   "telemetry_trace.toml"])
-def test_unported_configs_raise_from_build(name):
-    spec = api.load_spec(next(p for p in CONFIGS if p.name == name))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        api.build(spec, device="cpu")
+def test_unported_configs_raise_from_build(name, tmp_path):
+    """These simulator configs were refused until ``fed/sim/`` was ported;
+    now each builds at smoke size and runs a round on the virtual clock,
+    with the reference's history fields (their values are held to the
+    reference in tests/test_torch_sim.py)."""
+    sets = SMALL_LM + [f"telemetry.dir={tmp_path}"]
+    spec = api.load_spec(next(p for p in CONFIGS if p.name == name)).with_overrides(sets)
+    exp = api.build(spec, device="cpu")
+    assert exp.is_simulated and spec.engine.kind in exp.describe()
+    [res] = exp.run(rounds=1, log_every=0)
+    [row] = history_to_state([res])
+    assert set(row) == {f.name for f in dataclasses.fields(JRoundResult)}
+    json.dumps(row)
+    assert res.t_virtual > 0 and res.virtual_seconds > 0 and np.isfinite(res.loss_before)
+    assert res.wire_codec.startswith(spec.wire.edge_codec or spec.wire.codec)
+    assert exp.comm_total_bytes() > 0
+    exp.hub.close()
 
 
 @pytest.mark.parametrize("sets", [["serve.rank_slice=true"], ["serve.quantize=bf16"],

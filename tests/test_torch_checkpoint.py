@@ -261,7 +261,9 @@ def test_history_state_tolerates_field_drift():
     rows = [{"round_idx": 0, "loss_before": 1.0, "loss_after": None,
              "comm_bytes_per_client": 8.0, "ranks": {"w": [3.0]}, "seconds": 0.1,
              "cohort": [0, 1], "t_virtual": 4.0, "staleness_mean": 0.0}]
-    [r] = history_from_state(rows)  # the JAX package's clock fields are dropped
+    rows[0]["no_such_field"] = 1  # keys the dataclass lacks are dropped
+    [r] = history_from_state(rows)
+    assert (r.t_virtual, r.staleness_mean, r.virtual_seconds) == (4.0, 0.0, 0.0)
     assert r.cohort_size == 0 and r.wire_codec == ""  # missing ones take defaults
     np.testing.assert_array_equal(r.ranks["w"], [3.0])
 

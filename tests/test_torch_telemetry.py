@@ -24,6 +24,7 @@ from repro.checkpoint.io import _flatten
 from repro_torch import api
 from repro_torch import telemetry as tel
 from repro_torch.checkpoint import params_from_numpy
+from repro_torch.fed.sim import VirtualClock
 from repro_torch.fed.wire import Wire
 from repro_torch.telemetry.__main__ import main as tel_main
 from repro_torch.utils.tree import tree_leaves
@@ -108,14 +109,11 @@ def test_port_jsonl_passes_both_validators(runs):
 
 
 def test_events_to_trace_matches_on_clients_and_virtual_clock():
-    class Clock:
-        now = 0.0
-
     mem = tel.MemorySink()
-    clock = Clock()
+    clock = VirtualClock()
     hub = tel.TelemetryHub([mem], clock=clock)
     for c in range(3):
-        clock.now = 0.5 * c
+        clock.advance_to(0.5 * c)
         with hub.span("client_step", round=0, client=c):
             pass
         hub.span_at("client_round", 0.5 * c, 0.5 * c + 2.0, client=c)
@@ -125,6 +123,71 @@ def test_events_to_trace_matches_on_clients_and_virtual_clock():
     assert tel.events_to_trace(mem.events) == jtel.events_to_trace(mem.events)
     pids = {e["pid"] for e in tel.events_to_trace(mem.events)["traceEvents"]}
     assert pids == {1, 2}
+
+
+def _async_sections(**telemetry):
+    """The JAX package's telemetry pin: an async run under a straggler
+    fleet on the mlp task (``tests/test_telemetry.py`` ``async_spec``)."""
+    return dict(
+        name="telemetry-pin", rounds=3, log_every=0,
+        model=("ModelSpec", dict(kind="mlp", dim=16, classes=4, hidden=32, r_max=8,
+                                 kernels="off")),
+        data=("DataSpec", dict(kind="classification", batch=16, num_points=512, holdout=128)),
+        fed=("FedSpec", dict(method="fedlrt", correction="simplified", clients=4,
+                             local_steps=2, lr=5e-2, tau=0.03, eval_after=False)),
+        engine=("EngineSpec", dict(kind="async", buffer_size=2)),
+        sim=("SimSpec", dict(profile="straggler:0.25,10")),
+        telemetry=("TelemetrySpec", telemetry),
+    )
+
+
+def _async_spec(pkg, **telemetry):
+    return pkg.ExperimentSpec(**{
+        k: getattr(pkg, v[0])(**v[1]) if isinstance(v, tuple) else v
+        for k, v in _async_sections(**telemetry).items()
+    })
+
+
+def test_async_run_log_has_the_simulator_events(tmp_path):
+    """An async run on the virtual clock: its JSONL passes both packages'
+    validators and carries the simulator's events (events popped, the
+    per-client ``client_round`` spans, the server's ``aggregate`` spans,
+    the staleness gauge) with the JAX package's (kind, name) pairs; its
+    trace has both clocks and one virtual track per client; and it is the
+    telemetry-off run bit for bit."""
+    out = tmp_path / "telemetry"
+    on = api.build(_async_spec(api, enabled=True, sinks="memory,jsonl,perfetto", dir=str(out)),
+                   device="cpu")
+    on.run()
+    on.hub.close()
+    off = api.build(_async_spec(api), device="cpu")
+    off.run()
+    la, lb = tree_leaves(on.params), tree_leaves(off.params)
+    assert len(la) == len(lb) and all(torch.equal(a, b) for a, b in zip(la, lb))
+    assert on.engine.timeline.keys() == off.engine.timeline.keys()
+    path = out / "events.jsonl"
+    assert tel.validate_jsonl(path) == [] and jtel.validate_jsonl(path) == []
+    [mem] = [s for s in on.hub.sinks if isinstance(s, tel.MemorySink)]
+    names = {(e["kind"], e["name"]) for e in mem.events}
+    assert {("meta", "hub_start"), ("span", "client_round"), ("span", "aggregate"),
+            ("counter", "sim.events_popped"), ("gauge", "rank.effective_mean"),
+            ("gauge", "staleness_mean")} <= names
+    jexp = japi.build(_async_spec(japi, enabled=True, sinks="memory"))
+    jexp.run()
+    [jmem] = jexp.hub.sinks
+    assert names == {(e["kind"], e["name"]) for e in jmem.events}
+    trace = json.loads((out / "trace.json").read_text())
+    assert trace == jtel.events_to_trace(mem.events)
+    evs = trace["traceEvents"]
+    meta = {e["args"]["name"] for e in evs if e["ph"] == "M" and e["name"] == "process_name"}
+    assert meta == {"wall clock", "virtual clock"}
+    virtual_pid, server_tid = 2, 0
+    client_tids = {e["tid"] for e in evs if e["ph"] == "X" and e["pid"] == virtual_pid
+                   and e["tid"] != server_tid}
+    # the 10x straggler may still be in flight after 3 aggregates
+    assert {1, 2, 3} <= client_tids <= {1, 2, 3, 4}
+    assert any(e["ph"] == "X" and e["pid"] == virtual_pid and e["tid"] == server_tid
+               for e in evs)
 
 
 def test_sync_round_emits_the_reference_event_names():
@@ -198,15 +261,12 @@ def test_sample_every_drops_offcadence_gauges():
 
 
 def test_virtual_clock_attaches():
-    class Clock:
-        now = 0.0
-
     sink = tel.MemorySink()
     hub = tel.TelemetryHub([sink])
     assert hub.virtual_now() is None and sink.events[0]["tv"] is None
-    clock = Clock()
+    clock = VirtualClock()
     hub.attach_clock(clock)
-    clock.now = 2.5
+    clock.advance_to(2.5)
     hub.counter("c")
     assert sink.events[-1]["tv"] == 2.5
     hub.span_at("s", 1.0, 2.0)

@@ -604,15 +604,58 @@ def test_launch_train_runs_on_cpu_when_asked(capsys):
     ["--telemetry"],
 ])
 def test_launch_train_flags_not_ported_raise(flag):
-    """The async / hier / sim flags raise; the telemetry flags, refused until
-    the sinks were ported, now set the spec's telemetry section."""
+    """The engine / sim / edge-wire flags and the telemetry flags, each
+    refused until its part was ported, now set the spec as the JAX
+    package's CLI does."""
+    from repro.launch.train import spec_from_argv as jspec_from_argv
+
     argv = ["--preset", "llm-tiny", *flag]
     if flag[0].startswith("--telemetry"):
         tel = launch_train.spec_from_argv(argv).telemetry
         assert (tel.enabled, tel.dir) == (("--telemetry" in flag), "tel" if "tel" in flag else None)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        launch_train.spec_from_argv(argv)
+    # flags that need an engine to be valid get the one they configure
+    needs = {"--edge-wire-codec": ["--engine", "hier"], "--async-buffer": ["--engine", "async"],
+             "--edges": ["--engine", "hier"]}
+    argv += needs.get(flag[0], [])
+    t, j = launch_train.spec_from_argv(argv), jspec_from_argv(argv)
+    assert t.to_dict() == j.to_dict() and t.spec_hash() == j.spec_hash()
+    field = {"--edge-wire-codec": t.wire.edge_codec, "--async-buffer": t.engine.buffer_size,
+             "--edges": t.engine.edges, "--engine": t.engine.kind,
+             "--sim-profile": t.sim.profile}[flag[0]]
+    assert str(field) == flag[1]
+
+
+SIM_ARGVS = [
+    ["--engine", "async", "--async-buffer", "2", "--staleness-power", "0.25",
+     "--sim-profile", "dropout:0.1,straggler:0.25,10"],
+    ["--engine", "hier", "--edges", "2", "--edge-rounds", "3", "--edge-wire-codec",
+     "int8_affine", "--wire-codec", "downcast"],
+    ["--engine", "sync", "--sim-profile", "lognormal:0.4"],
+    ["--engine", "async", "--staleness-power", "1", "--set", "engine.buffer_size=3"],
+]
+
+
+@pytest.mark.parametrize("argv", SIM_ARGVS, ids=range(len(SIM_ARGVS)))
+def test_launch_train_sim_flags_match_the_jax_cli(argv):
+    """All seven engine / simulator / edge-wire flags resolve to the JAX
+    package's spec."""
+    from repro.launch.train import spec_from_argv as jspec_from_argv
+
+    argv = ["--preset", "llm-tiny", *argv]
+    t, j = launch_train.spec_from_argv(argv), jspec_from_argv(argv)
+    assert t.to_dict() == j.to_dict() and t.spec_hash() == j.spec_hash()
+
+
+def test_launch_train_runs_the_simulator_on_cpu(capsys):
+    hist = launch_train.main([
+        "--preset", "llm-tiny", "--smoke", "--device", "cpu", "--rounds", "1", "--seq", "16",
+        "--local-steps", "1", "--engine", "hier", "--edges", "2", "--edge-wire-codec",
+        "int8_affine", "--log-every", "1",
+    ])
+    out = capsys.readouterr().out
+    assert len(hist) == 1 and "[hier/fedlrt] cloud round    0" in out
+    assert "; virtual time " in out and "s [hier]" in out and "MB analytic" not in out
 
 
 def test_launch_train_spec_matches_the_jax_cli():
@@ -630,13 +673,21 @@ def test_launch_train_spec_matches_the_jax_cli():
 
 
 def test_not_ported_parts_raise():
-    """Unported values parse (the spec hashes as the JAX package's) and
-    build() refuses them, naming ROADMAP.md."""
-    base = api.ExperimentSpec(model=api.ModelSpec(preset="llm-tiny", smoke=True), rounds=1)
-    for spec in (base.replace(engine=api.EngineSpec(kind="async")),
-                 base.replace(sim=api.SimSpec(profile="straggler:0.25,10"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            api.build(spec, device="cpu")
+    """An async engine and a sync engine with a fleet profile, refused until
+    ``fed/sim/`` was ported, now build on the simulator and run a round on
+    the virtual clock."""
+    base = api.ExperimentSpec(
+        model=api.ModelSpec(preset="llm-tiny", smoke=True), rounds=1,
+        data=api.DataSpec(tokens_per_client=2000, seq=32),
+        fed=api.FedSpec(local_steps=1),
+    )
+    for spec, cls in ((base.replace(engine=api.EngineSpec(kind="async")), "AsyncFederatedEngine"),
+                      (base.replace(sim=api.SimSpec(profile="straggler:0.25,10")),
+                       "SyncSimEngine")):
+        exp = api.build(spec, device="cpu")
+        assert exp.is_simulated and type(exp.engine).__name__ == cls
+        [res] = exp.run(log_every=0)
+        assert res.t_virtual > 0 and res.virtual_seconds > 0 and np.isfinite(res.loss_before)
 
 
 SPEC_ERRORS = [
