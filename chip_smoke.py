@@ -30,12 +30,23 @@ per source, all started together) and drives each of the port's paths:
   within ``SLICE_LOGIT_RTOL``, factor bytes and device time of both decode
   steps); the materialized dense baseline (no ``xus`` / ``avt`` launch,
   peak memory, ``decode_matmul_flops`` both ways);
+- models: the five architectures the MoE slice added (CodeQwen1.5-7B,
+  Qwen1.5-32B, Qwen3-32B, OLMoE-1B-7B, DeepSeekMoE-16B) at full width and
+  depth in bf16 through ``repro_torch.api.serve``: their new ``xus`` /
+  ``avt`` shapes (the experts' G = 64 stacks included) against the plain
+  versions, then each model served, launches a forward held to
+  ``decode_step_calls``, bytes against the plan, tok/s, p50/p99, decode
+  step host and device ms, a repeated step and prefill bit-identical, the
+  MoE capacity drops per step; OLMoE-1B-7B in f32, kernel path against
+  plain path: logits, and every layer's expert choices;
 - train: three FeDLRT rounds of llm-100m at full width and depth in f32
   through ``repro_torch.api.build(spec).run()``, counting the launches
   against the counts the model's factors imply; one more round under
   ``torch.profiler`` (device busy share, kernels by device time); then
   one round from the same start with ``kernels="off"`` (held to the
-  kernel run) and the kernel round again (held to be bit-identical);
+  kernel run) and the kernel round again (held to be bit-identical), its
+  truncations' coefficients held to an f64 SVD under both cuSOLVER
+  drivers;
 - flash: ``repro_torch.kernels.flash_attention`` at four attention shapes
   (Qwen2-7B prefill and decode against a cache, Mistral-7B's sliding
   window, an f32 case), each held to ``flash_attention_ref``, with its time
@@ -77,6 +88,7 @@ Imports nothing of JAX. Needs one CUDA card.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -104,7 +116,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 KERNELS = tuple(SOURCES)
-PATHS = ("serve", "serve-quant", "train", "flash", "spec", "sim")
+PATHS = ("serve", "serve-quant", "models", "train", "flash", "spec", "sim")
 #: tolerance of a kernel against its plain version, with the reason
 TOL = {
     # both round once from f32 to bf16; f32 sums taken in different orders
@@ -126,33 +138,58 @@ def log(msg: str) -> None:
 
 
 def decode_step_calls(cfg):
-    """(kernel, dtype, K or N, R) → launches per decode step of ``cfg``.
+    """(kernel, dtype, K or N, R, G) → launches per decode step of ``cfg``.
 
     The embedding runs its chain in f32 (``apply_embedding(dtype=f32)``);
-    every linear layer and the LM head in the compute dtype.
+    every linear layer and the LM head in the compute dtype. Attention's q
+    and o are ``d × H·hd`` (not square where ``H·hd ≠ d``, as in
+    Qwen3-32B). A MoE layer runs each of its experts' up, gate and down
+    projections as one call on the stack of G = E experts, and its shared
+    experts' three as the MLP's; its router is a dense ``torch.matmul``,
+    not a kernel.
     """
     d, dff, V, hd = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.hd
-    kv = cfg.num_kv_heads * hd
-    pol, L, dt = cfg.lowrank, cfg.num_layers, cfg.compute_dtype
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    pol, dt = cfg.lowrank, cfg.compute_dtype
     r = pol.r_max_for
+    n_moe = cfg.superblocks * sum(cfg.moe_on_layer(i) for i in range(len(cfg.block_pattern)))
+    n_mlp = cfg.num_layers - n_moe
     calls = {}
 
-    def add(kernel, dtype, dim, rank, n):
-        key = (kernel, dtype, dim, rank)
-        calls[key] = calls.get(key, 0) + n
+    def add(kernel, dtype, dim, rank, n, G=1):
+        if n:
+            key = (kernel, dtype, dim, rank, G)
+            calls[key] = calls.get(key, 0) + n
 
-    for n_in, n_out, per_layer in (
-        (d, cfg.num_heads * hd, 1), (d, kv, 2), (cfg.num_heads * hd, d, 1),
-        (d, dff, 2), (dff, d, 1),
-    ):
-        add("xus", dt, n_in, r(n_in, n_out), per_layer * L)
-        add("avt", dt, n_out, r(n_in, n_out), per_layer * L)
+    def linear(n_in, n_out, n, G=1):
+        add("xus", dt, n_in, r(n_in, n_out), n, G)
+        add("avt", dt, n_out, r(n_in, n_out), n, G)
+
+    L = cfg.num_layers
+    linear(d, q, L)
+    linear(d, kv, 2 * L)
+    linear(q, d, L)
+    linear(d, dff, 2 * n_mlp)
+    linear(dff, d, n_mlp)
+    if n_moe:
+        m = cfg.moe
+        linear(d, m.d_expert, 2 * n_moe, G=m.num_experts)
+        linear(m.d_expert, d, n_moe, G=m.num_experts)
+        if m.num_shared_experts:
+            ds = m.d_shared or m.d_expert * m.num_shared_experts
+            linear(d, ds, 2 * n_moe)
+            linear(ds, d, n_moe)
     re = r(V, d)
     add("xus", "float32", re, re, 1)  # embedding: (U[tok] S) I
     add("avt", "float32", d, re, 1)
     add("xus", dt, d, r(d, V), 1)  # LM head
     add("avt", dt, V, r(d, V), 1)
     return calls
+
+
+def per_forward(cfg) -> int:
+    """``xus`` (and as many ``avt``) launches of one forward of ``cfg``."""
+    return sum(n for (kernel, *_), n in decode_step_calls(cfg).items() if kernel == "xus")
 
 
 #: the active rank the serve-quant phase gives every factor before slicing
@@ -164,7 +201,7 @@ def sliced_shapes(cfg, rank):
     is rank-sliced to ``min(rank, r_max)``: R shrinks, and so does the
     embedding's ``xus`` K, which is its rank (``(U[tok] S) I``)."""
     out = set()
-    for kernel, _dt, dim, R in decode_step_calls(cfg):
+    for kernel, _dt, dim, R, _G in decode_step_calls(cfg):
         r = min(rank, R)
         out.add((kernel, r if kernel == "xus" and dim == R else dim, r))
     return out
@@ -248,28 +285,33 @@ def device_launches(torch, fn) -> int:
 
 
 def _xus_route(x, U, S, got_launches):
-    """The plan of an ``xus`` call and its device launches, held to each
-    other: the run fails where the card ran another number of kernels."""
+    """The plan of an ``xus`` call (2-D, or stacked over G) and its device
+    launches, held to each other: the run fails where the card ran another
+    number of kernels."""
     from repro_torch.kernels.lowrank_matmul import xus_plan
 
-    M, K = x.shape
-    plan = xus_plan(1, M, K, U.shape[1], S is not None)
+    G = x.shape[0] if x.dim() == 3 else 1
+    M, K = x.shape[-2:]
+    R = U.shape[-1]
+    plan = xus_plan(G, M, K, R, S is not None)
     if got_launches != plan.launches:
-        raise AssertionError(f"xus M={M} K={K} R={U.shape[1]} S={S is not None}: "
+        raise AssertionError(f"xus G={G} M={M} K={K} R={R} S={S is not None}: "
                              f"{got_launches} device launches a call, plan says {plan.launches}")
     return plan
 
 
 def _avt_route(A, V, got_launches):
-    """The plan of an ``avt`` call and its device launches, held to each
-    other, with the route's sizes as text."""
+    """The plan of an ``avt`` call (2-D, or stacked over G) and its device
+    launches, held to each other, with the route's sizes as text."""
     from repro_torch.kernels.lowrank_matmul import avt_plan
 
-    M, N, R = A.shape[0], V.shape[0], A.shape[1]
-    plan = avt_plan(1, M, N, R)
+    G = A.shape[0] if A.dim() == 3 else 1
+    M, R = A.shape[-2:]
+    N = V.shape[-2]
+    plan = avt_plan(G, M, N, R)
     if got_launches != plan.launches:
-        raise AssertionError(f"avt M={M} N={N} R={R}: {got_launches} device launches a call, "
-                             f"plan says {plan.launches}")
+        raise AssertionError(f"avt G={G} M={M} N={N} R={R}: {got_launches} device launches a "
+                             f"call, plan says {plan.launches}")
     sizes = (f"rows={plan.rows} warps={plan.warps}" if plan.route == "stream"
              else f"tile={plan.tile[0]}x{plan.tile[1]}")
     return plan, f"route={plan.route} {sizes} launches={got_launches}"
@@ -320,104 +362,121 @@ def _ptxas_by_kernel(ptxas: str):
     return [(short.get(n, n), line) for n, line in pairs]
 
 
-def _case_inputs(torch, kernel, dtype, M, dim, R, n_sets, gen):
+def _case_inputs(torch, kernel, dtype, M, dim, R, n_sets, gen, G=1):
+    """``n_sets`` input sets of one call; a stack of ``G`` (G > 1) leads
+    every operand with G."""
     dev = "cuda"
+    lead = (G,) if G > 1 else ()
     sets = []
     for _ in range(n_sets):
         if kernel == "xus":
             K = dim
-            x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
-            U = (torch.randn(K, R, generator=gen, device=dev) / math.sqrt(K)).to(dtype)
-            S = (torch.randn(R, R, generator=gen, device=dev) / math.sqrt(R)).to(dtype)
+            x = torch.randn(lead + (M, K), generator=gen, device=dev).to(dtype)
+            U = (torch.randn(lead + (K, R), generator=gen, device=dev) / math.sqrt(K)).to(dtype)
+            S = (torch.randn(lead + (R, R), generator=gen, device=dev) / math.sqrt(R)).to(dtype)
             sets.append((x, U, S))
         else:
             N = dim
-            A = torch.randn(M, R, generator=gen, device=dev).to(dtype)
-            V = (torch.randn(N, R, generator=gen, device=dev) / math.sqrt(R)).to(dtype)
+            A = torch.randn(lead + (M, R), generator=gen, device=dev).to(dtype)
+            V = (torch.randn(lead + (N, R), generator=gen, device=dev) / math.sqrt(R)).to(dtype)
             sets.append((A, V))
     return sets
 
 
-def _bound_ms(kernel, dtype_name, M, dim, R, has_s=True):
+def _bound_ms(kernel, dtype_name, M, dim, R, has_s=True, G=1):
     es = 2 if dtype_name == "bfloat16" else 4
     if kernel == "xus":
         K = dim
-        nbytes = (M * K + K * R + (R * R if has_s else 0) + M * R) * es
-        flops = 2 * M * K * R + (2 * M * R * R if has_s else 0)
+        nbytes = G * (M * K + K * R + (R * R if has_s else 0) + M * R) * es
+        flops = G * (2 * M * K * R + (2 * M * R * R if has_s else 0))
     else:
         N = dim
-        nbytes = (M * R + N * R + M * N) * es
-        flops = 2 * M * N * R
+        nbytes = G * (M * R + N * R + M * N) * es
+        flops = G * 2 * M * N * R
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels(torch, cfg):
-    """Each kernel against its plain version at every path shape, M in
-    {4, 16, 64}, bf16 and f32; returns per-case records."""
+def kernel_case(torch, kernel, dtype_name, M, dim, R, gen, G=1, tag="[kernels]"):
+    """One ``xus`` / ``avt`` shape (stacked over G where G > 1) against its
+    plain version, timed (kernel, plain, library) in a CUDA graph over
+    enough input sets to defeat L2, with its bound, host µs a call and its
+    device launches held to its plan; logs one ``tag`` line, returns the
+    record."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.lowrank_matmul import avt, xus
 
+    dtype = getattr(torch, dtype_name)
+    if G == 1:
+        library = {"xus": lambda x, U, S: torch.linalg.multi_dot([x, U, S]),
+                   "avt": lambda A, V: torch.matmul(A, V.t())}
+    else:  # batched products over the stack
+        library = {"xus": lambda x, U, S: torch.matmul(torch.matmul(x, U), S),
+                   "avt": lambda A, V: torch.matmul(A, V.transpose(-1, -2))}
+    kfn, pfn, lfn = {"xus": (xus, ref.xus_ref), "avt": (avt, ref.avt_ref)}[kernel] + (
+        library[kernel],)
+    weight_bytes = G * dim * R * dtype.itemsize
+    n_sets = max(2, min(512, math.ceil(L2_DEFEAT_BYTES / weight_bytes)))
+    sets = _case_inputs(torch, kernel, dtype, M, dim, R, n_sets, gen, G)
+    got, want = kfn(*sets[0]), pfn(*sets[0])
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.allclose(got.float(), want.float(), **TOL[dtype_name])
+    reps = max(n_sets, 20)
+    rec = dict(
+        kernel=kernel, dtype=dtype_name, M=M, dim=dim, R=R, G=G, max_abs_err=err, ok=ok,
+        ms=graph_ms(torch, lambda i: kfn(*sets[i]), n_sets, reps),
+        plain_ms=graph_ms(torch, lambda i: pfn(*sets[i]), n_sets, reps),
+        library_ms=graph_ms(torch, lambda i: lfn(*sets[i]), n_sets, reps),
+        host_us=host_us(torch, lambda i: kfn(*sets[i])),
+    )
+    rec["bound_ms"], rec["bound_by"] = _bound_ms(kernel, dtype_name, M, dim, R, G=G)
+    route = ""
+    if kernel == "avt":
+        n = device_launches(torch, lambda: avt(*sets[0]))
+        plan, desc = _avt_route(*sets[0], n)
+        rec.update(route=plan.route, launches=n)
+        route = f" {desc}"
+    if kernel == "xus":
+        # device launches a call, with S (the serving path) and without
+        for with_s in (True, False):
+            s = sets[0][2] if with_s else None
+            n = device_launches(torch, lambda: xus(sets[0][0], sets[0][1], s))
+            plan = _xus_route(sets[0][0], sets[0][1], s, n)
+            rec["launches_s" if with_s else "launches_no_s"] = n
+            route += (f" [{'S' if with_s else 'no S'}: {plan.route} "
+                      f"splits={plan.splits} launches={n}]")
+    dimname = "K" if kernel == "xus" else "N"
+    stack = f"G={G:<3d}" if G > 1 else ""
+    log(f"{tag} {kernel} {dtype_name:8s} {stack}M={M:<3d} {dimname}={dim:<6d} R={R:<3d} "
+        f"max_abs_err={err:.3g} tol={TOL[dtype_name]} {'ok' if ok else 'MISMATCH'}  "
+        f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+        f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.6f} "
+        f"({rec['bound_by']}) host_us={rec['host_us']:.1f}{route}")
+    del sets
+    return rec
+
+
+def _check_records(records):
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} kernel case(s) disagree with the plain version: {bad}")
+
+
+def phase_kernels(torch, cfg):
+    """Each kernel against its plain version at every path shape, M in
+    {4, 16, 64}, bf16 and f32; returns per-case records."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    shapes = sorted({(k, dim, R) for (k, _dt, dim, R) in decode_step_calls(cfg)}
+    shapes = sorted({(k, dim, R) for (k, _dt, dim, R, _G) in decode_step_calls(cfg)}
                     | sliced_shapes(cfg, SLICE_RANK))
-    fns = {
-        "xus": (xus, ref.xus_ref, lambda x, U, S: torch.linalg.multi_dot([x, U, S])),
-        "avt": (avt, ref.avt_ref, lambda A, V: torch.matmul(A, V.t())),
-    }
-    records = []
-    for dtype_name in ("bfloat16", "float32"):
-        dtype = getattr(torch, dtype_name)
-        for kernel, dim, R in shapes:
-            kfn, pfn, lfn = fns[kernel]
-            for M in (4, 16, 64):
-                weight_bytes = dim * R * dtype.itemsize
-                n_sets = max(2, min(512, math.ceil(L2_DEFEAT_BYTES / weight_bytes)))
-                sets = _case_inputs(torch, kernel, dtype, M, dim, R, n_sets, gen)
-                got, want = kfn(*sets[0]), pfn(*sets[0])
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                ok = torch.allclose(got.float(), want.float(), **TOL[dtype_name])
-                reps = max(n_sets, 20)
-                rec = dict(
-                    kernel=kernel, dtype=dtype_name, M=M, dim=dim, R=R, max_abs_err=err,
-                    ok=ok,
-                    ms=graph_ms(torch, lambda i: kfn(*sets[i]), n_sets, reps),
-                    plain_ms=graph_ms(torch, lambda i: pfn(*sets[i]), n_sets, reps),
-                    library_ms=graph_ms(torch, lambda i: lfn(*sets[i]), n_sets, reps),
-                    host_us=host_us(torch, lambda i: kfn(*sets[i])),
-                )
-                rec["bound_ms"], rec["bound_by"] = _bound_ms(kernel, dtype_name, M, dim, R)
-                route = ""
-                if kernel == "avt":
-                    n = device_launches(torch, lambda: avt(*sets[0]))
-                    plan, desc = _avt_route(*sets[0], n)
-                    rec.update(route=plan.route, launches=n)
-                    route = f" {desc}"
-                if kernel == "xus":
-                    # device launches a call, with S (the serving path) and without
-                    for with_s in (True, False):
-                        s = sets[0][2] if with_s else None
-                        n = device_launches(torch, lambda: xus(sets[0][0], sets[0][1], s))
-                        plan = _xus_route(sets[0][0], sets[0][1], s, n)
-                        rec["launches_s" if with_s else "launches_no_s"] = n
-                        route += (f" [{'S' if with_s else 'no S'}: {plan.route} "
-                                  f"splits={plan.splits} launches={n}]")
-                records.append(rec)
-                dimname = "K" if kernel == "xus" else "N"
-                log(f"[kernels] {kernel} {dtype_name:8s} M={M:<3d} {dimname}={dim:<6d} R={R:<3d} "
-                    f"max_abs_err={err:.3g} tol={TOL[dtype_name]} {'ok' if ok else 'MISMATCH'}  "
-                    f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-                    f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.6f} "
-                    f"({rec['bound_by']}) host_us={rec['host_us']:.1f}{route}")
-                del sets
-    bad = [r for r in records if not r["ok"]]
-    if bad:
-        raise AssertionError(f"{len(bad)} kernel case(s) disagree with the plain version: {bad}")
+    records = [kernel_case(torch, kernel, dtype_name, M, dim, R, gen)
+               for dtype_name in ("bfloat16", "float32") for kernel, dim, R in shapes
+               for M in (4, 16, 64)]
+    _check_records(records)
     return records
 
 
@@ -521,11 +580,6 @@ def factor_bytes_per_step(params) -> int:
     return total
 
 
-#: xus and avt launches of one Qwen2-7B forward: 28 layers x 7 factorized
-#: linears + the embedding + the LM head
-PER_FORWARD = 198
-
-
 def serve_spec(**serve_kw):
     """The Qwen2-7B serving spec of the serve phases: bf16, full width and
     depth, 4 slots, prompts up to 64, 16 new tokens, continuous batching."""
@@ -539,17 +593,19 @@ def serve_spec(**serve_kw):
     )
 
 
-def drive_session(torch, session, spec, tag, per_forward=PER_FORWARD):
-    """The 8 seeded greedy requests of ``spec`` through ``session`` (a short
-    warm-up request first, not counted), every logits tensor checked finite
-    on the device, the kernel launch counts set to 0 just before the run and
-    read just after. Holds ``xus`` and ``avt`` to ``per_forward`` launches a
-    forward. Returns (completions, counts, stats)."""
+def drive_session(torch, session, spec, tag, launches=None, n_requests=8):
+    """``n_requests`` seeded greedy requests of ``spec`` through ``session``
+    (a short warm-up request first, not counted), every logits tensor
+    checked finite on the device, the kernel launch counts set to 0 just
+    before the run and read just after. Holds ``xus`` and ``avt`` to
+    ``launches`` a forward, by default the model's :func:`per_forward`.
+    Returns (completions, counts, stats)."""
     import numpy as np
 
     from repro_torch.launch.serve import synthetic_requests
 
     eng = session.engine
+    forward = per_forward(eng.model.cfg) if launches is None else launches
     session.generate([np.arange(1, 9)], max_new_tokens=2)
     finite = torch.ones((), dtype=torch.bool, device=eng.device)
     step_fn, prefill_fn = eng.step, eng.prefill
@@ -565,7 +621,7 @@ def drive_session(torch, session, spec, tag, per_forward=PER_FORWARD):
         return logits, cache
 
     eng.step, eng.prefill = checked_step, checked_prefill
-    reqs = synthetic_requests(spec, 8, spread=True)
+    reqs = synthetic_requests(spec, n_requests, spread=True)
     sched = session.scheduler
     steps0 = sched.decode_steps
     _zero_counts()
@@ -579,23 +635,24 @@ def drive_session(torch, session, spec, tag, per_forward=PER_FORWARD):
 
     steps = sched.decode_steps - steps0
     prefills = len(reqs)
-    if len(comps) != len(reqs) or any(len(c.tokens) != 16 for c in comps):
-        raise AssertionError(f"{tag}: not every request completed 16 tokens: "
+    new = spec.serve.max_new_tokens
+    if len(comps) != len(reqs) or any(len(c.tokens) != new for c in comps):
+        raise AssertionError(f"{tag}: not every request completed {new} tokens: "
                              f"{[len(c.tokens) for c in comps]}")
     if not bool(finite):
         raise AssertionError(f"{tag}: NaN/inf logits in the serve run")
     for name in ("xus", "avt"):
-        want = per_forward * (steps + prefills)
+        want = forward * (steps + prefills)
         if got[name] != want:
             raise AssertionError(
-                f"{tag} {name}: {got[name]} launches, expected {per_forward} x "
+                f"{tag} {name}: {got[name]} launches, expected {forward} x "
                 f"({steps} decode steps + {prefills} prefills) = {want}"
             )
     if got["atb"] or got["flash_attention"]:
         raise AssertionError(f"{tag}: serving (forward only) launched atb / flash_attention: {got}")
     log(f"{tag} launches: xus {got['xus']}, avt {got['avt']} = "
-        f"{per_forward} per forward x ({steps} decode steps + {prefills} prefills); "
-        f"{per_forward} xus + {per_forward} avt per decode step")
+        f"{forward} per forward x ({steps} decode steps + {prefills} prefills); "
+        f"{forward} xus + {forward} avt per decode step")
     toks = sum(len(c.tokens) for c in comps)
     per_tok = np.concatenate([np.full(len(c.tokens), c.decode_s / len(c.tokens)) for c in comps])
     p50, p99 = np.percentile(per_tok, [50, 99])
@@ -657,7 +714,7 @@ def phase_serve(torch, counters):
         f"{nbytes / 1e9:.3f} GB of factors / 3.35 TB/s; device idle "
         f"{100 * (1 - dev_ms / host_ms):.1f} % of the eager step")
     log(f"[serve] ATen dispatches in one decode step: {dispatches} "
-        f"(plus {2 * PER_FORWARD} ctypes kernel calls)")
+        f"(plus {2 * per_forward(eng.model.cfg)} ctypes kernel calls)")
     # where one decode step's device time goes, kernel by kernel
     n, busy_s, _ = device_profile(torch, lambda: eng.step(state, last), "[serve] profile", 8)
     log(f"[serve] profile: one decode step, {n} kernels, device busy {busy_s * 1e3:.3f} ms")
@@ -829,7 +886,7 @@ def phase_serve_quant(torch, counters, serve_stats, bf16_tokens):
     torch.cuda.empty_cache()
     log(session.describe())
     dense_bytes = resident_bytes(eng.params)
-    comps, got, stats = drive_session(torch, session, spec, "[materialize]", per_forward=0)
+    comps, got, stats = drive_session(torch, session, spec, "[materialize]", launches=0)
     _add_counts(total, got)
     host_ms, dev_ms, state, last = decode_step_ms(torch, session)
     device_profile(torch, lambda: eng.step(state, last), "[materialize] profile", 4)
@@ -846,6 +903,298 @@ def phase_serve_quant(torch, counters, serve_stats, bf16_tokens):
     del session, eng, state
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the models phase: five more architectures at full width
+# ---------------------------------------------------------------------------
+
+#: (arch, requests, new tokens) the models phase serves at full width and
+#: depth in bf16: OLMoE-1B-7B, the MoE block's path, with the serve phase's
+#: 8 requests of 16 new tokens; the other four with 4 requests of 8
+MODELS = (("olmoe-1b-7b", 8, 16), ("deepseek-moe-16b", 4, 8), ("codeqwen1.5-7b", 4, 8),
+          ("qwen1.5-32b", 4, 8), ("qwen3-32b", 4, 8))
+#: every factor's bf16 bytes, GB, as planned from ``LowRankPolicy.r_max_for``
+#: and the published dimensions before the first run (PERF.md, §6)
+PLANNED_FACTOR_GB = {"codeqwen1.5-7b": 1.53, "qwen1.5-32b": 4.76, "qwen3-32b": 4.30,
+                     "olmoe-1b-7b": 2.72, "deepseek-moe-16b": 7.46}
+#: OLMoE-1B-7B in f32, kernel path against plain path: logits within this
+#: share of max |logit| (f32 sums in other orders through 16 layers)
+MODEL_F32_RTOL = 1e-4
+#: an expert choice may differ between the two paths only where the router's
+#: k-th and (k+1)-th probabilities are closer than this
+FLIP_MARGIN = 1e-5
+
+
+def model_serve_spec(arch, new_tokens):
+    """The models phase's serving spec of ``arch``: bf16 at full width and
+    depth, 4 slots, prompts up to 64, continuous batching."""
+    from repro_torch.api import ExperimentSpec, ModelSpec, ServeSpec
+
+    return ExperimentSpec(
+        name=f"chip-serve-{arch}", seed=0, model=ModelSpec(arch=arch),
+        serve=ServeSpec(max_batch=4, max_prompt=64, prompt_bucket=16,
+                        max_new_tokens=new_tokens, mode="continuous"),
+    )
+
+
+def factor_bytes(params) -> int:
+    """Bytes of every factor leaf's U, S and V."""
+    from repro_torch.core.factorization import is_factor
+    from repro_torch.utils.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for f in tree_leaves(params, is_leaf=is_factor)
+               if is_factor(f) for t in (f.U, f.S, f.V))
+
+
+def topk_margin(torch, probs, k):
+    """Per token: its k-th router probability less its (k+1)-th."""
+    ranked = torch.sort(probs, dim=-1, descending=True).values
+    return ranked[:, k - 1] - ranked[:, k]
+
+
+def capacity_drops(torch, routings, n_tokens, top_k, n_layers):
+    """(token, expert) assignments the capacity dropped in each decode
+    step, summed over its ``n_layers`` MoE calls: the calls that route the
+    decode batch's ``n_tokens`` (a prefill routes a bucket of 16 or more)."""
+    decode = [r for r in routings if r.probs.shape[0] == n_tokens]
+    if not decode or len(decode) % n_layers:
+        raise AssertionError(f"{len(decode)} decode-shaped MoE calls, not a multiple of "
+                             f"{n_layers} layers")
+    kept = torch.stack([(r.w_taken > 0).sum() for r in decode]).view(-1, n_layers)
+    return (n_tokens * top_k - kept).sum(dim=1).tolist()
+
+
+def routing_flips(torch, routed, ref_routed, top_k, n_layers):
+    """The tokens whose chosen expert set differs between two runs' MoE
+    calls (a prefill's ``n_layers`` calls, then a decode step's), as
+    (prefill or decode, layer, token, the reference's top-k margin), and
+    the smallest margin of the reference's calls."""
+    smallest, flips = float("inf"), []
+    for i, (r, ref) in enumerate(zip(routed, ref_routed, strict=True)):
+        margin = topk_margin(torch, ref.probs, top_k)
+        smallest = min(smallest, margin.min().item())
+        differ = (torch.sort(r.topi, -1).values != torch.sort(ref.topi, -1).values).any(-1)
+        for t in torch.nonzero(differ).flatten().tolist():
+            flips.append(("prefill" if i < n_layers else "decode", i % n_layers, t,
+                          margin[t].item()))
+    return flips, smallest
+
+
+@contextlib.contextmanager
+def calls_of(module, name, record):
+    """``module.name`` wrapped for the body of the ``with``:
+    ``record(args, result)`` after each call (the call itself unchanged)."""
+    fn = getattr(module, name)
+
+    def wrapped(*args):
+        out = fn(*args)
+        record(args, out)
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def path_shape(kernel, args):
+    """(kernel, dtype, K or N, R, G, M) of one ``xus(x, U, S)`` or
+    ``avt(A, V)`` call."""
+    a, w = args[0], args[1]
+    G = a.shape[0] if a.dim() == 3 else 1
+    return (kernel, str(a.dtype).removeprefix("torch."), w.shape[-2], w.shape[-1], G,
+            a.shape[-2])
+
+
+@contextlib.contextmanager
+def path_calls(routings, shapes):
+    """For the body: every MoE block's :class:`Routing` appended to
+    ``routings`` and the :func:`path_shape` of every ``xus`` / ``avt`` call
+    of the kernel chain added to ``shapes``."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+
+    with calls_of(moe, "route", lambda _, r: routings.append(r)), \
+            calls_of(ops, "xus", lambda a, _: shapes.add(path_shape("xus", a))), \
+            calls_of(ops, "avt", lambda a, _: shapes.add(path_shape("avt", a))):
+        yield
+
+
+def phase_models(torch, counters, records):
+    """The five architectures this slice adds (CodeQwen1.5-7B, Qwen1.5-32B,
+    Qwen3-32B, OLMoE-1B-7B, DeepSeekMoE-16B), at full width and depth in
+    bf16 (fresh seeded weights):
+
+    - each model served through ``repro_torch.api.serve``, one session at a
+      time: launches per forward held to :func:`decode_step_calls`, the
+      shapes its ``xus`` / ``avt`` calls took recorded (decode at 4 rows, or
+      cap = 1 row an expert of a G = E stack; prefill at one prompt's
+      bucket of 16–64 rows, its experts at that bucket's capacity, the LM
+      head at 1 row),
+      resident and factor bytes against the plan, tok/s, p50/p99, the
+      decode step's host and device ms, a repeated step and prefill held
+      bit-identical, and for the MoE models the assignments the capacity
+      dropped per decode step (a reading);
+    - each recorded shape the kernels phase did not cover, against its
+      plain version with its times and bound (K 4096 / 5120 / 8192, N
+      13440 / 25600 / 27392 / 8192, the experts' G = 64 stacks at R 128
+      and 176);
+    - OLMoE-1B-7B's f32 check (:func:`olmoe_f32_check`).
+
+    Returns (kernel records, stats)."""
+    import numpy as np
+
+    from repro_torch.api import serve
+    from repro_torch.serve import resident_bytes
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    have = {(r["kernel"], r["dtype"], r["dim"], r["R"], r["G"], r["M"]) for r in records}
+    model_records = []
+    counters["models"] = total = {}
+    stats = {}
+    for arch, n_requests, new in MODELS:
+        spec = model_serve_spec(arch, new)
+        tag = f"[models {arch}]"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        session = serve(spec, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        eng = session.engine
+        cfg = eng.model.cfg
+        log(f"{tag} built ({cfg.num_layers} layers, d {cfg.d_model}, {cfg.compute_dtype}, "
+            f"{'MoE' if cfg.moe else 'dense'}) in {build_s:.1f} s")
+        log(session.describe())
+        pf = per_forward(cfg)
+        # the path: counts at 0 just before, read just after (drive_session)
+        routings, shapes = [], set()
+        with path_calls(routings, shapes):
+            _, got, st = drive_session(torch, session, spec, tag, n_requests=n_requests)
+        _add_counts(total, got)
+        if {sh[:5] for sh in shapes} != set(decode_step_calls(cfg)):
+            raise AssertionError(f"{tag}: the path's (kernel, dtype, K or N, R, G) differ from "
+                                 f"decode_step_calls: {sorted(shapes)}")
+        rows = {}
+        for kernel, _dt, _dim, _R, G, M in shapes:
+            rows.setdefault("experts" if G > 1 else "G=1", set()).add(M)
+        log(f"{tag} the path's xus / avt shapes: {len(shapes)}; rows M "
+            + "; ".join(f"{k} {sorted(v)}" for k, v in sorted(rows.items())))
+        host_ms, dev_ms, state, last = decode_step_ms(torch, session)
+        # the same step and the same prefill again: the same bits
+        step_a, step_b = eng.step(state, last)[0], eng.step(state, last)[0]
+        pre_a, pre_b = eng.prefill(np.arange(3, 40))[0], eng.prefill(np.arange(3, 40))[0]
+        if not (torch.equal(step_a, step_b) and torch.equal(pre_a, pre_b)):
+            raise AssertionError(f"{tag}: a repeated decode step or prefill changed the logits")
+        dispatches = count_dispatches(torch, lambda: eng.step(state, last))
+        log(f"{tag} ATen dispatches in one decode step: {dispatches} (plus {2 * pf} ctypes "
+            f"kernel calls)")
+        if cfg.moe is not None:  # where a MoE decode step's device time goes
+            n, busy_s, _ = device_profile(torch, lambda: eng.step(state, last),
+                                          f"{tag} profile", 8)
+            log(f"{tag} profile: one decode step, {n} kernels, device busy "
+                f"{busy_s * 1e3:.3f} ms")
+        res, fb = resident_bytes(eng.params), factor_bytes(eng.params)
+        step_bytes = factor_bytes_per_step(eng.params)
+        floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        planned = PLANNED_FACTOR_GB[arch]
+        log(f"{tag} resident {res / 1e9:.3f} GB, of it factors {fb / 1e9:.3f} GB against "
+            f"{planned} GB planned ({fb / 1e9 / planned:.3f}x); peak {peak:.2f} GiB")
+        log(f"{tag} decode step: host {host_ms:.2f} ms (median of 10), device {dev_ms:.3f} ms "
+            f"(CUDA graph replay); floor {floor_ms:.3f} ms = {step_bytes / 1e9:.3f} GB of "
+            f"factors / 3.35 TB/s; device idle {100 * (1 - dev_ms / host_ms):.1f} % of the "
+            f"eager step; {pf} xus + {pf} avt launches a forward; a repeated step and prefill "
+            f"bit-identical")
+        rec = dict(st, layers=cfg.num_layers, build_s=build_s, resident_bytes=res,
+                   factor_bytes=fb, planned_factor_gb=planned, step_factor_bytes=step_bytes,
+                   floor_ms=floor_ms, step_host_ms=host_ms, step_device_ms=dev_ms,
+                   peak_gib=peak, per_forward=pf, aten_dispatches=dispatches, launches=got)
+        if cfg.moe is not None:
+            m = cfg.moe
+            drops = capacity_drops(torch, routings, eng.max_batch, m.top_k, cfg.num_layers)
+            n = eng.max_batch * m.top_k * cfg.num_layers
+            log(f"{tag} capacity factor {m.capacity_factor} (cap 1 a decode step): "
+                f"(token, expert) assignments dropped per decode step, of {n}: mean "
+                f"{np.mean(drops):.2f}, min {min(drops)}, max {max(drops)} over {len(drops)} "
+                f"steps (a reading, not a gate)")
+            rec["capacity_drops"] = dict(assignments=n, mean=float(np.mean(drops)),
+                                         min=min(drops), max=max(drops), steps=len(drops))
+        stats[arch] = rec
+        del session, eng, state, routings, step_a, step_b, pre_a, pre_b
+        torch.cuda.empty_cache()
+        # each shape the path gave the kernels, against its plain version
+        for kernel, dtype, dim, R, G, M in sorted(shapes - have):
+            model_records.append(kernel_case(torch, kernel, dtype, M, dim, R, gen, G=G))
+        have |= shapes
+        _check_records(model_records)
+        torch.cuda.empty_cache()
+    stats["olmoe-1b-7b f32"] = olmoe_f32_check(torch)
+    return model_records, stats
+
+
+def olmoe_f32_check(torch):
+    """OLMoE-1B-7B at full width and depth in f32: one 37-token prefill and
+    one decode step on the kernel path against the plain path
+    (``kernels="off"``) on the same weights and tokens. Logits within
+    ``MODEL_F32_RTOL`` of max |logit|; every layer's expert choices the
+    same, except where the plain path's top-k margin is under
+    ``FLIP_MARGIN`` (each such flip printed); the smallest margin printed.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), compute_dtype="float32",
+                              param_dtype="float32")
+    models = {"kernels": build_model(cfg),
+              "plain": build_model(dataclasses.replace(cfg, kernels="off"))}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    with torch.inference_mode():
+        params = models["kernels"].init(gen)
+    prompt = torch.randint(1, cfg.vocab_size, (1, 37), generator=gen, device="cuda")
+    runs, tok = {}, None
+    for name, model in models.items():
+        routed = []
+        with torch.inference_mode(), path_calls(routed, set()):
+            pre, cache = model.serve_prefill(params, {"tokens": prompt}, cache_len=48)
+            if tok is None:
+                tok = pre.argmax(-1)[:, None]
+            step, _ = model.serve_step(params, cache, tok)
+        runs[name] = dict(logits=(pre, step), routed=routed)
+        del cache
+    torch.cuda.synchronize()
+    k = cfg.moe.top_k
+    errs = []
+    pairs = zip(("prefill", "decode"), runs["kernels"]["logits"], runs["plain"]["logits"])
+    for what, a, b in pairs:
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"[models f32] {what} logits are not finite")
+        errs.append(((a - b).abs().max() / b.abs().max()).item())
+        log(f"[models f32] olmoe-1b-7b {what}: max |logits(kernels) - logits(off)| / "
+            f"max |logit| = {errs[-1]:.3g} (tol {MODEL_F32_RTOL})")
+    if len(runs["kernels"]["routed"]) != 2 * cfg.num_layers:
+        raise AssertionError(f"[models f32] {len(runs['kernels']['routed'])} MoE calls, "
+                             f"expected {2 * cfg.num_layers}")
+    flips, smallest = routing_flips(torch, runs["kernels"]["routed"], runs["plain"]["routed"],
+                                    k, cfg.num_layers)
+    for what, layer, t, margin in flips:
+        log(f"[models f32] expert choice flipped: {what} layer {layer} token {t}, top-k "
+            f"margin {margin:.3g}")
+    log(f"[models f32] expert choices: {len(flips)} flip(s) over {2 * cfg.num_layers} MoE "
+        f"calls; smallest top-k margin {smallest:.3g} (a flip is allowed under {FLIP_MARGIN})")
+    if any(m >= FLIP_MARGIN for *_, m in flips):
+        raise AssertionError(f"[models f32] expert choices differ at a margin >= {FLIP_MARGIN}: "
+                             f"{flips}")
+    if not max(errs) <= MODEL_F32_RTOL:
+        raise AssertionError(f"[models f32] kernel-path logits differ from the plain path's by "
+                             f"{max(errs)} of max |logit| (> {MODEL_F32_RTOL})")
+    del runs, params
+    torch.cuda.empty_cache()
+    return dict(prefill_rel_err=errs[0], decode_rel_err=errs[1], flips=len(flips),
+                smallest_margin=smallest)
 
 
 # ---------------------------------------------------------------------------
@@ -1449,9 +1798,22 @@ def phase_train(torch, counters):
     del exp_off
     torch.cuda.empty_cache()
 
-    # the first round again, kernels on: the same bits
+    # the first round again, kernels on: the same bits; the coefficients its
+    # truncations receive are kept for the SVD drivers' reading
+    import repro_torch.core.fedlrt as fedlrt_module
+
     exp_rep = build(spec, params=_clone(params0), device="cuda")
-    exp_rep.run(rounds=1, log_every=0)
+    truncate, coeffs = fedlrt_module.truncate, []
+
+    def keep_coeff(f, **kw):
+        coeffs.append(f.S.detach().float().clone())
+        return truncate(f, **kw)
+
+    fedlrt_module.truncate = keep_coeff
+    try:
+        exp_rep.run(rounds=1, log_every=0)
+    finally:
+        fedlrt_module.truncate = truncate
     torch.cuda.synchronize()
     a_leaves, b_leaves = tree_leaves(params_r1), tree_leaves(exp_rep.params)
     same = len(a_leaves) == len(b_leaves) and all(
@@ -1461,9 +1823,59 @@ def phase_train(torch, counters):
         n_diff = sum(not torch.equal(a, b) for a, b in zip(a_leaves, b_leaves))
         raise AssertionError(f"repeat of round 0 is not bit-identical ({n_diff} tensors differ)")
     log(f"[train] repeat of round 0: all {len(a_leaves)} tensors bit-identical (torch.equal)")
-    del exp_rep
+    drivers = truncation_svd_drivers(torch, coeffs, exp_rep.engine.cfg.tau)
+    del exp_rep, coeffs
     torch.cuda.empty_cache()
-    return dict(rounds=rounds, path_s=path_s, profile=profile)
+    return dict(rounds=rounds, path_s=path_s, profile=profile, svd_drivers=drivers)
+
+
+def truncation_svd_drivers(torch, coeffs, tau):
+    """The round's truncation SVD under cuSOLVER's Jacobi ``gesvdj`` and
+    its QR-based ``gesvd``, on the aggregated 2r × 2r coefficients S̃ that
+    one llm-100m round's truncations received (one stack per factor leaf,
+    one call per stack, as ``truncate`` makes them): each driver's worst σ
+    error relative to the matrix's largest σ against an f64 SVD (LAPACK,
+    on the host), whether ``pick_rank`` chooses the f64 σ's ranks, the
+    worst ``max|U S Vᵀ − S̃| / max|S̃|``, and the time over the whole set.
+    Fails if ``gesvdj``, torch's default on CUDA, which ``truncate`` calls,
+    misses 1e-4 or changes a rank."""
+    from repro_torch.core.dlrt import pick_rank
+
+    ref = []
+    for S in coeffs:
+        S64 = S.double().cpu()
+        s64 = torch.linalg.svdvals(S64)
+        theta = tau * torch.linalg.norm(S64, dim=(-2, -1))
+        ref.append((s64, pick_rank(s64, theta, S.shape[-1] // 2)))
+    out = {}
+    for driver in ("gesvdj", "gesvd"):
+        torch.linalg.svd(coeffs[0], full_matrices=False, driver=driver)  # warm-up, untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svds = [torch.linalg.svd(S, full_matrices=False, driver=driver) for S in coeffs]
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        sigma_err = rebuild = 0.0
+        ranks_same = True
+        for S, (P, s, Qt), (s64, r64) in zip(coeffs, svds, ref):
+            s_cpu = s.double().cpu()
+            sigma_err = max(sigma_err, ((s_cpu - s64).abs().amax(-1) / s64[..., 0]).max().item())
+            theta = tau * torch.linalg.norm(S, dim=(-2, -1))
+            ranks_same &= torch.equal(pick_rank(s, theta, S.shape[-1] // 2).cpu(), r64.float())
+            W = (P * s[..., None, :]) @ Qt
+            rebuild = max(rebuild, ((W - S).abs().max() / S.abs().max()).item())
+        out[driver] = dict(ms=ms, sigma_rel_err=sigma_err, ranks_same=bool(ranks_same),
+                           worst_rebuild=rebuild)
+        log(f"[train] truncation SVD driver {driver}: {len(coeffs)} stacks "
+            f"({sum(math.prod(S.shape[:-2]) for S in coeffs)} matrices of "
+            f"{coeffs[0].shape[-1]} x {coeffs[0].shape[-1]}) in {ms:.1f} ms; worst sigma error "
+            f"{sigma_err:.3g} of the largest (f64 reference); ranks "
+            f"{'the same as' if ranks_same else 'DIFFERENT from'} the f64 sigma's; worst "
+            f"max|U S V^T - S~| / max|S~| = {rebuild:.3g}")
+    if not (out["gesvdj"]["ranks_same"] and out["gesvdj"]["worst_rebuild"] <= 1e-4):
+        raise AssertionError(f"the truncation's SVD driver gesvdj misses 1e-4 or changes a "
+                             f"rank: {out['gesvdj']}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2219,11 +2631,31 @@ def phase_sim(torch, counters, workdir):
                 async_=async_stats, hier=hier_stats, path_s=path_s)
 
 
-def kernel_summary(records, atb_records, flash_records, counters, cfg, atb_round, xus_round,
-                   avt_round):
+def decode_step_sums(name, cfg, records):
+    """``name``'s measured numbers summed over one decode step of ``cfg``
+    (each shape's record at its decode M: 4 rows, or 1 row an expert of a
+    G = E stack) with the step's launches of it; and what bounds them."""
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    bound_by = set()
+    for (kernel, dtype, dim, R, G), n in decode_step_calls(cfg).items():
+        if kernel != name:
+            continue
+        key = (kernel, dtype, dim, R, G, 1 if G > 1 else 4)
+        [rec] = [r for r in records
+                 if (r["kernel"], r["dtype"], r["dim"], r["R"], r["G"], r["M"]) == key]
+        for k in tot:
+            tot[k] += n * rec[k]
+        bound_by.add(rec["bound_by"])
+    return dict(tot, bound_by="bytes" if bound_by == {"bytes"} else "operations")
+
+
+def kernel_summary(records, model_records, atb_records, flash_records, counters, cfg, atb_round,
+                   xus_round, avt_round):
     """Per kernel: ``xus``/``avt`` as the sum over one Qwen2-7B decode
     step's launches (M = 4) of each measured number, with the sum over one
-    llm-100m round's calls under ``round``; ``atb`` as the sum over
+    decode step of each of the models phase's architectures under
+    ``by_model`` and over one llm-100m round's calls under ``round``;
+    ``atb`` as the sum over
     one llm-100m FeDLRT round's calls (M = 512, f32: ``phase_atb``'s
     ``[atb] round``); ``flash_attention``
     as one Qwen2-7B 4096-token causal prefill (bf16). ``launches`` is the
@@ -2233,27 +2665,24 @@ def kernel_summary(records, atb_records, flash_records, counters, cfg, atb_round
         return {"launches": sum(counters[p][name] for p in PATHS),
                 "launches_by_path": {p: counters[p][name] for p in PATHS}}
 
-    calls = decode_step_calls(cfg)
+    from repro_torch.api.tasks import lm_model_config
+
+    all_records = records + model_records
     out = []
     for name in ("xus", "avt"):
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-        bound_by = set()
-        for (kernel, dtype, dim, R), n in calls.items():
-            if kernel != name:
-                continue
-            [rec] = [r for r in records if (r["kernel"], r["dtype"], r["dim"], r["R"], r["M"])
-                     == (kernel, dtype, dim, R, 4)]
-            for k in tot:
-                tot[k] += n * rec[k]
-            bound_by.add(rec["bound_by"])
+        step = decode_step_sums(name, cfg, records)
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             **launches(name),
-            "max_abs_err": max(r["max_abs_err"] for r in records if r["kernel"] == name),
-            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
-            "library_ms": tot["library_ms"], "unit": "one Qwen2-7B decode step (bf16, M=4)",
+            "max_abs_err": max(r["max_abs_err"] for r in all_records if r["kernel"] == name),
+            **step, "unit": "one Qwen2-7B decode step (bf16, M=4)",
         })
+        out[-1]["by_model"] = {
+            arch: dict(decode_step_sums(
+                name, lm_model_config(model_serve_spec(arch, new).model), all_records),
+                unit="one decode step (bf16, 4 slots)")
+            for arch, _, new in MODELS
+        }
         # the training path's calls, summed over one round
         out[-1]["round"] = {**(xus_round if name == "xus" else avt_round),
                             "bound_by": "operations",
@@ -2319,6 +2748,8 @@ def main() -> int:
     done("serve")
     quant_stats = phase_serve_quant(torch, counters, serve_stats, bf16_tokens)
     done("serve-quant")
+    model_records, model_stats = phase_models(torch, counters, records)
+    done("models")
     train = phase_train(torch, counters)
     done("train")
     flash_records = phase_flash(torch, counters)
@@ -2330,12 +2761,14 @@ def main() -> int:
         sim_stats = phase_sim(torch, counters, workdir)
     done("sim")
     log("[summary] " + json.dumps({"card": smi, "serve": serve_stats,
-                                   "serve_quant": quant_stats, "train": train,
+                                   "serve_quant": quant_stats, "models": model_stats,
+                                   "train": train,
                                    "flash": flash_records, "spec": spec_stats,
                                    "sim": sim_stats, "xus_train": xus_train,
                                    "avt_train": avt_train}))
     print(json.dumps({"kernels": kernel_summary(
-        records, atb_records, flash_records, counters, cfg, atb_round, xus_round, avt_round)}))
+        records, model_records, atb_records, flash_records, counters, cfg, atb_round, xus_round,
+        avt_round)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

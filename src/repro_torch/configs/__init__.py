@@ -1,9 +1,11 @@
 """Architecture registry of the port.
 
-The ids are the JAX package's (``repro.configs``). Each ported
-architecture has a ``<arch>.py`` module exposing ``CONFIG`` with the exact
-published dimensions; an id whose model family the port does not run yet
-raises, naming ROADMAP.md, where the remaining work is queued.
+The ids are the JAX package's (``repro.configs``), and each has a
+``<arch>.py`` module exposing ``CONFIG`` with the exact published
+dimensions (source cited in the module docstring), copied from the JAX
+package. Building the model of a family or mixer the port does not run
+yet raises ``NotImplementedError`` naming ROADMAP.md, where the remaining
+work is queued (``repro_torch.models.build_model``).
 """
 from __future__ import annotations
 
@@ -24,9 +26,6 @@ ARCH_IDS = (
     "rwkv6_7b",
 )
 
-#: the architectures the port runs
-PORTED = ("qwen2_7b",)
-
 # CLI ids (dashes) → module names
 ALIASES = {
     "qwen2-7b": "qwen2_7b",
@@ -46,10 +45,9 @@ def get_config(arch: str) -> ModelConfig:
     mod_name = ALIASES.get(arch, arch.replace("-", "_").replace(".", ""))
     if mod_name not in ARCH_IDS:
         raise ValueError(f"unknown architecture {arch!r}; known: {sorted(ALIASES)}")
-    if mod_name not in PORTED:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported to PyTorch yet (ported: "
-            f"{', '.join(PORTED)}); see ROADMAP.md, queue 1"
-        )
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
+
+
+def all_configs():
+    return {a: get_config(a) for a in ARCH_IDS}

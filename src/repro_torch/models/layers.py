@@ -12,7 +12,7 @@ with the JAX package's on the same parameters.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -57,9 +57,12 @@ class Builder:
         batch_shape: Tuple[int, ...] = (),
         bias: bool = False,
         force_dense: bool = False,
+        init_scale: Optional[float] = None,
     ):
         """A (possibly factorized) ``n_in → n_out`` weight at ``path``;
-        ``batch_shape`` adds leading stacking dims (the layer stack)."""
+        ``batch_shape`` adds leading stacking dims (the layer stack, the
+        experts). A dense weight is drawn with standard deviation
+        ``init_scale``, He's ``sqrt(2 / n_in)`` by default."""
         if self.policy.applies(n_in, n_out) and not force_dense:
             r_max = self.policy.r_max_for(n_in, n_out)
             init_rank = max(int(self.policy.init_rank_frac * r_max), 1)
@@ -69,7 +72,8 @@ class Builder:
             )
             self._put(path, f)
         else:
-            w = (2.0 / n_in) ** 0.5 * torch.randn(
+            scale = init_scale if init_scale is not None else (2.0 / n_in) ** 0.5
+            w = scale * torch.randn(
                 tuple(batch_shape) + (n_in, n_out), generator=self.gen,
                 device=self.device, dtype=torch.float32,
             )

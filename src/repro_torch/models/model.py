@@ -8,8 +8,9 @@ serve_step — the decoder-only families of the JAX package's
   in the JAX package's layout, drawn from the ``torch.Generator`` ``gen``
   on its device;
 - ``loss_fn(params, batch) → scalar``: next-token cross-entropy on
-  ``batch["tokens"]`` (B, T+1), on the cache-free path. Factor leaves may
-  be AugmentedFactors (the FeDLRT client loop);
+  ``batch["tokens"]`` (B, T+1), on the cache-free path, plus the MoE
+  blocks' auxiliary loss. Factor leaves may be AugmentedFactors (the
+  FeDLRT client loop);
 - ``init_cache(params, batch, cache_len, per_slot=False)``;
 - ``serve_prefill(params, batch, cache_len=0, last_index=None) → (logits,
   cache)`` and ``serve_step(params, cache, tokens) → (logits, cache)``:
@@ -44,6 +45,12 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.is_encdec or cfg.family == "vlm" or cfg.vision_tokens:
         raise NotImplementedError(
             f"the {cfg.family!r} family ({cfg.name}) is not ported to PyTorch "
+            f"yet; see ROADMAP.md, queue 1"
+        )
+    mixers = sorted(set(cfg.block_pattern) - {"attn"})
+    if mixers:
+        raise NotImplementedError(
+            f"the {', '.join(mixers)} mixer of {cfg.name} is not ported to PyTorch "
             f"yet; see ROADMAP.md, queue 1"
         )
 
@@ -94,17 +101,18 @@ def build_model(cfg: ModelConfig) -> Model:
     dt = torch_dtype(cfg.compute_dtype)
 
     def loss_fn(params, batch):
-        """Cross-entropy of the next token; the JAX package's ``loss_fn``
-        for the dense family (attention over the whole sequence in one
-        block, where the JAX package may chunk the queries: the same sums
-        in another order)."""
+        """Cross-entropy of the next token plus the MoE auxiliary loss in
+        f32; the JAX package's ``loss_fn`` for the decoder-only families
+        (attention over the whole sequence in one block, where the JAX
+        package may chunk the queries: the same sums in another order)."""
         tokens = batch["tokens"].long()
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         emb = apply_embedding(params["embed"], inputs, dtype=dt, kernels=cfg.kernels)
         positions = torch.arange(emb.shape[1], device=emb.device)
-        h, _ = stack_apply(params["blocks"], emb, cfg, positions=positions)
+        h, _, aux = stack_apply(params["blocks"], emb, cfg, positions=positions, with_aux=True)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-        return _xent(_logits(params, h, cfg.kernels), labels)
+        loss = _xent(_logits(params, h, cfg.kernels), labels)
+        return loss + aux if torch.is_tensor(aux) else loss
 
     def init_cache(params, batch: int, cache_len: int, *, per_slot: bool = False):
         """``per_slot=True``: positions tracked per batch row — ``pos`` is
@@ -132,8 +140,8 @@ def build_model(cfg: ModelConfig) -> Model:
         ).to(dt)
         cache = init_cache(params, tokens.shape[0], cache_len or emb.shape[1])
         positions = torch.arange(emb.shape[1], device=emb.device)
-        h, new_stack = stack_apply(params["blocks"], emb, cfg, positions=positions,
-                                   caches=cache["stack"])
+        h, new_stack, _ = stack_apply(params["blocks"], emb, cfg, positions=positions,
+                                      caches=cache["stack"])
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         cache["stack"] = new_stack
         if last_index is None:
@@ -154,8 +162,8 @@ def build_model(cfg: ModelConfig) -> Model:
         ).to(dt)
         pos = cache["pos"]
         positions = pos[..., None] + torch.arange(tokens.shape[1], device=emb.device)
-        h, new_stack = stack_apply(params["blocks"], emb, cfg, positions=positions,
-                                   caches=cache["stack"])
+        h, new_stack, _ = stack_apply(params["blocks"], emb, cfg, positions=positions,
+                                      caches=cache["stack"])
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         new_cache = dict(cache, stack=new_stack, pos=pos + tokens.shape[1])
         logits = _logits(params, h[:, -1:], cfg.kernels)[:, 0]

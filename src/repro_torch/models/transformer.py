@@ -1,12 +1,16 @@
-"""Block assembly: attention + MLP blocks over stacked layer parameters.
+"""Block assembly: attention + MLP / MoE blocks over stacked layer
+parameters.
 
 Parameters of each position of ``cfg.block_pattern`` are stacked over the
 superblocks (leading dim ``NB``), as in the JAX package; its ``lax.scan``
 over that axis is a Python loop here that indexes the stack. Serving
-threads one cache slice per block through the loop.
+threads one cache slice per block through the loop; on the loss path the
+MoE blocks' auxiliary losses are summed over it, layer by layer, as the
+scan carries them.
 
-The port runs the attention mixer and the (gated) MLP. Mamba, RWKV, MoE and
-cross-attention raise ``NotImplementedError``: see ROADMAP.md, queue 1.
+The port runs the attention mixer with the (gated) MLP or the MoE block.
+``models.model`` refuses the other mixers (Mamba, RWKV) and
+cross-attention where the model is built: see ROADMAP.md, queue 1.
 """
 from __future__ import annotations
 
@@ -24,12 +28,7 @@ from repro_torch.models.layers import (
     attention,
     rms_norm,
 )
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet; see ROADMAP.md, queue 1"
-    )
+from repro_torch.models.moe import build_moe, moe_block
 
 
 # ---------------------------------------------------------------------------
@@ -60,15 +59,14 @@ def build_mlp(b: Builder, prefix: str, cfg: ModelConfig, n_blocks: int):
 
 def build_block(b: Builder, prefix: str, kind: str, cfg: ModelConfig,
                 n_blocks: int, *, moe_here: bool):
-    if kind != "attn":
-        raise _not_ported(f"the {kind!r} mixer")
-    if moe_here:
-        raise _not_ported("the MoE block")
     bs = (n_blocks,)
     b.vector(f"{prefix}/ln1", bs + (cfg.d_model,))
     b.vector(f"{prefix}/ln2", bs + (cfg.d_model,))
     build_attn(b, f"{prefix}/attn", cfg, n_blocks)
-    build_mlp(b, f"{prefix}/mlp", cfg, n_blocks)
+    if moe_here:
+        build_moe(b, f"{prefix}/moe", cfg, n_blocks)
+    else:
+        build_mlp(b, f"{prefix}/mlp", cfg, n_blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -145,16 +143,19 @@ def mlp_apply(p: dict, x, cfg: ModelConfig):
 
 
 def block_apply(p: dict, kind: str, x, cfg: ModelConfig, *, positions,
-                cache: Optional[dict]):
-    """One (attention + MLP) block with pre-norm residuals.
-    Returns (x, new_cache)."""
-    if kind != "attn":
-        raise _not_ported(f"the {kind!r} mixer")
+                cache: Optional[dict], with_aux: bool = False):
+    """One (attention + MLP or MoE) block with pre-norm residuals.
+    Returns (x, new_cache, aux_loss); aux_loss is None but for a MoE block
+    asked ``with_aux``."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     mix_out, new_cache = attn_mix(p["attn"], h, cfg, positions=positions, cache=cache)
     x = x + mix_out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h2, cfg), new_cache
+    if "moe" in p:
+        ffn_out, aux = moe_block(p["moe"], h2, cfg, with_aux=with_aux)
+    else:
+        ffn_out, aux = mlp_apply(p["mlp"], h2, cfg), None
+    return x + ffn_out, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -171,9 +172,7 @@ def init_cache_stack(cfg: ModelConfig, batch: int, cache_len: int, dtype, device
     Hkv, hd = cfg.num_kv_heads, cfg.hd
     idx_shape = (NB, batch) if per_slot else (NB,)
     caches = {}
-    for i, kind in enumerate(cfg.block_pattern):
-        if kind != "attn":
-            raise _not_ported(f"the {kind!r} mixer's decode state")
+    for i in range(len(cfg.block_pattern)):
         caches[f"pos{i}"] = {
             "k": torch.zeros((NB, batch, cache_len, Hkv, hd), dtype=dtype, device=device),
             "v": torch.zeros((NB, batch, cache_len, Hkv, hd), dtype=dtype, device=device),
@@ -192,25 +191,31 @@ def _layer(tree, i: int):
 
 
 def stack_apply(blocks: dict, x, cfg: ModelConfig, *, positions,
-                caches: Optional[dict] = None):
+                caches: Optional[dict] = None, with_aux: bool = False):
     """Run the superblock stack. blocks/caches: dicts of stacked params and
-    cache slices. Returns (x, new_caches); the new caches are stacked like
-    the old ones (their k/v tensors are the old ones, written in place)."""
+    cache slices. Returns (x, new_caches, total_aux); the new caches are
+    stacked like the old ones (their k/v tensors are the old ones, written
+    in place). ``with_aux``: ``total_aux`` is the f32 sum of the MoE
+    blocks' auxiliary losses in layer order (0 where there are none);
+    otherwise 0."""
     pattern = cfg.block_pattern
     h = x
+    aux = 0
     new_idx = {f"pos{i}": [] for i in range(len(pattern))}
     for sb in range(cfg.superblocks):
         for i, kind in enumerate(pattern):
             key = f"pos{i}"
             c_i = _layer(caches[key], sb) if caches is not None else None
-            h, nc = block_apply(_layer(blocks[key], sb), kind, h, cfg,
-                                positions=positions, cache=c_i)
+            h, nc, a = block_apply(_layer(blocks[key], sb), kind, h, cfg,
+                                   positions=positions, cache=c_i, with_aux=with_aux)
+            if a is not None:
+                aux = aux + a
             if nc is not None:
                 new_idx[key].append(nc["idx"])
     if caches is None:
-        return h, None
+        return h, None, aux
     new_caches = {
         key: {"k": c["k"], "v": c["v"], "idx": torch.stack(new_idx[key])}
         for key, c in caches.items()
     }
-    return h, new_caches
+    return h, new_caches, aux

@@ -95,6 +95,32 @@ def tree_zeros_like(tree):
     return tree_map(torch.zeros_like, tree)
 
 
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(a, s):
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_axpy(alpha, x, y):
+    """alpha * x + y, leafwise."""
+    return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
+
+
+def tree_global_norm(tree) -> torch.Tensor:
+    """The f32 2-norm of all leaves together: each leaf's sum of squares,
+    added in leaf order."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return torch.zeros(())
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+
+
 def cohort_slice(tree, c: int):
     """Client ``c``'s part: item ``c`` of a :class:`Cohort`, row ``c`` of
     every leaf of a client-stacked tree (batches)."""

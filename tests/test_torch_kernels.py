@@ -7,6 +7,7 @@ them. The same numpy inputs feed both. The backward of the port's
 ``lowrank_apply`` (an autograd Function on the kernels) is held to the JAX
 package's custom VJP through the interpreted kernels.
 """
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -602,6 +603,31 @@ def test_avt_plan_ragged_and_stacked_shapes(seed):
         _check_avt_plan(avt_plan(G, M, N, R), G, M, N, R)
 
 
+#: (K of xus / N of avt, R) of the MoE experts' stacked calls, G = 64:
+#: OLMoE-1B-7B's up / gate (2048 → 1024, r 128) and down (1024 → 2048);
+#: DeepSeekMoE-16B's (2048 → 1408, r 176, the first rank not a multiple
+#: of 64) and down (1408 → 2048)
+EXPERT_SHAPES = [(2048, 128), (1024, 128), (2048, 176), (1408, 176)]
+EXPERTS = 64
+
+
+@pytest.mark.parametrize("M", [1, 4, 10])
+@pytest.mark.parametrize("dim,R", EXPERT_SHAPES)
+def test_expert_stack_plans_take_the_stream_route(dim, R, M):
+    """Decode (one row an expert) and prefill (up to the 10 rows of the
+    capacity at 64 tokens): one launch of the stream route for all 64
+    experts, within the ticket counters of a slot (192 at R 128, 256 at
+    R 176)."""
+    for has_s in (True, False):
+        plan = xus_plan(EXPERTS, M, dim, R, has_s)
+        assert plan.route == "stream" and plan.launches == 1
+        assert plan.counters == EXPERTS * (_cdiv(R, 64) + 1) <= COUNTER_INTS
+        _check_plan(plan, EXPERTS, M, dim, R, has_s)
+    plan = avt_plan(EXPERTS, M, dim, R)
+    assert plan.route == "stream"
+    _check_avt_plan(plan, EXPERTS, M, dim, R)
+
+
 def test_avt_plan_depends_on_shapes_only(monkeypatch):
     """The plan reads nothing of the card: it is the same with CUDA
     unavailable, and the cached plan equals a fresh one."""
@@ -662,6 +688,46 @@ def test_train_avt_calls_llm_100m_round():
                      (8192, 320): 16, (8192, 160): 8, (160, 160): 4}
     assert sum(calls.values()) == smoke.expected_launches(params, cfg)[0]["avt"] == 3768
     assert sorted(calls) == sorted(ROUND_AVT)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "codeqwen1.5-7b", "qwen1.5-32b", "qwen3-32b",
+                                  "olmoe-1b-7b", "deepseek-moe-16b"])
+def test_decode_step_calls_are_the_calls_a_decode_step_makes(arch, monkeypatch):
+    """``chip_smoke.decode_step_calls`` (which the card run holds every
+    served model's launches to) counts the xus / avt calls one 4-slot
+    decode step of the reduced architecture makes, by (dtype, K or N, R,
+    stack G): the experts' stacks at G = E, the shared experts and the
+    router (a dense product, no call) of a MoE layer, Qwen3's d × H·hd q
+    and o."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lowrank_matmul
+    from repro_torch.models import build_model, reduced
+
+    smoke = _chip_smoke()
+    seen = {}
+
+    def counting(kernel, fn):
+        def call(a, w, *rest):
+            key = (kernel, str(a.dtype).split(".")[1], w.shape[-2], w.shape[-1],
+                   w.shape[0] if w.dim() == 3 else 1)
+            seen[key] = seen.get(key, 0) + 1
+            return fn(a, w, *rest)
+        return call
+
+    monkeypatch.setattr(lowrank_matmul.ref, "xus_ref", counting("xus", ref.xus_ref))
+    monkeypatch.setattr(lowrank_matmul.ref, "avt_ref", counting("avt", ref.avt_ref))
+    cfg = reduced(get_config(arch))
+    if arch == "qwen3-32b":
+        cfg = dataclasses.replace(cfg, num_kv_heads=2, head_dim=96)  # H·hd ≠ d, as published
+    model = build_model(cfg)
+    with torch.no_grad():
+        params = model.init(torch.Generator().manual_seed(0))
+        cache = model.init_cache(params, 4, 12, per_slot=True)
+        model.serve_step(params, cache, torch.ones((4, 1), dtype=torch.int64))
+    assert seen == smoke.decode_step_calls(cfg)
+    assert smoke.per_forward(cfg) == sum(n for k, n in seen.items() if k[0] == "xus")
+    if cfg.moe is not None:
+        assert any(G == cfg.moe.num_experts for *_, G in seen)
 
 
 # ---------------------------------------------------------------------------
@@ -972,3 +1038,30 @@ def test_avt_routes_match_plain_version_on_card(dtype):
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(o, w) for o, w in zip(outs, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_expert_stacks_match_plain_version_on_card(dtype):
+    """Runs on an H100 (``pytest -m cuda``): xus and avt on the MoE
+    experts' G = 64 stacks at R 128 and 176 (the last column tile ragged),
+    on the stream route (M 1, a decode step; M 10, a prefill's capacity)
+    and the tiled one (M 64), one counted launch a call, the same bits
+    again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for M in (1, 10, 64):
+        for dim, R in EXPERT_SHAPES:
+            x, U, S = _xus_case(EXPERTS, M, dim, R, M + dim + R, dtype, dtype)
+            before = xus.launches
+            got = xus(x, U, S)
+            assert xus.launches == before + 1 and got.shape == (EXPERTS, M, R)
+            _xus_close(got, ref.xus_ref(x, U, S), dtype)
+            assert torch.equal(got, xus(x, U, S))
+            A, V = _avt_case(EXPERTS, M, dim, R, M * R, dtype)
+            before = avt.launches
+            got = avt(A, V)
+            assert avt.launches == before + 1 and got.shape == (EXPERTS, M, dim)
+            _avt_close(got, ref.avt_ref(A, V), dtype)
+            assert torch.equal(got, avt(A, V))

@@ -20,6 +20,7 @@ import torch
 from repro.api.tasks import PRESETS as JAX_PRESETS
 from repro.checkpoint import load_checkpoint as jax_load_checkpoint
 from repro.checkpoint.io import _flatten
+from repro.configs import all_configs as jax_all_configs
 from repro.configs import get_config as jax_get_config
 from repro.core.factorization import LowRankFactor as JaxLowRankFactor
 from repro.core.factorization import init_factor as jax_init_factor
@@ -30,7 +31,7 @@ from repro.models.config import reduced as jax_reduced
 from repro.serve.engine import _insert_cache as jax_insert_cache
 from repro_torch.api.tasks import PRESETS
 from repro_torch.checkpoint import load_checkpoint
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, all_configs, get_config
 from repro_torch.core.factorization import (
     LowRankFactor,
     init_factor,
@@ -53,6 +54,30 @@ CASES = {
     "qwen2-7b-reduced-gqa": (
         lambda: jax_reduced(jax_get_config("qwen2-7b"), num_kv_heads=2),
         lambda: reduced(get_config("qwen2-7b"), num_kv_heads=2),
+    ),
+    # MHA with QKV bias
+    "codeqwen1.5-7b-reduced": (
+        lambda: jax_reduced(jax_get_config("codeqwen1.5-7b")),
+        lambda: reduced(get_config("codeqwen1.5-7b")),
+    ),
+    "qwen1.5-32b-reduced": (
+        lambda: jax_reduced(jax_get_config("qwen1.5-32b")),
+        lambda: reduced(get_config("qwen1.5-32b")),
+    ),
+    # GQA, per-head qk-norm, no bias; H·hd ≠ d_model, as at full width
+    "qwen3-32b-reduced-gqa": (
+        lambda: jax_reduced(jax_get_config("qwen3-32b"), num_kv_heads=2, head_dim=96),
+        lambda: reduced(get_config("qwen3-32b"), num_kv_heads=2, head_dim=96),
+    ),
+    # the MoE block: routed experts (OLMoE, with qk-norm), plus shared ones
+    # (DeepSeekMoE), at the published capacity factor 1.25
+    "olmoe-1b-7b-reduced": (
+        lambda: jax_reduced(jax_get_config("olmoe-1b-7b")),
+        lambda: reduced(get_config("olmoe-1b-7b")),
+    ),
+    "deepseek-moe-16b-reduced": (
+        lambda: jax_reduced(jax_get_config("deepseek-moe-16b")),
+        lambda: reduced(get_config("deepseek-moe-16b")),
     ),
 }
 
@@ -83,7 +108,9 @@ def pair(request, tmp_path_factory):
 
 
 def _close(t: torch.Tensor, j):
+    """Logits within ATOL, and the greedy token of every row the same."""
     np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(t.argmax(-1).numpy(), np.asarray(j).argmax(-1))
 
 
 def test_prefill_and_shared_cache_decode(pair):
@@ -190,6 +217,27 @@ def test_lr_matmul_and_materialize_match_jax():
 
 def test_unported_architectures_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("jamba-1.5-large-398b")
+        build_model(get_config("jamba-1.5-large-398b"))
     with pytest.raises(ValueError, match="unknown architecture"):
         get_config("gpt-5")
+
+
+#: the architectures whose model the port builds
+BUILDS = {"qwen2_7b", "codeqwen15_7b", "qwen15_32b", "qwen3_32b", "olmoe_1b_7b",
+          "deepseek_moe_16b"}
+
+
+def test_all_configs_match_the_jax_package():
+    """The registry holds the JAX package's architectures with its exact
+    values; the port builds the attention-only ones (dense MLP or MoE) and
+    names ROADMAP.md for the others."""
+    ours, theirs = all_configs(), jax_all_configs()
+    assert list(ours) == list(theirs) == list(ARCH_IDS)
+    for arch, cfg in theirs.items():
+        assert dataclasses.asdict(ours[arch]) == dataclasses.asdict(cfg), arch
+        assert get_config(cfg.name) == ours[arch]
+        if arch in BUILDS:
+            build_model(ours[arch])
+        else:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                build_model(ours[arch])

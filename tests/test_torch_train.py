@@ -354,6 +354,44 @@ def test_embedding_gather_backward_matches_plain_index():
 # ---------------------------------------------------------------------------
 
 
+def test_tree_helpers_match():
+    """``repro_torch.utils``' tree arithmetic against ``repro.utils``' on a
+    tree with a factor leaf (its U, S, V and rank are leaves in both)."""
+    import repro.utils as jutils
+    import repro_torch.utils as tutils
+
+    rng = np.random.default_rng(9)
+
+    def draw():
+        g = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+        return {"w": g(3, 4), "b": {"x": g(5), "y": g(2, 2)},
+                "f": dict(U=g(6, 2), S=g(2, 2), V=g(5, 2), rank=np.float32(2.0))}
+
+    def trees(d):
+        j = {"w": jnp.asarray(d["w"]), "b": {k: jnp.asarray(v) for k, v in d["b"].items()},
+             "f": jfac.LowRankFactor(**{k: jnp.asarray(v) for k, v in d["f"].items()})}
+        t = {"w": torch.from_numpy(d["w"]),
+             "b": {k: torch.from_numpy(v) for k, v in d["b"].items()},
+             "f": fac.LowRankFactor(**{k: torch.as_tensor(v) for k, v in d["f"].items()})}
+        return j, t
+
+    (ja, ta), (jb, tb) = trees(draw()), trees(draw())
+
+    def same(t, j, rtol=0.0):
+        tl, jl = tree_leaves(t), jax.tree.leaves(j)
+        assert len(tl) == len(jl)
+        for a, b in zip(tl, jl):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=rtol, atol=0)
+
+    same(tutils.tree_add(ta, tb), jutils.tree_add(ja, jb))
+    same(tutils.tree_sub(ta, tb), jutils.tree_sub(ja, jb))
+    same(tutils.tree_scale(ta, 0.3), jutils.tree_scale(ja, 0.3))
+    same(tutils.tree_axpy(-1.7, ta, tb), jutils.tree_axpy(-1.7, ja, jb))
+    same(tutils.tree_zeros_like(ta), jutils.tree_zeros_like(ja))
+    assert_rel(tutils.tree_global_norm(ta), jutils.tree_global_norm(ja), 1e-6, "global norm")
+    assert float(tutils.tree_global_norm({})) == float(jutils.tree_global_norm({})) == 0.0
+
+
 @pytest.mark.parametrize("name", ["sgd", "sgd_momentum", "adam"])
 def test_optimizers_match(name):
     rng = np.random.default_rng(7)
