@@ -31,14 +31,16 @@ per source, all started together) and drives each of the port's paths:
   steps); the materialized dense baseline (no ``xus`` / ``avt`` launch,
   peak memory, ``decode_matmul_flops`` both ways);
 - models: the five architectures the MoE slice added (CodeQwen1.5-7B,
-  Qwen1.5-32B, Qwen3-32B, OLMoE-1B-7B, DeepSeekMoE-16B) at full width and
-  depth in bf16 through ``repro_torch.api.serve``: their new ``xus`` /
-  ``avt`` shapes (the experts' G = 64 stacks included) against the plain
-  versions, then each model served, launches a forward held to
-  ``decode_step_calls``, bytes against the plan, tok/s, p50/p99, decode
-  step host and device ms, a repeated step and prefill bit-identical, the
-  MoE capacity drops per step; OLMoE-1B-7B in f32, kernel path against
-  plain path: logits, and every layer's expert choices;
+  Qwen1.5-32B, Qwen3-32B, OLMoE-1B-7B, DeepSeekMoE-16B) and the two the SSM
+  slice added (RWKV6-7B; Jamba-1.5-Large, Mamba and attention with MoE) at
+  full width and depth in bf16 through ``repro_torch.api.serve``: each
+  model served, launches a forward held to ``decode_step_calls``, bytes
+  against the plan, tok/s, p50/p99, decode step host and device ms, a
+  repeated step and prefill bit-identical, the MoE capacity drops per
+  step; then their new ``xus`` / ``avt`` shapes (the experts' G = 64 and
+  G = 16 stacks included) against the plain versions; OLMoE-1B-7B in f32,
+  kernel path against plain path: logits, and every layer's expert
+  choices; RWKV6-7B in f32 the same: logits and greedy tokens;
 - train: three FeDLRT rounds of llm-100m at full width and depth in f32
   through ``repro_torch.api.build(spec).run()``, counting the launches
   against the counts the model's factors imply; one more round under
@@ -90,6 +92,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -143,7 +146,11 @@ def decode_step_calls(cfg):
     The embedding runs its chain in f32 (``apply_embedding(dtype=f32)``);
     every linear layer and the LM head in the compute dtype. Attention's q
     and o are ``d × H·hd`` (not square where ``H·hd ≠ d``, as in
-    Qwen3-32B). A MoE layer runs each of its experts' up, gate and down
+    Qwen3-32B). A Mamba layer runs in_x, in_z, x_proj, dt_proj and out
+    (``d → d_inner``, ``d_inner → dt_rank + 2N``, ``dt_rank → d_inner``,
+    ``d_inner → d``); an RWKV layer r, k, v, g and out (``d → d``). A
+    projection under the policy's ``min_dim`` is a dense ``torch.matmul``,
+    not a kernel. A MoE layer runs each of its experts' up, gate and down
     projections as one call on the stack of G = E experts, and its shared
     experts' three as the MLP's; its router is a dense ``torch.matmul``,
     not a kernel.
@@ -152,8 +159,10 @@ def decode_step_calls(cfg):
     q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
     pol, dt = cfg.lowrank, cfg.compute_dtype
     r = pol.r_max_for
-    n_moe = cfg.superblocks * sum(cfg.moe_on_layer(i) for i in range(len(cfg.block_pattern)))
+    NB, pattern = cfg.superblocks, cfg.block_pattern
+    n_moe = NB * sum(cfg.moe_on_layer(i) for i in range(len(pattern)))
     n_mlp = cfg.num_layers - n_moe
+    n_attn, n_mamba, n_rwkv = (NB * pattern.count(kind) for kind in ("attn", "mamba", "rwkv"))
     calls = {}
 
     def add(kernel, dtype, dim, rank, n, G=1):
@@ -162,14 +171,22 @@ def decode_step_calls(cfg):
             calls[key] = calls.get(key, 0) + n
 
     def linear(n_in, n_out, n, G=1):
-        add("xus", dt, n_in, r(n_in, n_out), n, G)
-        add("avt", dt, n_out, r(n_in, n_out), n, G)
+        if pol.applies(n_in, n_out):
+            add("xus", dt, n_in, r(n_in, n_out), n, G)
+            add("avt", dt, n_out, r(n_in, n_out), n, G)
 
-    L = cfg.num_layers
-    linear(d, q, L)
-    linear(d, kv, 2 * L)
-    linear(q, d, L)
-    linear(d, dff, 2 * n_mlp)
+    linear(d, q, n_attn)
+    linear(d, kv, 2 * n_attn)
+    linear(q, d, n_attn)
+    if n_mamba:
+        d_inner = cfg.mamba.expand * d
+        dt_rank = cfg.mamba.dt_rank or -(-d // 16)
+        linear(d, d_inner, 2 * n_mamba)
+        linear(d_inner, dt_rank + 2 * cfg.mamba.d_state, n_mamba)
+        linear(dt_rank, d_inner, n_mamba)
+        linear(d_inner, d, n_mamba)
+    linear(d, d, 5 * n_rwkv)
+    linear(d, dff, (2 if cfg.gated_mlp else 1) * n_mlp)
     linear(dff, d, n_mlp)
     if n_moe:
         m = cfg.moe
@@ -912,14 +929,19 @@ def phase_serve_quant(torch, counters, serve_stats, bf16_tokens):
 #: (arch, requests, new tokens) the models phase serves at full width and
 #: depth in bf16: OLMoE-1B-7B, the MoE block's path, with the serve phase's
 #: 8 requests of 16 new tokens; the other four with 4 requests of 8
+#: 8; then the SSM slice's RWKV6-7B and Jamba-1.5-Large (last: its 34 GB
+#: of factors), 4 × 8 each
 MODELS = (("olmoe-1b-7b", 8, 16), ("deepseek-moe-16b", 4, 8), ("codeqwen1.5-7b", 4, 8),
-          ("qwen1.5-32b", 4, 8), ("qwen3-32b", 4, 8))
+          ("qwen1.5-32b", 4, 8), ("qwen3-32b", 4, 8), ("rwkv6-7b", 4, 8),
+          ("jamba-1.5-large-398b", 4, 8))
 #: every factor's bf16 bytes, GB, as planned from ``LowRankPolicy.r_max_for``
 #: and the published dimensions before the first run (PERF.md, §6)
 PLANNED_FACTOR_GB = {"codeqwen1.5-7b": 1.53, "qwen1.5-32b": 4.76, "qwen3-32b": 4.30,
-                     "olmoe-1b-7b": 2.72, "deepseek-moe-16b": 7.46}
-#: OLMoE-1B-7B in f32, kernel path against plain path: logits within this
-#: share of max |logit| (f32 sums in other orders through 16 layers)
+                     "olmoe-1b-7b": 2.72, "deepseek-moe-16b": 7.46, "rwkv6-7b": 1.38,
+                     "jamba-1.5-large-398b": 34.01}
+#: OLMoE-1B-7B and RWKV6-7B in f32, kernel path against plain path: logits
+#: within this share of max |logit| (f32 sums in other orders through 16 or
+#: 32 layers)
 MODEL_F32_RTOL = 1e-4
 #: an expert choice may differ between the two paths only where the router's
 #: k-th and (k+1)-th probabilities are closer than this
@@ -953,12 +975,11 @@ def topk_margin(torch, probs, k):
     return ranked[:, k - 1] - ranked[:, k]
 
 
-def capacity_drops(torch, routings, n_tokens, top_k, n_layers):
+def capacity_drops(torch, decode, n_tokens, top_k, n_layers):
     """(token, expert) assignments the capacity dropped in each decode
-    step, summed over its ``n_layers`` MoE calls: the calls that route the
-    decode batch's ``n_tokens`` (a prefill routes a bucket of 16 or more)."""
-    decode = [r for r in routings if r.probs.shape[0] == n_tokens]
-    if not decode or len(decode) % n_layers:
+    step, summed over its ``n_layers`` MoE calls: ``decode`` holds the
+    routings of the decode steps' calls, in order, ``n_tokens`` each."""
+    if not decode or len(decode) % n_layers or {r.probs.shape[0] for r in decode} != {n_tokens}:
         raise AssertionError(f"{len(decode)} decode-shaped MoE calls, not a multiple of "
                              f"{n_layers} layers")
     kept = torch.stack([(r.w_taken > 0).sum() for r in decode]).view(-1, n_layers)
@@ -1023,9 +1044,10 @@ def path_calls(routings, shapes):
 
 
 def phase_models(torch, counters, records):
-    """The five architectures this slice adds (CodeQwen1.5-7B, Qwen1.5-32B,
-    Qwen3-32B, OLMoE-1B-7B, DeepSeekMoE-16B), at full width and depth in
-    bf16 (fresh seeded weights):
+    """The architectures beyond Qwen2-7B (CodeQwen1.5-7B, Qwen1.5-32B,
+    Qwen3-32B, OLMoE-1B-7B, DeepSeekMoE-16B; RWKV6-7B and
+    Jamba-1.5-Large, whose recurrent blocks prefill each prompt at its true
+    length), at full width and depth in bf16 (fresh seeded weights):
 
     - each model served through ``repro_torch.api.serve``, one session at a
       time: launches per forward held to :func:`decode_step_calls`, the
@@ -1040,8 +1062,10 @@ def phase_models(torch, counters, records):
     - each recorded shape the kernels phase did not cover, against its
       plain version with its times and bound (K 4096 / 5120 / 8192, N
       13440 / 25600 / 27392 / 8192, the experts' G = 64 stacks at R 128
-      and 176);
-    - OLMoE-1B-7B's f32 check (:func:`olmoe_f32_check`).
+      and 176; Mamba's d_inner 16384 projections, its x_proj at R 72 and
+      dt_proj at K 512, Jamba's G = 16 expert stacks);
+    - OLMoE-1B-7B's and RWKV6-7B's f32 checks (:func:`olmoe_f32_check`,
+      :func:`rwkv_f32_check`).
 
     Returns (kernel records, stats)."""
     import numpy as np
@@ -1058,6 +1082,8 @@ def phase_models(torch, counters, records):
     for arch, n_requests, new in MODELS:
         spec = model_serve_spec(arch, new)
         tag = f"[models {arch}]"
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         session = serve(spec, device="cuda")
@@ -1065,14 +1091,28 @@ def phase_models(torch, counters, records):
         build_s = time.perf_counter() - t0
         eng = session.engine
         cfg = eng.model.cfg
+        mixers = "+".join(sorted(set(cfg.block_pattern)))
         log(f"{tag} built ({cfg.num_layers} layers, d {cfg.d_model}, {cfg.compute_dtype}, "
-            f"{'MoE' if cfg.moe else 'dense'}) in {build_s:.1f} s")
+            f"{mixers}, {'MoE' if cfg.moe else 'dense'}, prefill at "
+            f"{'the true length' if eng.exact_prefill else 'buckets'}) in {build_s:.1f} s")
         log(session.describe())
         pf = per_forward(cfg)
-        # the path: counts at 0 just before, read just after (drive_session)
-        routings, shapes = [], set()
+        # the path: counts at 0 just before, read just after (drive_session);
+        # the MoE calls of the decode steps kept apart from the prefills'
+        routings, shapes, decode_routings = [], set(), []
+        step_fn = eng.step
+
+        def marked_step(state, last, step_fn=step_fn, routings=routings,
+                        decode_routings=decode_routings):
+            n0 = len(routings)
+            out = step_fn(state, last)
+            decode_routings.extend(routings[n0:])
+            return out
+
+        eng.step = marked_step
         with path_calls(routings, shapes):
             _, got, st = drive_session(torch, session, spec, tag, n_requests=n_requests)
+        eng.step = step_fn
         _add_counts(total, got)
         if {sh[:5] for sh in shapes} != set(decode_step_calls(cfg)):
             raise AssertionError(f"{tag}: the path's (kernel, dtype, K or N, R, G) differ from "
@@ -1085,13 +1125,19 @@ def phase_models(torch, counters, records):
         host_ms, dev_ms, state, last = decode_step_ms(torch, session)
         # the same step and the same prefill again: the same bits
         step_a, step_b = eng.step(state, last)[0], eng.step(state, last)[0]
-        pre_a, pre_b = eng.prefill(np.arange(3, 40))[0], eng.prefill(np.arange(3, 40))[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre_a = eng.prefill(np.arange(3, 40))[0]
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        pre_b = eng.prefill(np.arange(3, 40))[0]
         if not (torch.equal(step_a, step_b) and torch.equal(pre_a, pre_b)):
             raise AssertionError(f"{tag}: a repeated decode step or prefill changed the logits")
         dispatches = count_dispatches(torch, lambda: eng.step(state, last))
         log(f"{tag} ATen dispatches in one decode step: {dispatches} (plus {2 * pf} ctypes "
-            f"kernel calls)")
-        if cfg.moe is not None:  # where a MoE decode step's device time goes
+            f"kernel calls); a 37-token prefill: host {prefill_ms:.2f} ms (at "
+            f"{eng.bucket_len(37)} tokens)")
+        if cfg.moe is not None or eng.exact_prefill:  # where the decode step's device time goes
             n, busy_s, _ = device_profile(torch, lambda: eng.step(state, last),
                                           f"{tag} profile", 8)
             log(f"{tag} profile: one decode step, {n} kernels, device busy "
@@ -1111,11 +1157,13 @@ def phase_models(torch, counters, records):
         rec = dict(st, layers=cfg.num_layers, build_s=build_s, resident_bytes=res,
                    factor_bytes=fb, planned_factor_gb=planned, step_factor_bytes=step_bytes,
                    floor_ms=floor_ms, step_host_ms=host_ms, step_device_ms=dev_ms,
-                   peak_gib=peak, per_forward=pf, aten_dispatches=dispatches, launches=got)
+                   peak_gib=peak, per_forward=pf, aten_dispatches=dispatches, launches=got,
+                   prefill37_host_ms=prefill_ms)
         if cfg.moe is not None:
             m = cfg.moe
-            drops = capacity_drops(torch, routings, eng.max_batch, m.top_k, cfg.num_layers)
-            n = eng.max_batch * m.top_k * cfg.num_layers
+            n_moe = cfg.superblocks * sum(map(cfg.moe_on_layer, range(len(cfg.block_pattern))))
+            drops = capacity_drops(torch, decode_routings, eng.max_batch, m.top_k, n_moe)
+            n = eng.max_batch * m.top_k * n_moe
             log(f"{tag} capacity factor {m.capacity_factor} (cap 1 a decode step): "
                 f"(token, expert) assignments dropped per decode step, of {n}: mean "
                 f"{np.mean(drops):.2f}, min {min(drops)}, max {max(drops)} over {len(drops)} "
@@ -1123,7 +1171,7 @@ def phase_models(torch, counters, records):
             rec["capacity_drops"] = dict(assignments=n, mean=float(np.mean(drops)),
                                          min=min(drops), max=max(drops), steps=len(drops))
         stats[arch] = rec
-        del session, eng, state, routings, step_a, step_b, pre_a, pre_b
+        del session, eng, state, routings, decode_routings, step_a, step_b, pre_a, pre_b
         torch.cuda.empty_cache()
         # each shape the path gave the kernels, against its plain version
         for kernel, dtype, dim, R, G, M in sorted(shapes - have):
@@ -1132,26 +1180,24 @@ def phase_models(torch, counters, records):
         _check_records(model_records)
         torch.cuda.empty_cache()
     stats["olmoe-1b-7b f32"] = olmoe_f32_check(torch)
+    stats["rwkv6-7b f32"] = rwkv_f32_check(torch)
     return model_records, stats
 
 
-def olmoe_f32_check(torch):
-    """OLMoE-1B-7B at full width and depth in f32: one 37-token prefill and
-    one decode step on the kernel path against the plain path
-    (``kernels="off"``) on the same weights and tokens. Logits within
-    ``MODEL_F32_RTOL`` of max |logit|; every layer's expert choices the
-    same, except where the plain path's top-k margin is under
-    ``FLIP_MARGIN`` (each such flip printed); the smallest margin printed.
-    """
+def f32_runs(torch, arch, seed):
+    """``arch`` at full width and depth in f32, fresh weights from ``seed``:
+    one 37-token prefill and one decode step (the prefill's greedy token)
+    on the kernel path and on the plain path (``kernels="off"``), on the
+    same weights and tokens. Returns (config, {"kernels" | "plain":
+    {"logits": (prefill, decode), "routed": the MoE calls' routings}})."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), compute_dtype="float32",
-                              param_dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32", param_dtype="float32")
     models = {"kernels": build_model(cfg),
               "plain": build_model(dataclasses.replace(cfg, kernels="off"))}
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(2)
+    gen.manual_seed(seed)
     with torch.inference_mode():
         params = models["kernels"].init(gen)
     prompt = torch.randint(1, cfg.vocab_size, (1, 37), generator=gen, device="cuda")
@@ -1165,7 +1211,18 @@ def olmoe_f32_check(torch):
             step, _ = model.serve_step(params, cache, tok)
         runs[name] = dict(logits=(pre, step), routed=routed)
         del cache
+    del params
     torch.cuda.synchronize()
+    return cfg, runs
+
+
+def olmoe_f32_check(torch):
+    """OLMoE-1B-7B at full width and depth in f32, :func:`f32_runs`. Logits
+    within ``MODEL_F32_RTOL`` of max |logit|; every layer's expert choices
+    the same, except where the plain path's top-k margin is under
+    ``FLIP_MARGIN`` (each such flip printed); the smallest margin printed.
+    """
+    cfg, runs = f32_runs(torch, "olmoe-1b-7b", 2)
     k = cfg.moe.top_k
     errs = []
     pairs = zip(("prefill", "decode"), runs["kernels"]["logits"], runs["plain"]["logits"])
@@ -1191,10 +1248,35 @@ def olmoe_f32_check(torch):
     if not max(errs) <= MODEL_F32_RTOL:
         raise AssertionError(f"[models f32] kernel-path logits differ from the plain path's by "
                              f"{max(errs)} of max |logit| (> {MODEL_F32_RTOL})")
-    del runs, params
+    del runs
     torch.cuda.empty_cache()
     return dict(prefill_rel_err=errs[0], decode_rel_err=errs[1], flips=len(flips),
                 smallest_margin=smallest)
+
+
+def rwkv_f32_check(torch):
+    """RWKV6-7B at full width and depth in f32 (~2.8 GB), :func:`f32_runs`:
+    logits within ``MODEL_F32_RTOL`` of max |logit|, and the greedy token
+    of each the same."""
+    _, runs = f32_runs(torch, "rwkv6-7b", 3)
+    errs = []
+    for what, a, b in zip(("prefill", "decode"), runs["kernels"]["logits"],
+                          runs["plain"]["logits"]):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"[models f32] rwkv6-7b {what} logits are not finite")
+        errs.append(((a - b).abs().max() / b.abs().max()).item())
+        same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+        log(f"[models f32] rwkv6-7b {what}: max |logits(kernels) - logits(off)| / max |logit| "
+            f"= {errs[-1]:.3g} (tol {MODEL_F32_RTOL}); greedy token "
+            f"{'the same' if same else 'DIFFERS'}")
+        if not same:
+            raise AssertionError(f"[models f32] rwkv6-7b {what}: the greedy token differs")
+    if not max(errs) <= MODEL_F32_RTOL:
+        raise AssertionError(f"[models f32] rwkv6-7b kernel-path logits differ from the plain "
+                             f"path's by {max(errs)} of max |logit| (> {MODEL_F32_RTOL})")
+    del runs
+    torch.cuda.empty_cache()
+    return dict(prefill_rel_err=errs[0], decode_rel_err=errs[1])
 
 
 # ---------------------------------------------------------------------------

@@ -346,8 +346,9 @@ class ServeSpec:
     ``checkpoint`` names a ``round_*.npz`` file or a checkpoint directory
     (latest round wins); ``None`` serves fresh seed-initialized params.
     ``mode`` selects continuous batching or the static-wave baseline.
-    Prompts are right-padded to ``prompt_bucket`` multiples, and decode runs
-    at ``(max_batch, max_prompt + max_new_tokens)``. The at-rest transforms
+    Prompts are right-padded to ``prompt_bucket`` multiples (a model with a
+    Mamba or RWKV block runs each at its true length), and decode runs at
+    ``(max_batch, max_prompt + max_new_tokens)``. The at-rest transforms
     (:mod:`repro_torch.serve.quantize`): ``quantize`` (none | int8 | bf16),
     ``rank_slice`` (drop inactive factor columns) and ``materialize`` (the
     dense ``U S Vᵀ`` baseline).

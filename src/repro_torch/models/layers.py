@@ -87,6 +87,13 @@ class Builder:
     def vector(self, path: str, shape, *, init: float = 1.0):
         self._put(path, torch.full(tuple(shape), init, dtype=self.dtype, device=self.device))
 
+    def normal(self, path: str, shape, *, scale: float = 0.02):
+        """A dense tensor drawn with standard deviation ``scale`` (the
+        Mamba conv taps, the RWKV decay LoRA)."""
+        w = scale * torch.randn(tuple(shape), generator=self.gen, device=self.device,
+                                dtype=torch.float32)
+        self._put(path, w.to(self.dtype))
+
     def build(self) -> dict:
         return self.params
 

@@ -1,6 +1,6 @@
 """Top-level model: init / loss_fn / init_cache / serve_prefill /
 serve_step — the decoder-only families of the JAX package's
-``models/model.py``, in PyTorch.
+``models/model.py`` (dense, MoE, SSM and hybrid), in PyTorch.
 
 ``build_model(cfg)`` returns a :class:`Model` with
 
@@ -14,7 +14,8 @@ serve_step — the decoder-only families of the JAX package's
 - ``init_cache(params, batch, cache_len, per_slot=False)``;
 - ``serve_prefill(params, batch, cache_len=0, last_index=None) → (logits,
   cache)`` and ``serve_step(params, cache, tokens) → (logits, cache)``:
-  KV-cached decode. The cache's k/v tensors are updated in place.
+  cached decode: attention's k/v tensors are updated in place, a Mamba or
+  RWKV block's state is returned anew.
 """
 from __future__ import annotations
 
@@ -47,12 +48,12 @@ def _check_family(cfg: ModelConfig) -> None:
             f"the {cfg.family!r} family ({cfg.name}) is not ported to PyTorch "
             f"yet; see ROADMAP.md, queue 1"
         )
-    mixers = sorted(set(cfg.block_pattern) - {"attn"})
-    if mixers:
-        raise NotImplementedError(
-            f"the {', '.join(mixers)} mixer of {cfg.name} is not ported to PyTorch "
-            f"yet; see ROADMAP.md, queue 1"
-        )
+
+
+def has_recurrent_mixer(cfg: ModelConfig) -> bool:
+    """Whether a block of ``cfg`` carries a recurrent state (Mamba, RWKV):
+    such a model's prefill is exact only at the prompt's true length."""
+    return bool(set(cfg.block_pattern) & {"mamba", "rwkv"})
 
 
 def build_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
@@ -129,10 +130,13 @@ def build_model(cfg: ModelConfig) -> Model:
         """Process the full prompt; returns (last-token logits, cache).
 
         ``last_index`` reads the logits at that sequence position instead
-        of the final one and stamps ``pos`` to ``last_index + 1``: right-
-        padded prompts stay exact, since the causal mask keeps pad keys out
-        of every real query, and the serving engine's slot insert stamps
-        the cache index with the true length so the pad entries are masked.
+        of the final one and stamps ``pos`` to ``last_index + 1``. For
+        attention, right-padded prompts stay exact: the causal mask keeps
+        pad keys out of every real query, and the serving engine's slot
+        insert stamps the cache index with the true length so the pad
+        entries are masked. A recurrent block has no mask: pad tokens
+        would advance its state, so the engine runs such a model's prompt
+        at its true length (:func:`has_recurrent_mixer`).
         """
         tokens = batch["tokens"]  # (B, S)
         emb = apply_embedding(

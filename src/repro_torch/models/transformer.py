@@ -1,16 +1,16 @@
-"""Block assembly: attention + MLP / MoE blocks over stacked layer
-parameters.
+"""Block assembly: attention / Mamba / RWKV mixers with MLP / MoE blocks
+over stacked layer parameters.
 
 Parameters of each position of ``cfg.block_pattern`` are stacked over the
 superblocks (leading dim ``NB``), as in the JAX package; its ``lax.scan``
 over that axis is a Python loop here that indexes the stack. Serving
-threads one cache slice per block through the loop; on the loss path the
-MoE blocks' auxiliary losses are summed over it, layer by layer, as the
-scan carries them.
+threads one cache slice per block through the loop: an attention block's
+k/v written in place, a recurrent block's state returned new. On the loss
+path the MoE blocks' auxiliary losses are summed over it, layer by layer,
+as the scan carries them.
 
-The port runs the attention mixer with the (gated) MLP or the MoE block.
-``models.model`` refuses the other mixers (Mamba, RWKV) and
-cross-attention where the model is built: see ROADMAP.md, queue 1.
+``models.model`` refuses cross-attention (the encoder-decoder family)
+where the model is built: see ROADMAP.md, queue 1.
 """
 from __future__ import annotations
 
@@ -29,6 +29,14 @@ from repro_torch.models.layers import (
     rms_norm,
 )
 from repro_torch.models.moe import build_moe, moe_block
+from repro_torch.models.ssm import (
+    build_mamba,
+    build_rwkv,
+    mamba_init_state,
+    mamba_mix,
+    rwkv_init_state,
+    rwkv_mix,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -62,7 +70,14 @@ def build_block(b: Builder, prefix: str, kind: str, cfg: ModelConfig,
     bs = (n_blocks,)
     b.vector(f"{prefix}/ln1", bs + (cfg.d_model,))
     b.vector(f"{prefix}/ln2", bs + (cfg.d_model,))
-    build_attn(b, f"{prefix}/attn", cfg, n_blocks)
+    if kind == "attn":
+        build_attn(b, f"{prefix}/attn", cfg, n_blocks)
+    elif kind == "mamba":
+        build_mamba(b, f"{prefix}/mamba", cfg, n_blocks)
+    elif kind == "rwkv":
+        build_rwkv(b, f"{prefix}/rwkv", cfg, n_blocks)
+    else:
+        raise ValueError(kind)
     if moe_here:
         build_moe(b, f"{prefix}/moe", cfg, n_blocks)
     else:
@@ -144,11 +159,19 @@ def mlp_apply(p: dict, x, cfg: ModelConfig):
 
 def block_apply(p: dict, kind: str, x, cfg: ModelConfig, *, positions,
                 cache: Optional[dict], with_aux: bool = False):
-    """One (attention + MLP or MoE) block with pre-norm residuals.
-    Returns (x, new_cache, aux_loss); aux_loss is None but for a MoE block
-    asked ``with_aux``."""
+    """One (mixer + MLP or MoE) block with pre-norm residuals. Returns (x,
+    new_cache, aux_loss); aux_loss is None but for a MoE block asked
+    ``with_aux``. A recurrent mixer reads no positions: its cache is its
+    state."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    mix_out, new_cache = attn_mix(p["attn"], h, cfg, positions=positions, cache=cache)
+    if kind == "attn":
+        mix_out, new_cache = attn_mix(p["attn"], h, cfg, positions=positions, cache=cache)
+    elif kind == "mamba":
+        mix_out, new_cache = mamba_mix(p["mamba"], h, cfg, state=cache)
+    elif kind == "rwkv":
+        mix_out, new_cache = rwkv_mix(p["rwkv"], h, cfg, state=cache)
+    else:
+        raise ValueError(kind)
     x = x + mix_out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
@@ -166,18 +189,28 @@ def block_apply(p: dict, kind: str, x, cfg: ModelConfig, *, positions,
 def init_cache_stack(cfg: ModelConfig, batch: int, cache_len: int, dtype, device, *,
                      per_slot: bool = False) -> dict:
     """Per-position cache stacks (leading dim = superblocks). ``per_slot``
-    makes the write index a vector over the batch, (NB, batch) instead of
-    (NB,), so sequences can sit at different positions in one batch."""
+    makes the attention write index a vector over the batch, (NB, batch)
+    instead of (NB,), so sequences can sit at different positions in one
+    batch. A Mamba position holds {"h" f32, "conv"} and an RWKV position
+    {"S" f32, "shift"}, each with batch on axis 1."""
     NB = cfg.superblocks
     Hkv, hd = cfg.num_kv_heads, cfg.hd
     idx_shape = (NB, batch) if per_slot else (NB,)
     caches = {}
-    for i in range(len(cfg.block_pattern)):
-        caches[f"pos{i}"] = {
-            "k": torch.zeros((NB, batch, cache_len, Hkv, hd), dtype=dtype, device=device),
-            "v": torch.zeros((NB, batch, cache_len, Hkv, hd), dtype=dtype, device=device),
-            "idx": torch.zeros(idx_shape, dtype=torch.int32, device=device),
-        }
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind == "attn":
+            c = {
+                "k": torch.zeros((NB, batch, cache_len, Hkv, hd), dtype=dtype, device=device),
+                "v": torch.zeros((NB, batch, cache_len, Hkv, hd), dtype=dtype, device=device),
+                "idx": torch.zeros(idx_shape, dtype=torch.int32, device=device),
+            }
+        elif kind in ("mamba", "rwkv"):
+            init = mamba_init_state if kind == "mamba" else rwkv_init_state
+            c = {k: v.expand((NB,) + v.shape).contiguous()
+                 for k, v in init(cfg, batch, dtype, device).items()}
+        else:
+            raise ValueError(kind)
+        caches[f"pos{i}"] = c
     return caches
 
 
@@ -194,14 +227,16 @@ def stack_apply(blocks: dict, x, cfg: ModelConfig, *, positions,
                 caches: Optional[dict] = None, with_aux: bool = False):
     """Run the superblock stack. blocks/caches: dicts of stacked params and
     cache slices. Returns (x, new_caches, total_aux); the new caches are
-    stacked like the old ones (their k/v tensors are the old ones, written
-    in place). ``with_aux``: ``total_aux`` is the f32 sum of the MoE
-    blocks' auxiliary losses in layer order (0 where there are none);
-    otherwise 0."""
+    stacked like the old ones. A leaf a block wrote in place (attention's
+    k/v) stays the old stack; every other leaf (attention's ``idx``, a
+    recurrent block's state) is a new stack of the blocks' new values, so
+    the old caches still hold the state the step started from.
+    ``with_aux``: ``total_aux`` is the f32 sum of the MoE blocks'
+    auxiliary losses in layer order (0 where there are none); otherwise 0."""
     pattern = cfg.block_pattern
     h = x
     aux = 0
-    new_idx = {f"pos{i}": [] for i in range(len(pattern))}
+    new = {f"pos{i}": {} for i in range(len(pattern))}
     for sb in range(cfg.superblocks):
         for i, kind in enumerate(pattern):
             key = f"pos{i}"
@@ -210,12 +245,14 @@ def stack_apply(blocks: dict, x, cfg: ModelConfig, *, positions,
                                    positions=positions, cache=c_i, with_aux=with_aux)
             if a is not None:
                 aux = aux + a
-            if nc is not None:
-                new_idx[key].append(nc["idx"])
+            for name, leaf in (nc or {}).items():
+                if leaf is not c_i[name]:
+                    new[key].setdefault(name, []).append(leaf)
     if caches is None:
         return h, None, aux
     new_caches = {
-        key: {"k": c["k"], "v": c["v"], "idx": torch.stack(new_idx[key])}
+        key: {name: torch.stack(new[key][name]) if name in new[key] else leaf
+              for name, leaf in c.items()}
         for key, c in caches.items()
     }
     return h, new_caches, aux

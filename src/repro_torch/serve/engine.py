@@ -4,10 +4,15 @@ The engine owns the model, its parameters and the per-slot decode state;
 the scheduler (:mod:`repro_torch.serve.scheduler`) owns request admission.
 Serving runs eagerly under ``torch.inference_mode()``, in three shapes:
 
-- **prefill per prompt-length bucket** — prompts are right-padded to the
-  next multiple of ``prompt_bucket`` and run at ``B = 1``; the causal mask
-  keeps pad keys out of every real query and ``last_index`` reads the true
-  last-token logits, so bucketing never changes tokens;
+- **prefill per prompt-length bucket** — prompts run at ``B = 1``. An
+  attention-only model's are right-padded to the next multiple of
+  ``prompt_bucket``: the causal mask keeps pad keys out of every real query,
+  ``last_index`` reads the true last-token logits and the insert stamps the
+  cache index with the true length, so the pad entries stay masked. A
+  recurrent block (Mamba, RWKV) has no mask, and a pad token would advance
+  its state, so a model with one runs each prompt at its true length (its
+  own bucket; the port compiles nothing per bucket). So bucketing never
+  changes tokens, for either kind of model;
 - **insert** — copies a B=1 prefill cache into slot ``i`` of the per-slot
   batch state, in place;
 - **decode** at the fixed ``(max_batch, cache_len)`` shape — every step
@@ -38,6 +43,7 @@ import torch
 
 from repro_torch.core import cost_model
 from repro_torch.core.factorization import is_factor
+from repro_torch.models.model import has_recurrent_mixer
 from repro_torch.serve.quantize import dequantize_params, is_factor_like
 from repro_torch.telemetry import get_hub
 from repro_torch.utils.tree import tree_leaves, tree_map_with_path
@@ -66,8 +72,9 @@ def _insert_cache(state: dict, one: dict, slot: int, length: int) -> dict:
     ``idx`` buffers are (NB, batch) write indices and ``pos`` is the
     (batch,) position vector: both are stamped with the true prompt
     ``length``, so the right-pad columns beyond it become stale cache
-    entries the attention mask already rejects. Every other leaf carries
-    batch on axis 1 under the (NB, ...) stack.
+    entries the attention mask already rejects. Every other leaf (k / v,
+    and a recurrent block's state: Mamba's ``h`` and ``conv``, RWKV's ``S``
+    and ``shift``) carries batch on axis 1 under the (NB, ...) stack.
     """
     for k, dv in state.items():
         sv = one[k]
@@ -140,6 +147,7 @@ class ServeEngine:
         self.temperature = float(temperature)
         self.seed = int(seed)
         self.cache_len = self.max_prompt + self.max_new_tokens
+        self.exact_prefill = has_recurrent_mixer(model.cfg)
         self.hub = telemetry if telemetry is not None else get_hub()
 
     # ------------------------------------------------------------- state
@@ -154,6 +162,11 @@ class ServeEngine:
     # ----------------------------------------------------------- prefill
 
     def bucket_len(self, length: int) -> int:
+        """The padded length a prompt of ``length`` tokens runs at: the next
+        multiple of ``prompt_bucket``, or ``length`` itself for a model with
+        a recurrent block (whose state a pad token would advance)."""
+        if self.exact_prefill:
+            return length
         b = self.prompt_bucket
         return -(-length // b) * b
 

@@ -31,6 +31,7 @@ from repro_torch.core.factorization import is_factor
 from repro_torch.fed.engine import history_to_state
 from repro_torch.launch import train as launch_train
 from repro_torch.utils.tree import tree_leaves
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 CONFIGS = sorted((Path(__file__).resolve().parent.parent / "examples" / "configs").glob("*.toml"))
 SYNC = next(p for p in CONFIGS if p.name == "sync_baseline.toml")

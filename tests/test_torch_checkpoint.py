@@ -34,6 +34,7 @@ from repro_torch.checkpoint import load_checkpoint, params_from_numpy, save_chec
 from repro_torch.core import factorization as fac
 from repro_torch.fed.engine import RoundResult, history_from_state
 from repro_torch.utils.tree import tree_leaves
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 LOSS_BEFORE_RTOL = 1e-5
 LOSS_AFTER_RTOL = 1e-4

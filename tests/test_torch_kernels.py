@@ -52,6 +52,7 @@ from repro_torch.kernels.coeff_grad import (
     ATB_TILE,
     atb_plan,
 )
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 # f32: both sides accumulate in f32 and differ only in summation order.
 # bf16: both round once from f32 to bf16 at the output (x·U and S in f32 on
@@ -691,14 +692,16 @@ def test_train_avt_calls_llm_100m_round():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "codeqwen1.5-7b", "qwen1.5-32b", "qwen3-32b",
-                                  "olmoe-1b-7b", "deepseek-moe-16b"])
+                                  "olmoe-1b-7b", "deepseek-moe-16b", "rwkv6-7b",
+                                  "jamba-1.5-large-398b"])
 def test_decode_step_calls_are_the_calls_a_decode_step_makes(arch, monkeypatch):
     """``chip_smoke.decode_step_calls`` (which the card run holds every
     served model's launches to) counts the xus / avt calls one 4-slot
     decode step of the reduced architecture makes, by (dtype, K or N, R,
     stack G): the experts' stacks at G = E, the shared experts and the
     router (a dense product, no call) of a MoE layer, Qwen3's d × H·hd q
-    and o."""
+    and o, RWKV's five projections, Mamba's five (its dt_proj dense at
+    this size, under the policy's ``min_dim``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import lowrank_matmul
     from repro_torch.models import build_model, reduced

@@ -41,6 +41,7 @@ from repro_torch.core.factorization import (
 )
 from repro_torch.models import build_model, reduced
 from repro_torch.serve.engine import _insert_cache
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 # f32 on both sides; the two differ in summation order and in the libm
 # behind pow/sin/cos of RoPE, which moves the logits by ~1e-6
@@ -217,20 +218,20 @@ def test_lr_matmul_and_materialize_match_jax():
 
 def test_unported_architectures_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config("jamba-1.5-large-398b"))
+        build_model(get_config("whisper-large-v3"))
     with pytest.raises(ValueError, match="unknown architecture"):
         get_config("gpt-5")
 
 
 #: the architectures whose model the port builds
 BUILDS = {"qwen2_7b", "codeqwen15_7b", "qwen15_32b", "qwen3_32b", "olmoe_1b_7b",
-          "deepseek_moe_16b"}
+          "deepseek_moe_16b", "rwkv6_7b", "jamba_15_large"}
 
 
 def test_all_configs_match_the_jax_package():
     """The registry holds the JAX package's architectures with its exact
-    values; the port builds the attention-only ones (dense MLP or MoE) and
-    names ROADMAP.md for the others."""
+    values; the port builds the decoder-only ones (attention, Mamba and
+    RWKV mixers; dense MLP or MoE) and names ROADMAP.md for the others."""
     ours, theirs = all_configs(), jax_all_configs()
     assert list(ours) == list(theirs) == list(ARCH_IDS)
     for arch, cfg in theirs.items():

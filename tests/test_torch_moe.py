@@ -41,6 +41,7 @@ from repro_torch.serve import ContinuousScheduler, Request, ServeEngine
 from repro_torch.serve import engine as tengine
 from repro_torch.serve import quantize as tq
 from repro_torch.utils.tree import tree_leaves
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ARCHS = ["olmoe-1b-7b", "deepseek-moe-16b"]
 Y_RTOL = 1e-5

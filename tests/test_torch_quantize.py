@@ -40,6 +40,7 @@ from repro_torch.core import factorization as fac
 from repro_torch.serve import engine as tengine
 from repro_torch.serve import quantize as tq
 from repro_torch.utils.tree import tree_leaves
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 SERVE_KW = dict(max_batch=3, max_prompt=16, prompt_bucket=8, max_new_tokens=6)

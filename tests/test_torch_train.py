@@ -51,6 +51,7 @@ from repro_torch.optim import adam, cosine_schedule, sgd
 from repro_torch.utils.tree import tree_leaves
 
 from conftest import as_batches, lsq_dense_loss, lsq_loss
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 LOSS_BEFORE_RTOL = 1e-5
 LOSS_AFTER_RTOL = 1e-4
