@@ -119,7 +119,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 KERNELS = tuple(SOURCES)
-PATHS = ("serve", "serve-quant", "models", "train", "flash", "spec", "sim")
+PATHS = ("serve", "serve-quant", "models", "encdec", "vlm", "train", "flash", "spec", "sim")
 #: tolerance of a kernel against its plain version, with the reason
 TOL = {
     # both round once from f32 to bf16; f32 sums taken in different orders
@@ -140,8 +140,10 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def decode_step_calls(cfg):
-    """(kernel, dtype, K or N, R, G) → launches per decode step of ``cfg``.
+def decode_step_calls(cfg, encoder=False):
+    """(kernel, dtype, K or N, R, G) → launches per decode step of ``cfg``
+    (``encoder``: per prefill of an encoder-decoder model, which also runs
+    the encoder).
 
     The embedding runs its chain in f32 (``apply_embedding(dtype=f32)``);
     every linear layer and the LM head in the compute dtype. Attention's q
@@ -153,7 +155,9 @@ def decode_step_calls(cfg):
     not a kernel. A MoE layer runs each of its experts' up, gate and down
     projections as one call on the stack of G = E experts, and its shared
     experts' three as the MLP's; its router is a dense ``torch.matmul``,
-    not a kernel.
+    not a kernel. An encoder-decoder model's decoder layer adds its cross
+    block's xq, xk, xv and xo (xk and xv over the encoder's states, at
+    every step); its encoder layer runs q, k, v, o and the MLP.
     """
     d, dff, V, hd = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.hd
     q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -175,9 +179,11 @@ def decode_step_calls(cfg):
             add("xus", dt, n_in, r(n_in, n_out), n, G)
             add("avt", dt, n_out, r(n_in, n_out), n, G)
 
-    linear(d, q, n_attn)
-    linear(d, kv, 2 * n_attn)
-    linear(q, d, n_attn)
+    n_enc = cfg.encoder.num_layers if encoder and cfg.is_encdec else 0
+    n_cross = n_attn if cfg.is_encdec else 0
+    linear(d, q, n_attn + n_cross + n_enc)
+    linear(d, kv, 2 * (n_attn + n_cross + n_enc))
+    linear(q, d, n_attn + n_cross + n_enc)
     if n_mamba:
         d_inner = cfg.mamba.expand * d
         dt_rank = cfg.mamba.dt_rank or -(-d // 16)
@@ -186,8 +192,8 @@ def decode_step_calls(cfg):
         linear(dt_rank, d_inner, n_mamba)
         linear(d_inner, d, n_mamba)
     linear(d, d, 5 * n_rwkv)
-    linear(d, dff, (2 if cfg.gated_mlp else 1) * n_mlp)
-    linear(dff, d, n_mlp)
+    linear(d, dff, (2 if cfg.gated_mlp else 1) * (n_mlp + n_enc))
+    linear(dff, d, n_mlp + n_enc)
     if n_moe:
         m = cfg.moe
         linear(d, m.d_expert, 2 * n_moe, G=m.num_experts)
@@ -433,8 +439,10 @@ def kernel_case(torch, kernel, dtype_name, M, dim, R, gen, G=1, tag="[kernels]")
                    "avt": lambda A, V: torch.matmul(A, V.transpose(-1, -2))}
     kfn, pfn, lfn = {"xus": (xus, ref.xus_ref), "avt": (avt, ref.avt_ref)}[kernel] + (
         library[kernel],)
-    weight_bytes = G * dim * R * dtype.itemsize
-    n_sets = max(2, min(512, math.ceil(L2_DEFEAT_BYTES / weight_bytes)))
+    # input sets cycled: the weights, or at a prefill's M the activations,
+    # of all of them at least 4x the L2
+    set_bytes = G * max(dim * R, M * (dim if kernel == "xus" else R)) * dtype.itemsize
+    n_sets = max(2, min(512, math.ceil(L2_DEFEAT_BYTES / set_bytes)))
     sets = _case_inputs(torch, kernel, dtype, M, dim, R, n_sets, gen, G)
     got, want = kfn(*sets[0]), pfn(*sets[0])
     torch.cuda.synchronize()
@@ -938,7 +946,8 @@ MODELS = (("olmoe-1b-7b", 8, 16), ("deepseek-moe-16b", 4, 8), ("codeqwen1.5-7b",
 #: and the published dimensions before the first run (PERF.md, §6)
 PLANNED_FACTOR_GB = {"codeqwen1.5-7b": 1.53, "qwen1.5-32b": 4.76, "qwen3-32b": 4.30,
                      "olmoe-1b-7b": 2.72, "deepseek-moe-16b": 7.46, "rwkv6-7b": 1.38,
-                     "jamba-1.5-large-398b": 34.01}
+                     "jamba-1.5-large-398b": 34.01, "whisper-large-v3": 0.64,
+                     "llava-next-mistral-7b": 1.32}
 #: OLMoE-1B-7B and RWKV6-7B in f32, kernel path against plain path: logits
 #: within this share of max |logit| (f32 sums in other orders through 16 or
 #: 32 layers)
@@ -1065,7 +1074,7 @@ def phase_models(torch, counters, records):
       and 176; Mamba's d_inner 16384 projections, its x_proj at R 72 and
       dt_proj at K 512, Jamba's G = 16 expert stacks);
     - OLMoE-1B-7B's and RWKV6-7B's f32 checks (:func:`olmoe_f32_check`,
-      :func:`rwkv_f32_check`).
+      :func:`greedy_f32_check`).
 
     Returns (kernel records, stats)."""
     import numpy as np
@@ -1180,7 +1189,7 @@ def phase_models(torch, counters, records):
         _check_records(model_records)
         torch.cuda.empty_cache()
     stats["olmoe-1b-7b f32"] = olmoe_f32_check(torch)
-    stats["rwkv6-7b f32"] = rwkv_f32_check(torch)
+    stats["rwkv6-7b f32"] = greedy_f32_check(torch, "rwkv6-7b", 3)
     return model_records, stats
 
 
@@ -1188,8 +1197,9 @@ def f32_runs(torch, arch, seed):
     """``arch`` at full width and depth in f32, fresh weights from ``seed``:
     one 37-token prefill and one decode step (the prefill's greedy token)
     on the kernel path and on the plain path (``kernels="off"``), on the
-    same weights and tokens. Returns (config, {"kernels" | "plain":
-    {"logits": (prefill, decode), "routed": the MoE calls' routings}})."""
+    same weights and tokens (an encoder-decoder model's prefill over
+    seeded stub frames). Returns (config, {"kernels" | "plain": {"logits":
+    (prefill, decode), "routed": the MoE calls' routings}})."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
@@ -1200,12 +1210,15 @@ def f32_runs(torch, arch, seed):
     gen.manual_seed(seed)
     with torch.inference_mode():
         params = models["kernels"].init(gen)
-    prompt = torch.randint(1, cfg.vocab_size, (1, 37), generator=gen, device="cuda")
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (1, 37), generator=gen, device="cuda")}
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn((1, cfg.encoder.num_frames, cfg.d_model), generator=gen,
+                                      device="cuda")
     runs, tok = {}, None
     for name, model in models.items():
         routed = []
         with torch.inference_mode(), path_calls(routed, set()):
-            pre, cache = model.serve_prefill(params, {"tokens": prompt}, cache_len=48)
+            pre, cache = model.serve_prefill(params, batch, cache_len=48)
             if tok is None:
                 tok = pre.argmax(-1)[:, None]
             step, _ = model.serve_step(params, cache, tok)
@@ -1254,29 +1267,290 @@ def olmoe_f32_check(torch):
                 smallest_margin=smallest)
 
 
-def rwkv_f32_check(torch):
-    """RWKV6-7B at full width and depth in f32 (~2.8 GB), :func:`f32_runs`:
-    logits within ``MODEL_F32_RTOL`` of max |logit|, and the greedy token
-    of each the same."""
-    _, runs = f32_runs(torch, "rwkv6-7b", 3)
+def greedy_f32_check(torch, arch, seed, tag="[models f32]"):
+    """``arch`` at full width and depth in f32 (RWKV6-7B ~2.8 GB),
+    :func:`f32_runs`: logits within ``MODEL_F32_RTOL`` of max |logit|, and
+    the greedy token of each the same."""
+    _, runs = f32_runs(torch, arch, seed)
     errs = []
     for what, a, b in zip(("prefill", "decode"), runs["kernels"]["logits"],
                           runs["plain"]["logits"]):
         if not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"[models f32] rwkv6-7b {what} logits are not finite")
+            raise AssertionError(f"{tag} {arch} {what} logits are not finite")
         errs.append(((a - b).abs().max() / b.abs().max()).item())
         same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
-        log(f"[models f32] rwkv6-7b {what}: max |logits(kernels) - logits(off)| / max |logit| "
+        log(f"{tag} {arch} {what}: max |logits(kernels) - logits(off)| / max |logit| "
             f"= {errs[-1]:.3g} (tol {MODEL_F32_RTOL}); greedy token "
             f"{'the same' if same else 'DIFFERS'}")
         if not same:
-            raise AssertionError(f"[models f32] rwkv6-7b {what}: the greedy token differs")
+            raise AssertionError(f"{tag} {arch} {what}: the greedy token differs")
     if not max(errs) <= MODEL_F32_RTOL:
-        raise AssertionError(f"[models f32] rwkv6-7b kernel-path logits differ from the plain "
+        raise AssertionError(f"{tag} {arch} kernel-path logits differ from the plain "
                              f"path's by {max(errs)} of max |logit| (> {MODEL_F32_RTOL})")
     del runs
     torch.cuda.empty_cache()
     return dict(prefill_rel_err=errs[0], decode_rel_err=errs[1])
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder and VLM phase: Whisper-large-v3, LLaVA-NeXT-Mistral-7B
+# ---------------------------------------------------------------------------
+
+#: (path, arch, rows, prompt tokens, cache slots or 0 for prompt + steps):
+#: Whisper-large-v3 over 4 rows of 1500 stub frames; LLaVA-NeXT-Mistral-7B
+#: over 2 rows of 2880 stub vision tokens, its cache at the 4096-slot window
+#: (the attention layer refuses a smaller one)
+ENCDEC_VLM = (("encdec", "whisper-large-v3", 4, 16, 0),
+              ("vlm", "llava-next-mistral-7b", 2, 32, 4096))
+#: greedy decode steps after each prefill
+ENCDEC_VLM_STEPS = 8
+
+
+def stub_batch(torch, cfg, rows, prompt, gen):
+    """A prompt of ``prompt`` seeded tokens a row and the stub frontend's
+    output, made on the device from ``gen``: Whisper's frame embeddings or
+    LLaVA's vision embeddings, f32 as the JAX package's input specs give
+    them."""
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (rows, prompt), generator=gen,
+                                     device="cuda")}
+    name, n = (("frames", cfg.encoder.num_frames) if cfg.is_encdec
+               else ("vision_embeds", cfg.vision_tokens))
+    batch[name] = torch.randn((rows, n, cfg.d_model), generator=gen, device="cuda")
+    return batch
+
+
+def shape_sums(name, counts, records):
+    """``name``'s measured numbers summed over ``counts`` ((kernel, dtype, K
+    or N, R, G, M) → calls), each call at its shape's record, with what
+    bounds them."""
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    bound_by = set()
+    for key, n in counts.items():
+        if key[0] != name:
+            continue
+        [rec] = [r for r in records
+                 if (r["kernel"], r["dtype"], r["dim"], r["R"], r["G"], r["M"]) == key]
+        for k in tot:
+            tot[k] += n * rec[k]
+        bound_by.add(rec["bound_by"])
+    return dict(tot, calls=sum(n for key, n in counts.items() if key[0] == name),
+                bound_by="bytes" if bound_by == {"bytes"} else "operations")
+
+
+def _refusal(what, fn, match):
+    """``fn()`` must raise the ValueError the JAX package raises there."""
+    try:
+        fn()
+    except ValueError as e:
+        if match not in str(e):
+            raise
+        log(f"{what}: refused, as in the JAX package: {e}")
+        return
+    raise AssertionError(f"{what}: not refused")
+
+
+def phase_encdec_vlm(torch, counters, records):
+    """The encoder-decoder and VLM families at full width and depth in bf16
+    (fresh seeded weights; stub frontends, as in the JAX package), one path
+    each, through the model's own entry points (the serving engine refuses
+    an enc-dec model, and serves a VLM text-only):
+
+    - Whisper-large-v3 (path ``encdec``): 4 rows of 1500 frames, a 16-token
+      prompt, ``serve_prefill`` (the 32-layer encoder, then the decoder),
+      8 greedy ``serve_step``s on the shared-position cache, each
+      re-projecting the encoder's states through every layer's ``xk`` /
+      ``xv`` (M = 6000);
+    - LLaVA-NeXT-Mistral-7B (path ``vlm``): 2 rows of 2880 vision tokens and
+      a 32-token prompt, prefilled (M = 5824) into a 4096-slot cache, then
+      8 greedy steps.
+
+    Each: counts at 0 just before the path and read just after, ``xus`` and
+    ``avt`` held to :func:`decode_step_calls` (the prefill with the
+    encoder's projections) and the shapes they took recorded; build s,
+    factor GB against the plan, the prefill's host ms (Whisper's with its
+    encoder), the decode step's host and device ms (CUDA graph replay) and
+    idle share, tok/s, peak memory and the factor-byte floor; a repeated
+    step and prefill bit-identical; the engine's refusals (Whisper: enc-dec;
+    LLaVA at the engine's default 96-slot cache: smaller than the window).
+    Then each new path shape against its plain version, and Whisper in f32,
+    kernel path against plain. Returns (kernel records, stats, per-model
+    ``xus`` / ``avt`` sums over a decode step and a prefill)."""
+    import collections
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    have = {(r["kernel"], r["dtype"], r["dim"], r["R"], r["G"], r["M"]) for r in records}
+    new_records, stats, shapes_of = [], {}, {}
+    steps = ENCDEC_VLM_STEPS
+    for path, arch, rows, prompt, cache_len in ENCDEC_VLM:
+        tag = f"[{path} {arch}]"
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        wgen = torch.Generator(device="cuda")
+        wgen.manual_seed(0)
+        with torch.inference_mode():
+            params = model.init(wgen)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        stub = "frames" if cfg.is_encdec else "vision tokens"
+        n_stub = cfg.encoder.num_frames if cfg.is_encdec else cfg.vision_tokens
+        log(f"{tag} built ({cfg.num_layers} decoder layers"
+            + (f" + {cfg.encoder.num_layers} encoder layers" if cfg.is_encdec else "")
+            + f", d {cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv, "
+            f"{cfg.compute_dtype}) in {build_s:.1f} s; {rows} rows x ({n_stub} {stub} + "
+            f"{prompt} tokens), then {steps} greedy steps")
+        if cfg.is_encdec:
+            _refusal(f"{tag} ServeEngine", lambda: ServeEngine(model, params), "enc-dec")
+        else:
+            eng = ServeEngine(model, params)
+            _refusal(f"{tag} ServeEngine at its defaults ({eng.cache_len} cache slots), "
+                     f"prefill", lambda: eng.prefill(np.arange(1, 9)), "attention window")
+            del eng
+        batch = stub_batch(torch, cfg, rows, prompt, gen)
+        cache_len = cache_len or prompt + steps
+        pre_calls, step_want = decode_step_calls(cfg, encoder=True), decode_step_calls(cfg)
+        per_prefill, per_step = (sum(n for (k, *_), n in c.items() if k == "xus")
+                                 for c in (pre_calls, step_want))
+
+        # the path: counts at 0 just before, read just after
+        calls = []
+        with torch.inference_mode(), \
+                calls_of(ops, "xus", lambda a, _: calls.append(path_shape("xus", a))), \
+                calls_of(ops, "avt", lambda a, _: calls.append(path_shape("avt", a))):
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.serve_prefill(params, batch, cache_len=cache_len)
+            n_pre = len(calls)
+            outs = [logits]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(steps):
+                logits, cache = model.serve_step(params, cache, logits.argmax(-1)[:, None])
+                outs.append(logits)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            got = _launch_counts()
+        counters[path] = got
+        tokens = torch.stack([o.argmax(-1) for o in outs], dim=1)
+        if not bool(torch.stack([torch.isfinite(o).all() for o in outs]).all()):
+            raise AssertionError(f"{tag}: NaN/inf logits on the path")
+        if tuple(tokens.shape) != (rows, steps + 1):
+            raise AssertionError(f"{tag}: tokens {tuple(tokens.shape)}")
+        want = per_prefill + steps * per_step
+        for name in ("xus", "avt"):
+            if got[name] != want:
+                raise AssertionError(f"{tag} {name}: {got[name]} launches, expected "
+                                     f"{per_prefill} (prefill) + {steps} x {per_step} = {want}")
+        if got["atb"] or got["flash_attention"]:
+            raise AssertionError(f"{tag}: the forward launched atb / flash_attention: {got}")
+        pre_counts = collections.Counter(calls[:n_pre])
+        step_counts = collections.Counter(calls[n_pre:])
+        for what, counts, expect, n in (("prefill", pre_counts, pre_calls, 1),
+                                        ("decode step", step_counts, step_want, steps)):
+            by_key = collections.Counter()
+            for key, c in counts.items():
+                by_key[key[:5]] += c
+            if dict(by_key) != {k: n * v for k, v in expect.items()}:
+                raise AssertionError(f"{tag}: the {what}'s (kernel, dtype, K or N, R, G) calls "
+                                     f"differ from decode_step_calls: {sorted(by_key.items())}")
+        step_counts = collections.Counter({k: c / steps for k, c in step_counts.items()})
+        shapes = set(calls)
+        log(f"{tag} launches: xus {got['xus']}, avt {got['avt']} = {per_prefill} per prefill + "
+            f"{steps} x {per_step} per decode step; the path's xus / avt shapes: {len(shapes)}, "
+            f"rows M {sorted({sh[5] for sh in shapes})}; greedy tokens of row 0: "
+            f"{tokens[0].tolist()}")
+        prefill_path_ms, step_path_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3 / steps
+
+        # the prefill and a step again: host ms, the same bits
+        with torch.inference_mode():
+            pre, host = [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pre.append(model.serve_prefill(params, batch, cache_len=cache_len)[0])
+                torch.cuda.synchronize()
+                host.append(time.perf_counter() - t0)
+            prefill_ms = min(host) * 1e3
+            tok = tokens[:, -1:].contiguous()
+            step_a = model.serve_step(params, cache, tok)[0]
+            step_b = model.serve_step(params, cache, tok)[0]
+            if not (torch.equal(pre[0], pre[1]) and torch.equal(pre[0], outs[0])
+                    and torch.equal(step_a, step_b)):
+                raise AssertionError(f"{tag}: a repeated decode step or prefill changed the "
+                                     f"logits")
+            host = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.serve_step(params, cache, tok)
+                torch.cuda.synchronize()
+                host.append(time.perf_counter() - t0)
+            step_host_ms = float(np.median(host) * 1e3)
+            step_dev_ms = graph_ms(torch, lambda i: model.serve_step(params, cache, tok), 1, 5)
+            dispatches = count_dispatches(torch, lambda: model.serve_step(params, cache, tok))
+            n_k, busy_s, _ = device_profile(torch, lambda: model.serve_step(params, cache, tok),
+                                            f"{tag} profile", 8)
+        fb, step_bytes = factor_bytes(params), factor_bytes_per_step(params)
+        floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        planned = PLANNED_FACTOR_GB[arch]
+        tok_s = rows * steps / (t2 - t1)
+        log(f"{tag} factors {fb / 1e9:.3f} GB against {planned} GB planned "
+            f"({fb / 1e9 / planned:.3f}x); peak {peak:.2f} GiB")
+        log(f"{tag} prefill: host {prefill_ms:.2f} ms (best of 2; {prefill_path_ms:.2f} ms on "
+            f"the path{', the encoder included' if cfg.is_encdec else ''}); decode: "
+            f"{tok_s:.2f} tok/s over the path's {steps} steps ({step_path_ms:.2f} ms a step)")
+        extra = ""
+        if cfg.is_encdec:  # the step re-projects the encoder's states through xk / xv
+            M = rows * cfg.encoder.num_frames
+            d, kv = cfg.d_model, cfg.num_kv_heads * cfg.hd
+            r = cfg.lowrank.r_max_for(d, kv)
+            flops = 2 * cfg.num_layers * (2 * M * d * r + 2 * M * r * r + 2 * M * kv * r)
+            extra = (f"; the cross K/V re-projection {flops / 1e9:.1f} GFLOP a step, "
+                     f"{flops / PEAK_FLOPS['bfloat16'] * 1e3:.3f} ms at the bf16 peak")
+        log(f"{tag} decode step: host {step_host_ms:.2f} ms (median of 10), device "
+            f"{step_dev_ms:.3f} ms (CUDA graph replay); floor {floor_ms:.3f} ms = "
+            f"{step_bytes / 1e9:.3f} GB of factors / 3.35 TB/s{extra}; device idle "
+            f"{100 * (1 - step_dev_ms / step_host_ms):.1f} % of the eager step; profile "
+            f"{n_k} kernels, busy {busy_s * 1e3:.3f} ms; {dispatches} ATen dispatches; a "
+            f"repeated step and prefill bit-identical")
+        stats[arch] = dict(rows=rows, prompt=prompt, cache_len=cache_len, build_s=build_s,
+                           factor_bytes=fb, planned_factor_gb=planned, peak_gib=peak,
+                           prefill_host_ms=prefill_ms, prefill_path_ms=prefill_path_ms,
+                           step_host_ms=step_host_ms, step_device_ms=step_dev_ms,
+                           step_path_ms=step_path_ms, tok_s=tok_s, floor_ms=floor_ms,
+                           step_factor_bytes=step_bytes, aten_dispatches=dispatches,
+                           busy_ms=busy_s * 1e3, per_prefill=per_prefill, per_step=per_step,
+                           launches=got)
+        shapes_of[arch] = (pre_counts, step_counts)
+        del model, params, cache, batch, outs, pre, step_a, step_b, logits
+        torch.cuda.empty_cache()
+        # each shape the path gave the kernels, against its plain version
+        for kernel, dtype, dim, R, G, M in sorted(shapes - have):
+            new_records.append(kernel_case(torch, kernel, dtype, M, dim, R, gen, G=G))
+        have |= shapes
+        _check_records(new_records)
+        torch.cuda.empty_cache()
+    stats["whisper-large-v3 f32"] = greedy_f32_check(torch, "whisper-large-v3", 5,
+                                                     tag="[encdec f32]")
+    every = records + new_records
+    sums = {arch: {name: dict(shape_sums(name, step_counts, every),
+                              prefill=shape_sums(name, pre_counts, every))
+                   for name in ("xus", "avt")}
+            for arch, (pre_counts, step_counts) in shapes_of.items()}
+    return new_records, stats, sums
 
 
 # ---------------------------------------------------------------------------
@@ -2717,26 +2991,19 @@ def decode_step_sums(name, cfg, records):
     """``name``'s measured numbers summed over one decode step of ``cfg``
     (each shape's record at its decode M: 4 rows, or 1 row an expert of a
     G = E stack) with the step's launches of it; and what bounds them."""
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    bound_by = set()
-    for (kernel, dtype, dim, R, G), n in decode_step_calls(cfg).items():
-        if kernel != name:
-            continue
-        key = (kernel, dtype, dim, R, G, 1 if G > 1 else 4)
-        [rec] = [r for r in records
-                 if (r["kernel"], r["dtype"], r["dim"], r["R"], r["G"], r["M"]) == key]
-        for k in tot:
-            tot[k] += n * rec[k]
-        bound_by.add(rec["bound_by"])
-    return dict(tot, bound_by="bytes" if bound_by == {"bytes"} else "operations")
+    counts = {(kernel, dtype, dim, R, G, 1 if G > 1 else 4): n
+              for (kernel, dtype, dim, R, G), n in decode_step_calls(cfg).items()}
+    return shape_sums(name, counts, records)
 
 
 def kernel_summary(records, model_records, atb_records, flash_records, counters, cfg, atb_round,
-                   xus_round, avt_round):
+                   xus_round, avt_round, encdec_sums):
     """Per kernel: ``xus``/``avt`` as the sum over one Qwen2-7B decode
     step's launches (M = 4) of each measured number, with the sum over one
     decode step of each of the models phase's architectures under
-    ``by_model`` and over one llm-100m round's calls under ``round``;
+    ``by_model`` (Whisper-large-v3 and LLaVA-NeXT-Mistral-7B: their paths'
+    recorded calls, a decode step's with a prefill's under ``prefill``)
+    and over one llm-100m round's calls under ``round``;
     ``atb`` as the sum over
     one llm-100m FeDLRT round's calls (M = 512, f32: ``phase_atb``'s
     ``[atb] round``); ``flash_attention``
@@ -2765,6 +3032,11 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
                 unit="one decode step (bf16, 4 slots)")
             for arch, _, new in MODELS
         }
+        for path, arch, rows, prompt, _ in ENCDEC_VLM:
+            out[-1]["by_model"][arch] = dict(
+                encdec_sums[arch][name],
+                unit=f"one decode step (bf16, {rows} rows; prefill: {prompt} tokens a row and "
+                     f"the stub frontend's)")
         # the training path's calls, summed over one round
         out[-1]["round"] = {**(xus_round if name == "xus" else avt_round),
                             "bound_by": "operations",
@@ -2832,6 +3104,9 @@ def main() -> int:
     done("serve-quant")
     model_records, model_stats = phase_models(torch, counters, records)
     done("models")
+    ev_records, ev_stats, ev_sums = phase_encdec_vlm(torch, counters, records + model_records)
+    model_records += ev_records
+    done("encdec-vlm")
     train = phase_train(torch, counters)
     done("train")
     flash_records = phase_flash(torch, counters)
@@ -2844,13 +3119,14 @@ def main() -> int:
     done("sim")
     log("[summary] " + json.dumps({"card": smi, "serve": serve_stats,
                                    "serve_quant": quant_stats, "models": model_stats,
+                                   "encdec_vlm": ev_stats,
                                    "train": train,
                                    "flash": flash_records, "spec": spec_stats,
                                    "sim": sim_stats, "xus_train": xus_train,
                                    "avt_train": avt_train}))
     print(json.dumps({"kernels": kernel_summary(
         records, model_records, atb_records, flash_records, counters, cfg, atb_round, xus_round,
-        avt_round)}))
+        avt_round, ev_sums)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -6,9 +6,7 @@ the two packages describe a model with the same values. One
 (dense / moe / audio-enc-dec / vlm / hybrid / ssm) via optional sub-configs.
 ``block_pattern`` is the repeating *superblock* of sequence-mixer types;
 parameters of each position are stacked over ``num_layers //
-len(block_pattern)`` superblocks. The port builds the decoder-only families
-(attention, Mamba and RWKV mixers; MLP or MoE blocks); the encoder-decoder
-and VLM families raise ``NotImplementedError`` where the model is built.
+len(block_pattern)`` superblocks. The port builds every family.
 """
 from __future__ import annotations
 

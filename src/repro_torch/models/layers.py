@@ -1,5 +1,5 @@
 """Layer primitives: parameter builder, maybe-factorized linears, norms,
-rotary embeddings and attention — the JAX package's ``models/layers.py`` in
+rotary and sinusoidal positions and attention — the JAX package's ``models/layers.py`` in
 PyTorch.
 
 Every weight matrix goes through :meth:`Builder.linear`, which decides from
@@ -191,7 +191,7 @@ def rms_norm(x, scale, eps: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# rotary position embeddings
+# position embeddings: rotary, sinusoidal
 # ---------------------------------------------------------------------------
 
 
@@ -212,25 +212,24 @@ def apply_rope(x, positions, theta: float) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(T: int, d: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(T, d) sine / cosine position table (even columns sine, odd cosine),
+    built in f32 and cast to ``dtype``."""
+    pos = torch.arange(T, dtype=torch.float32, device=device)[:, None]
+    rate = -torch.log(torch.tensor(10000.0, dtype=torch.float32, device=device)) / d
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device) * rate)
+    pe = torch.zeros((T, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(dtype)
+
+
 # ---------------------------------------------------------------------------
-# attention (GQA, optional sliding window)
+# attention (GQA, optional sliding window, blockwise over query chunks)
 # ---------------------------------------------------------------------------
 
 
-def attention(
-    q, k, v, *, q_positions, kv_positions, causal: bool = True, sliding_window: int = 0,
-) -> torch.Tensor:
-    """Masked dot-product attention over absolute positions.
-
-    q: (B, Tq, H, hd); k, v: (B, Tk, Hkv, hd). Query head ``h`` reads KV head
-    ``h // (H / Hkv)``. Positions are (Tq,) / (Tk,) or per-slot (B, Tq) /
-    (B, Tk); a negative kv position marks a never-written cache slot. The
-    scores are scaled by ``1/sqrt(hd)`` in ``q.dtype``, masked with
-    ``-1e30`` in f32, and the softmax is cast to ``v.dtype``.
-
-    The JAX package evaluates long prompts in query chunks to bound memory;
-    the port's serving prompts are short, so it takes one block.
-    """
+def _attention_block(q, k, v, q_positions, kv_positions, causal: bool, sliding_window: int):
     B, Tq, H, hd = q.shape
     Hkv = k.shape[2]
     g = H // Hkv
@@ -252,3 +251,40 @@ def attention(
     pg = p.reshape(B, Hkv, g, Tq, k.shape[1])
     o = torch.einsum("bkgqt,btkd->bqkgd", pg, v)
     return o.reshape(B, Tq, H, v.shape[-1])
+
+
+def attention(
+    q, k, v, *, q_positions, kv_positions, causal: bool = True, sliding_window: int = 0,
+    q_chunk: int = 0,
+) -> torch.Tensor:
+    """Masked dot-product attention over absolute positions, blockwise over
+    query chunks.
+
+    q: (B, Tq, H, hd); k, v: (B, Tk, Hkv, hd). Query head ``h`` reads KV head
+    ``h // (H / Hkv)``. Positions are (Tq,) / (Tk,) or per-slot (B, Tq) /
+    (B, Tk); a negative kv position marks a never-written cache slot. The
+    scores are scaled by ``1/sqrt(hd)`` in ``q.dtype``, masked with
+    ``-1e30`` in f32, and the softmax is cast to ``v.dtype``.
+
+    ``q_chunk`` > 0 evaluates the queries ``q_chunk`` at a time, so the
+    live f32 scores are (B, H, q_chunk, Tk) rather than (B, H, Tq, Tk):
+    the last chunk is padded with query position -1, which the mask
+    rejects, and the output is cut back to ``Tq``. Per-slot positions take
+    one block (their decode is Tq = 1). The JAX package also skips the
+    chunking under a mesh whose "model" axis already splits the queries;
+    the port has no mesh yet (ROADMAP.md, queue 1, item 7).
+    """
+    Tq = q.shape[1]
+    q_chunk = min(q_chunk or Tq, Tq)
+    if q_positions.dim() > 1 or kv_positions.dim() > 1 or q_chunk == Tq:
+        return _attention_block(q, k, v, q_positions, kv_positions, causal, sliding_window)
+    n_chunks = -(-Tq // q_chunk)
+    pad = n_chunks * q_chunk - Tq
+    qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
+    pp = torch.nn.functional.pad(q_positions, (0, pad), value=-1)
+    outs = [
+        _attention_block(qp[:, c * q_chunk:(c + 1) * q_chunk], k, v,
+                         pp[c * q_chunk:(c + 1) * q_chunk], kv_positions, causal, sliding_window)
+        for c in range(n_chunks)
+    ]
+    return torch.cat(outs, dim=1)[:, :Tq]

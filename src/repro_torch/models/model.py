@@ -1,6 +1,7 @@
 """Top-level model: init / loss_fn / init_cache / serve_prefill /
-serve_step — the decoder-only families of the JAX package's
-``models/model.py`` (dense, MoE, SSM and hybrid), in PyTorch.
+serve_step — the JAX package's ``models/model.py`` in PyTorch, for every
+family (dense, MoE, SSM, hybrid, the encoder-decoder audio family and the
+VLM family).
 
 ``build_model(cfg)`` returns a :class:`Model` with
 
@@ -16,6 +17,15 @@ serve_step — the decoder-only families of the JAX package's
   cache)`` and ``serve_step(params, cache, tokens) → (logits, cache)``:
   cached decode: attention's k/v tensors are updated in place, a Mamba or
   RWKV block's state is returned anew.
+
+Batch layouts by family (as in the JAX package):
+  dense / moe / ssm / hybrid: {"tokens": (B, T+1)}
+  vlm:   + {"vision_embeds": (B, n_vis, d)}, the stub frontend's output,
+         prepended to the token embeddings (the loss reads only the
+         tokens' positions)
+  audio: {"frames": (B, n_frames, d), "tokens": (B, T+1)}: a bidirectional
+         encoder over the stub frames, whose states every decoder block
+         attends to; sinusoidal positions in both stacks, no rotary ones
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from repro_torch.models.layers import (
     apply_embedding,
     apply_linear,
     rms_norm,
+    sinusoidal_positions,
 )
 from repro_torch.models.transformer import (
     build_block,
@@ -42,12 +53,9 @@ def torch_dtype(name: str) -> torch.dtype:
     return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.is_encdec or cfg.family == "vlm" or cfg.vision_tokens:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) is not ported to PyTorch "
-            f"yet; see ROADMAP.md, queue 1"
-        )
+#: rows of the sinusoidal table a decode step indexes (the JAX package's
+#: ``serve_step`` builds 8192 and clamps a position past its end)
+DECODE_POSITIONS = 8192
 
 
 def has_recurrent_mixer(cfg: ModelConfig) -> bool:
@@ -57,7 +65,6 @@ def has_recurrent_mixer(cfg: ModelConfig) -> bool:
 
 
 def build_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    _check_family(cfg)
     pol = cfg.lowrank
     b = Builder(gen, pol, dtype=torch_dtype(cfg.param_dtype))
     NB = cfg.superblocks
@@ -65,8 +72,25 @@ def build_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     b.linear("lm_head", cfg.d_model, cfg.vocab_size, force_dense=not pol.factorize_head)
     b.vector("final_norm", (cfg.d_model,))
     for i, kind in enumerate(cfg.block_pattern):
-        build_block(b, f"blocks/pos{i}", kind, cfg, NB, moe_here=cfg.moe_on_layer(i))
+        build_block(b, f"blocks/pos{i}", kind, cfg, NB, moe_here=cfg.moe_on_layer(i),
+                    cross=cfg.is_encdec)
+    if cfg.is_encdec:  # the encoder's pattern is ("attn",)
+        build_block(b, "enc_blocks/pos0", "attn", cfg, cfg.encoder.num_layers, moe_here=False)
+        b.vector("enc_norm", (cfg.d_model,))
     return b.build()
+
+
+def _encode(params, frames, cfg: ModelConfig):
+    """The Whisper-style encoder over stub frame embeddings: sinusoidal
+    positions added in the compute dtype, bidirectional attention, no
+    rotary positions, a final ``rms_norm``."""
+    dt = torch_dtype(cfg.compute_dtype)
+    h = frames.to(dt)
+    h = h + sinusoidal_positions(h.shape[1], cfg.d_model, dt, h.device)[None]
+    pos = torch.arange(h.shape[1], device=h.device)
+    h, _, _ = stack_apply(params["enc_blocks"], h, cfg, positions=pos, causal=False,
+                          use_rope=False, pattern=("attn",))
+    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
 def _logits(params, h, kernels: str = "off"):
@@ -98,20 +122,44 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    _check_family(cfg)
     dt = torch_dtype(cfg.compute_dtype)
+    use_rope = not cfg.is_encdec
+    tables = {}
+
+    def decode_positions(device):
+        """The enc-dec decode step's sinusoidal table, built once per device
+        (the JAX package rebuilds it at every step)."""
+        key = str(device)
+        if key not in tables:
+            tables[key] = sinusoidal_positions(DECODE_POSITIONS, cfg.d_model, dt, device)
+        return tables[key]
+
+    def embed_inputs(params, batch, emb):
+        """The VLM's vision prefix prepended to ``emb``, or the enc-dec's
+        encoder states with sinusoidal positions added to ``emb``. Returns
+        (emb, cross_kv, n_prefix)."""
+        cross_kv, n_prefix = None, 0
+        if cfg.family == "vlm" and "vision_embeds" in batch:
+            vis = batch["vision_embeds"].to(dt)
+            emb = torch.cat([vis, emb], dim=1)
+            n_prefix = vis.shape[1]
+        if cfg.is_encdec:
+            cross_kv = _encode(params, batch["frames"], cfg)
+            emb = emb + sinusoidal_positions(emb.shape[1], cfg.d_model, dt, emb.device)[None]
+        return emb, cross_kv, n_prefix
 
     def loss_fn(params, batch):
         """Cross-entropy of the next token plus the MoE auxiliary loss in
-        f32; the JAX package's ``loss_fn`` for the decoder-only families
-        (attention over the whole sequence in one block, where the JAX
-        package may chunk the queries: the same sums in another order)."""
+        f32, over the tokens' positions (a vision prefix is cut off before
+        the head)."""
         tokens = batch["tokens"].long()
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         emb = apply_embedding(params["embed"], inputs, dtype=dt, kernels=cfg.kernels)
+        emb, cross_kv, n_prefix = embed_inputs(params, batch, emb)
         positions = torch.arange(emb.shape[1], device=emb.device)
-        h, _, aux = stack_apply(params["blocks"], emb, cfg, positions=positions, with_aux=True)
-        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        h, _, aux = stack_apply(params["blocks"], emb, cfg, positions=positions,
+                                cross_kv=cross_kv, use_rope=use_rope, with_aux=True)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)[:, n_prefix:]
         loss = _xent(_logits(params, h, cfg.kernels), labels)
         return loss + aux if torch.is_tensor(aux) else loss
 
@@ -119,12 +167,23 @@ def build_model(cfg: ModelConfig) -> Model:
         """``per_slot=True``: positions tracked per batch row — ``pos`` is
         (batch,) and the attention write indices are (NB, batch) — so a
         continuous-batching engine can admit a request into a freed slot
-        while the others keep decoding."""
+        while the others keep decoding (not for the enc-dec family, whose
+        sinusoidal lookup indexes one shared position). An enc-dec cache
+        also holds the encoder's states, ``enc_h``."""
+        if per_slot and cfg.is_encdec:
+            raise ValueError(
+                "per-slot decode needs per-row positions; the enc-dec "
+                "sinusoidal lookup indexes one shared position"
+            )
         device = params["final_norm"].device
-        return {
+        cache = {
             "stack": init_cache_stack(cfg, batch, cache_len, dt, device, per_slot=per_slot),
             "pos": torch.zeros((batch,) if per_slot else (), dtype=torch.int32, device=device),
         }
+        if cfg.is_encdec:
+            cache["enc_h"] = torch.zeros((batch, cfg.encoder.num_frames, cfg.d_model),
+                                         dtype=dt, device=device)
+        return cache
 
     def serve_prefill(params, batch, cache_len: int = 0, last_index: Optional[int] = None):
         """Process the full prompt; returns (last-token logits, cache).
@@ -136,16 +195,22 @@ def build_model(cfg: ModelConfig) -> Model:
         insert stamps the cache index with the true length so the pad
         entries are masked. A recurrent block has no mask: pad tokens
         would advance its state, so the engine runs such a model's prompt
-        at its true length (:func:`has_recurrent_mixer`).
+        at its true length (:func:`has_recurrent_mixer`). A VLM's vision
+        prefix counts in the positions, ``last_index`` included; an
+        enc-dec model's encoder states go into the cache.
         """
         tokens = batch["tokens"]  # (B, S)
         emb = apply_embedding(
             params["embed"], tokens, dtype=torch.float32, kernels=cfg.kernels
         ).to(dt)
+        emb, cross_kv, _ = embed_inputs(params, batch, emb)
         cache = init_cache(params, tokens.shape[0], cache_len or emb.shape[1])
+        if cross_kv is not None:
+            cache["enc_h"] = cross_kv
         positions = torch.arange(emb.shape[1], device=emb.device)
         h, new_stack, _ = stack_apply(params["blocks"], emb, cfg, positions=positions,
-                                      caches=cache["stack"])
+                                      caches=cache["stack"], cross_kv=cross_kv,
+                                      use_rope=use_rope)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         cache["stack"] = new_stack
         if last_index is None:
@@ -160,14 +225,24 @@ def build_model(cfg: ModelConfig) -> Model:
         """One decode step. tokens: (B, 1) → (logits (B, vocab), cache).
 
         With a per-slot cache (``pos`` shaped (B,)), positions broadcast to
-        (B, T) and every row attends at its own depth."""
+        (B, T) and every row attends at its own depth. An enc-dec step adds
+        the sinusoidal row at ``pos`` (clamped to the table, as the JAX
+        package's ``dynamic_slice`` clamps it), indexed on the device: the
+        step reads no value back to the host, so a CUDA graph can capture
+        it."""
         emb = apply_embedding(
             params["embed"], tokens, dtype=torch.float32, kernels=cfg.kernels
         ).to(dt)
         pos = cache["pos"]
         positions = pos[..., None] + torch.arange(tokens.shape[1], device=emb.device)
+        cross_kv = None
+        if cfg.is_encdec:
+            cross_kv = cache["enc_h"]
+            row = torch.clamp(pos, max=DECODE_POSITIONS - 1).reshape(1)
+            emb = emb + decode_positions(emb.device).index_select(0, row)[None]
         h, new_stack, _ = stack_apply(params["blocks"], emb, cfg, positions=positions,
-                                      caches=cache["stack"])
+                                      caches=cache["stack"], cross_kv=cross_kv,
+                                      use_rope=use_rope)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         new_cache = dict(cache, stack=new_stack, pos=pos + tokens.shape[1])
         logits = _logits(params, h[:, -1:], cfg.kernels)[:, 0]

@@ -7,10 +7,8 @@ over that axis is a Python loop here that indexes the stack. Serving
 threads one cache slice per block through the loop: an attention block's
 k/v written in place, a recurrent block's state returned new. On the loss
 path the MoE blocks' auxiliary losses are summed over it, layer by layer,
-as the scan carries them.
-
-``models.model`` refuses cross-attention (the encoder-decoder family)
-where the model is built: see ROADMAP.md, queue 1.
+as the scan carries them. An attention block of the encoder-decoder
+family adds a cross-attention block over the encoder's states.
 """
 from __future__ import annotations
 
@@ -44,7 +42,8 @@ from repro_torch.models.ssm import (
 # ---------------------------------------------------------------------------
 
 
-def build_attn(b: Builder, prefix: str, cfg: ModelConfig, n_blocks: int):
+def build_attn(b: Builder, prefix: str, cfg: ModelConfig, n_blocks: int, *,
+               cross: bool = False):
     d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     bs = (n_blocks,)
     b.linear(f"{prefix}/q", d, H * hd, batch_shape=bs, bias=cfg.qkv_bias)
@@ -54,6 +53,12 @@ def build_attn(b: Builder, prefix: str, cfg: ModelConfig, n_blocks: int):
     if cfg.qk_norm:
         b.vector(f"{prefix}/q_norm", bs + (hd,))
         b.vector(f"{prefix}/k_norm", bs + (hd,))
+    if cross:
+        b.linear(f"{prefix}/xq", d, H * hd, batch_shape=bs)
+        b.linear(f"{prefix}/xk", d, Hkv * hd, batch_shape=bs)
+        b.linear(f"{prefix}/xv", d, Hkv * hd, batch_shape=bs)
+        b.linear(f"{prefix}/xo", H * hd, d, batch_shape=bs)
+        b.vector(f"{prefix}/ln_x", bs + (d,))
 
 
 def build_mlp(b: Builder, prefix: str, cfg: ModelConfig, n_blocks: int):
@@ -66,12 +71,12 @@ def build_mlp(b: Builder, prefix: str, cfg: ModelConfig, n_blocks: int):
 
 
 def build_block(b: Builder, prefix: str, kind: str, cfg: ModelConfig,
-                n_blocks: int, *, moe_here: bool):
+                n_blocks: int, *, moe_here: bool, cross: bool = False):
     bs = (n_blocks,)
     b.vector(f"{prefix}/ln1", bs + (cfg.d_model,))
     b.vector(f"{prefix}/ln2", bs + (cfg.d_model,))
     if kind == "attn":
-        build_attn(b, f"{prefix}/attn", cfg, n_blocks)
+        build_attn(b, f"{prefix}/attn", cfg, n_blocks, cross=cross)
     elif kind == "mamba":
         build_mamba(b, f"{prefix}/mamba", cfg, n_blocks)
     elif kind == "rwkv":
@@ -89,14 +94,20 @@ def build_block(b: Builder, prefix: str, kind: str, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def attn_mix(p: dict, x, cfg: ModelConfig, *, positions, cache: Optional[dict]):
-    """Self-attention with an optional KV cache.
+def attn_mix(p: dict, x, cfg: ModelConfig, *, positions, cache: Optional[dict],
+             causal: bool = True, cross_kv=None, use_rope: bool = True):
+    """Self-attention with an optional KV cache, then an optional
+    cross-attention block.
 
     cache: {"k": (B,S,Hkv,hd), "v": ..., "idx": () int32} or None. A
     *per-slot* cache carries ``idx`` of shape (B,): one write position per
     sequence (continuous batching), with ``positions`` (B, T). The port
     writes the new keys and values into the cache tensors in place; the
     returned cache holds the same k/v tensors and the advanced ``idx``.
+    ``use_rope`` rotates q and k (the encoder-decoder family adds
+    sinusoidal positions to its inputs instead). ``cross_kv``: the
+    encoder's states (B, Tenc, d), projected through ``xk`` / ``xv`` at
+    every call and attended to without a mask but the positions' own.
     Returns (y, new_cache).
     """
     B, T, _ = x.shape
@@ -107,8 +118,9 @@ def attn_mix(p: dict, x, cfg: ModelConfig, *, positions, cache: Optional[dict]):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if cache is not None:
@@ -137,13 +149,26 @@ def attn_mix(p: dict, x, cfg: ModelConfig, *, positions, cache: Optional[dict]):
         # p % S == s; never written -> negative, masked
         kv_pos = newest - torch.remainder(newest - s_idx, S)
         kv_pos = torch.where(kv_pos < 0, torch.full_like(kv_pos, -(10**9)), kv_pos)
-        y = attention(q, ck, cv, q_positions=positions, kv_positions=kv_pos,
-                      sliding_window=cfg.sliding_window)
+        y = attention(q, ck, cv, q_positions=positions, kv_positions=kv_pos, causal=causal,
+                      sliding_window=cfg.sliding_window, q_chunk=cfg.attn_q_chunk)
         new_cache = {"k": ck, "v": cv, "idx": idx + T}
     else:
-        y = attention(q, k, v, q_positions=positions, kv_positions=positions,
-                      sliding_window=cfg.sliding_window)
+        y = attention(q, k, v, q_positions=positions, kv_positions=positions, causal=causal,
+                      sliding_window=cfg.sliding_window, q_chunk=cfg.attn_q_chunk)
     out = apply_linear(p["o"], y.reshape(B, T, H * hd), kernels=cfg.kernels)
+
+    if cross_kv is not None:
+        # the block's normed input plus the self-attention's output, as the
+        # JAX package normalises it (not the residual stream)
+        xh = rms_norm(x + out, p["ln_x"], cfg.norm_eps)
+        qx = apply_linear(p["xq"], xh, kernels=cfg.kernels).reshape(B, T, H, hd)
+        Tenc = cross_kv.shape[1]
+        ek = apply_linear(p["xk"], cross_kv, kernels=cfg.kernels).reshape(B, Tenc, Hkv, hd)
+        ev = apply_linear(p["xv"], cross_kv, kernels=cfg.kernels).reshape(B, Tenc, Hkv, hd)
+        yx = attention(qx, ek, ev, q_positions=positions,
+                       kv_positions=torch.arange(Tenc, device=x.device),
+                       causal=False, sliding_window=0, q_chunk=cfg.attn_q_chunk)
+        out = out + apply_linear(p["xo"], yx.reshape(B, T, H * hd), kernels=cfg.kernels)
     return out, new_cache
 
 
@@ -158,14 +183,17 @@ def mlp_apply(p: dict, x, cfg: ModelConfig):
 
 
 def block_apply(p: dict, kind: str, x, cfg: ModelConfig, *, positions,
-                cache: Optional[dict], with_aux: bool = False):
+                cache: Optional[dict], causal: bool = True, cross_kv=None,
+                use_rope: bool = True, with_aux: bool = False):
     """One (mixer + MLP or MoE) block with pre-norm residuals. Returns (x,
     new_cache, aux_loss); aux_loss is None but for a MoE block asked
     ``with_aux``. A recurrent mixer reads no positions: its cache is its
-    state."""
+    state. ``causal``, ``cross_kv`` and ``use_rope`` reach attention only
+    (:func:`attn_mix`)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "attn":
-        mix_out, new_cache = attn_mix(p["attn"], h, cfg, positions=positions, cache=cache)
+        mix_out, new_cache = attn_mix(p["attn"], h, cfg, positions=positions, cache=cache,
+                                      causal=causal, cross_kv=cross_kv, use_rope=use_rope)
     elif kind == "mamba":
         mix_out, new_cache = mamba_mix(p["mamba"], h, cfg, state=cache)
     elif kind == "rwkv":
@@ -224,25 +252,30 @@ def _layer(tree, i: int):
 
 
 def stack_apply(blocks: dict, x, cfg: ModelConfig, *, positions,
-                caches: Optional[dict] = None, with_aux: bool = False):
+                caches: Optional[dict] = None, causal: bool = True, cross_kv=None,
+                use_rope: bool = True, pattern=None, with_aux: bool = False):
     """Run the superblock stack. blocks/caches: dicts of stacked params and
-    cache slices. Returns (x, new_caches, total_aux); the new caches are
+    cache slices, one entry per position of ``pattern`` (by default
+    ``cfg.block_pattern``); the number of superblocks is the stacks'
+    leading dim, so the encoder's stack of ``encoder.num_layers`` under
+    ``("attn",)`` runs here too. Returns (x, new_caches, total_aux); the new caches are
     stacked like the old ones. A leaf a block wrote in place (attention's
     k/v) stays the old stack; every other leaf (attention's ``idx``, a
     recurrent block's state) is a new stack of the blocks' new values, so
     the old caches still hold the state the step started from.
     ``with_aux``: ``total_aux`` is the f32 sum of the MoE blocks'
     auxiliary losses in layer order (0 where there are none); otherwise 0."""
-    pattern = cfg.block_pattern
+    pattern = pattern or cfg.block_pattern
     h = x
     aux = 0
     new = {f"pos{i}": {} for i in range(len(pattern))}
-    for sb in range(cfg.superblocks):
+    for sb in range(blocks["pos0"]["ln1"].shape[0]):
         for i, kind in enumerate(pattern):
             key = f"pos{i}"
             c_i = _layer(caches[key], sb) if caches is not None else None
             h, nc, a = block_apply(_layer(blocks[key], sb), kind, h, cfg,
-                                   positions=positions, cache=c_i, with_aux=with_aux)
+                                   positions=positions, cache=c_i, causal=causal,
+                                   cross_kv=cross_kv, use_rope=use_rope, with_aux=with_aux)
             if a is not None:
                 aux = aux + a
             for name, leaf in (nc or {}).items():

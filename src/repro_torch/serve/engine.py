@@ -32,6 +32,10 @@ Sampling is deterministic and batching-invariant: token ``j`` of request
 ``(seed, rid, j)``, so a request's output does not depend on which other
 requests share the batch. (It cannot reproduce the JAX package's threefry
 draws; greedy decoding is what is held to the JAX package.)
+
+As in the JAX package, the engine serves prompts of text tokens only: it
+refuses an encoder-decoder model (its decode shares one position across
+the batch), and a VLM's prompts run without a vision prefix.
 """
 from __future__ import annotations
 
@@ -133,6 +137,11 @@ class ServeEngine:
         seed: int = 0,
         telemetry=None,
     ):
+        if model.cfg.is_encdec:
+            raise ValueError(
+                "the serving engine decodes per-slot; enc-dec (audio) "
+                "models need one shared position and are not servable here"
+            )
         if max_prompt % prompt_bucket:
             raise ValueError(
                 f"prompt_bucket ({prompt_bucket}) must divide max_prompt ({max_prompt})"

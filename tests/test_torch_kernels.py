@@ -693,7 +693,8 @@ def test_train_avt_calls_llm_100m_round():
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "codeqwen1.5-7b", "qwen1.5-32b", "qwen3-32b",
                                   "olmoe-1b-7b", "deepseek-moe-16b", "rwkv6-7b",
-                                  "jamba-1.5-large-398b"])
+                                  "jamba-1.5-large-398b", "whisper-large-v3",
+                                  "llava-next-mistral-7b"])
 def test_decode_step_calls_are_the_calls_a_decode_step_makes(arch, monkeypatch):
     """``chip_smoke.decode_step_calls`` (which the card run holds every
     served model's launches to) counts the xus / avt calls one 4-slot
@@ -701,7 +702,9 @@ def test_decode_step_calls_are_the_calls_a_decode_step_makes(arch, monkeypatch):
     stack G): the experts' stacks at G = E, the shared experts and the
     router (a dense product, no call) of a MoE layer, Qwen3's d × H·hd q
     and o, RWKV's five projections, Mamba's five (its dt_proj dense at
-    this size, under the policy's ``min_dim``)."""
+    this size, under the policy's ``min_dim``), Whisper's cross block (its
+    step on a shared-position cache, and its prefill with the encoder's
+    projections: ``encoder=True``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import lowrank_matmul
     from repro_torch.models import build_model, reduced
@@ -725,10 +728,18 @@ def test_decode_step_calls_are_the_calls_a_decode_step_makes(arch, monkeypatch):
     model = build_model(cfg)
     with torch.no_grad():
         params = model.init(torch.Generator().manual_seed(0))
-        cache = model.init_cache(params, 4, 12, per_slot=True)
+        cache = model.init_cache(params, 4, max(12, cfg.sliding_window),
+                                 per_slot=not cfg.is_encdec)
         model.serve_step(params, cache, torch.ones((4, 1), dtype=torch.int64))
     assert seen == smoke.decode_step_calls(cfg)
     assert smoke.per_forward(cfg) == sum(n for k, n in seen.items() if k[0] == "xus")
+    if cfg.is_encdec:
+        seen.clear()
+        frames = torch.zeros((4, cfg.encoder.num_frames, cfg.d_model))
+        with torch.no_grad():
+            model.serve_prefill(params, {"tokens": torch.ones((4, 3), dtype=torch.int64),
+                                         "frames": frames}, cache_len=12)
+        assert seen == smoke.decode_step_calls(cfg, encoder=True)
     if cfg.moe is not None:
         assert any(G == cfg.moe.num_experts for *_, G in seen)
 
