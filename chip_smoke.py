@@ -80,7 +80,19 @@ per source, all started together) and drives each of the port's paths:
   and a track per client); ``examples/configs/hier_int8_wire.toml``'s
   cloud round (edge bytes against an identity edge wire's, the cloud
   aggregate's time, the invariant after it) and a 1-edge cloud aggregate
-  held to keep every factor's ``U S Vᵀ``.
+  held to keep every factor's ``U S Vᵀ``;
+- mesh (after the models' phases): an NCCL group of one rank and a 1 x 1
+  ``("data", "model")`` mesh; Qwen2-7B's bf16 prefill and 8 greedy steps
+  and an llm-100m FeDLRT round (``spec_tree``, ``client_axes``) held
+  bit-identical to the same calls without a mesh, with equal launches; the
+  host ms of a step both ways; the custom-op route's host µs a call; the
+  engine's decode step without a mesh held to its ATen operator count from
+  before the mesh was ported;
+- dryrun: ``python -m repro_torch.launch.dryrun`` on the host for Qwen2-7B
+  (train_4k, prefill_32k, decode_32k; long_500k the documented skip),
+  RWKV6-7B (long_500k) and OLMoE-1B-7B (train_4k) on a fake 256-rank
+  16 x 16 mesh, then every local ``xus`` / ``avt`` / ``atb`` shape those
+  traces record against its plain version on the card.
 
 Every failure raises and exits non-zero. The last two lines of standard
 output are one JSON object with each kernel's numbers and one with the
@@ -119,7 +131,8 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 KERNELS = tuple(SOURCES)
-PATHS = ("serve", "serve-quant", "models", "encdec", "vlm", "train", "flash", "spec", "sim")
+PATHS = ("serve", "serve-quant", "models", "encdec", "vlm", "mesh", "train", "flash", "spec",
+         "sim")
 #: tolerance of a kernel against its plain version, with the reason
 TOL = {
     # both round once from f32 to bf16; f32 sums taken in different orders
@@ -527,7 +540,7 @@ def phase_f32_check(torch):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(spec.seed)
     with torch.inference_mode():
-        params = model.init(gen)
+        params, _ = model.init(gen)
     eng = ServeEngine(model, params, max_batch=sv.max_batch, max_prompt=sv.max_prompt,
                       prompt_bucket=sv.prompt_bucket, max_new_tokens=sv.max_new_tokens,
                       seed=spec.seed)
@@ -770,7 +783,7 @@ def fresh_params(torch, spec):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(spec.seed)
     with torch.inference_mode():
-        return build_model(lm_model_config(spec.model)).init(gen)
+        return build_model(lm_model_config(spec.model)).init(gen)[0]
 
 
 def with_active_rank(torch, params, r):
@@ -1209,7 +1222,7 @@ def f32_runs(torch, arch, seed):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     with torch.inference_mode():
-        params = models["kernels"].init(gen)
+        params, _ = models["kernels"].init(gen)
     batch = {"tokens": torch.randint(1, cfg.vocab_size, (1, 37), generator=gen, device="cuda")}
     if cfg.is_encdec:
         batch["frames"] = torch.randn((1, cfg.encoder.num_frames, cfg.d_model), generator=gen,
@@ -1400,7 +1413,7 @@ def phase_encdec_vlm(torch, counters, records):
         wgen = torch.Generator(device="cuda")
         wgen.manual_seed(0)
         with torch.inference_mode():
-            params = model.init(wgen)
+            params, _ = model.init(wgen)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         stub = "frames" if cfg.is_encdec else "vision tokens"
@@ -2987,6 +3000,350 @@ def phase_sim(torch, counters, workdir):
                 async_=async_stats, hier=hier_stats, path_s=path_s)
 
 
+#: ATen operators one Qwen2-7B bf16 engine decode step dispatched before the
+#: mesh was ported (``[serve]``, Run 21.4, H100 80GB HBM3, 700.00 W): the
+#: path without a mesh must not have grown
+SERVE_STEP_DISPATCHES = 7980
+#: the dry runs of the card machine's host: (arch, shape), and whether a
+#: documented skip is expected
+DRYRUNS = (("qwen2-7b", "train_4k", False), ("qwen2-7b", "prefill_32k", False),
+           ("qwen2-7b", "decode_32k", False), ("rwkv6-7b", "long_500k", False),
+           ("olmoe-1b-7b", "train_4k", False), ("qwen2-7b", "long_500k", True))
+
+
+def _bits_equal(torch, a, b) -> bool:
+    """Every leaf of ``b`` (DTensors read as their local shard, whole on a
+    1 x 1 mesh) equal to ``a``'s, bit for bit."""
+    from repro_torch.utils.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    lb = [t.to_local() if hasattr(t, "to_local") else t for t in lb]
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if torch.is_tensor(x) else x == y for x, y in zip(la, lb))
+
+
+def phase_mesh(torch, counters, serve_stats):
+    """The sharded path on the card: an NCCL group of one rank (a
+    ``FileStore`` in a temp dir) and a (1, 1) ``("data", "model")`` mesh,
+    ``sharding.enable(mesh)``. On a 1 x 1 mesh every shard is whole, so the
+    sharded path must give the bits of the path without a mesh, with the
+    same kernel launches; any difference is a plumbing fault.
+
+    - Qwen2-7B, bf16, full width and depth: a prefill of 4 rows (32
+      tokens) and 8 greedy ``serve_step``s, without a mesh and then with
+      the parameters laid out by ``sharding.distribute``: logits of every
+      call bit-identical, ``xus`` / ``avt`` launches equal; the host ms of a
+      step both ways (DTensor's dispatch on a host-bound step).
+    - llm-100m, f32: one FeDLRT round (spec defaults: 4 clients, s* 4,
+      simplified correction) without a mesh, then with ``spec_tree`` and
+      ``client_axes=("data",)`` under client mode: the new parameters and
+      the losses bit-identical, ``xus`` / ``avt`` / ``atb`` launches equal.
+    - the custom-op route the dry run traces through: host µs a call of
+      ``torch.ops.repro_torch.xus`` / ``avt`` / ``atb`` on card tensors
+      against the wrappers' direct calls.
+    - ``sharding.enable(None)``: the engine's decode step dispatches
+      :data:`SERVE_STEP_DISPATCHES` ATen operators, as before the port of
+      the mesh (read in the serve phase), and a model step without a mesh
+      launches ``decode_step_calls``'s ``xus`` / ``avt``.
+
+    The counts for path ``mesh`` are those of the sharded runs (prefill,
+    steps and round), zeroed just before and read just after each."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.api.tasks import PRESETS
+    from repro_torch.configs import get_config
+    from repro_torch.core.fedlrt import fedlrt_round
+    from repro_torch.kernels.coeff_grad import atb
+    from repro_torch.kernels.lowrank_matmul import avt, xus
+    from repro_torch.models import build_model, sharding
+    from repro_torch.utils.tree import tree_map
+
+    tag = "[mesh]"
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+                            rank=0, world_size=1)
+    mesh_counts = {k: 0 for k in KERNELS}
+
+    def add(got):
+        for k in KERNELS:
+            mesh_counts[k] += got[k]
+
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        log(f"{tag} NCCL group of 1 rank, mesh {mesh}")
+
+        def layout(model, params):
+            sharding.enable(mesh)
+            with FakeTensorMode():  # the spec tree, without a second copy of the weights
+                _, specs = model.init(torch.Generator(device="cuda"))
+            specs = sharding.sanitize(mesh, params, specs)
+            return sharding.distribute(params, specs, mesh), specs
+
+        # -- Qwen2-7B serving --------------------------------------------------
+        cfg = get_config("qwen2-7b")
+        model = build_model(cfg)
+        wgen = torch.Generator(device="cuda")
+        wgen.manual_seed(0)
+        with torch.no_grad():  # DTensor views of inference tensors are refused
+            params, _ = model.init(wgen)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(5)
+        prompt = torch.randint(1, cfg.vocab_size, (4, 32), generator=gen, device="cuda")
+        steps = 8
+
+        def serve_run(p):
+            with torch.no_grad():
+                _zero_counts()
+                torch.cuda.synchronize()
+                logits, cache = model.serve_prefill(p, {"tokens": prompt}, cache_len=32 + steps)
+                outs = [logits]
+                for _ in range(steps):
+                    logits, cache = model.serve_step(p, cache, outs[-1].argmax(-1)[:, None])
+                    outs.append(logits)
+                torch.cuda.synchronize()
+                got = _launch_counts()
+                _zero_counts()  # one more step alone
+                model.serve_step(p, cache, outs[-1].argmax(-1)[:, None])
+                torch.cuda.synchronize()
+                one = _launch_counts()
+                host = []
+                for _ in range(5):  # host ms of one more step, median of 5
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    model.serve_step(p, cache, outs[-1].argmax(-1)[:, None])
+                    torch.cuda.synchronize()
+                    host.append(time.perf_counter() - t0)
+            outs = [o.to_local() if hasattr(o, "to_local") else o for o in outs]
+            return outs, got, one, float(np.median(host) * 1e3)
+
+        ref, ref_got, ref_one, ref_ms = serve_run(params)
+        dp, _ = layout(model, params)
+        outs, got, one, mesh_ms = serve_run(dp)
+        add(got)
+        same = all(torch.equal(a, b) for a, b in zip(ref, outs))
+        launches_equal = all(ref_got[k] == got[k] and ref_one[k] == one[k]
+                             for k in ("xus", "avt", "atb"))
+        tokens = torch.stack([o.argmax(-1) for o in outs], dim=1)
+        log(f"{tag} qwen2-7b bf16, 4 rows x 32 tokens + {steps} greedy steps on the 1x1 mesh: "
+            f"logits bit-identical to no mesh: {same}; launches xus/avt/atb "
+            f"{got['xus']}/{got['avt']}/{got['atb']} (no mesh {ref_got['xus']}/{ref_got['avt']}/"
+            f"{ref_got['atb']}); step host {mesh_ms:.2f} ms with the mesh, {ref_ms:.2f} ms "
+            f"without (median of 5); tokens row 0 {tokens[0].tolist()}")
+        if not same or not launches_equal:
+            raise AssertionError(f"{tag} qwen2-7b on a 1x1 mesh differs from no mesh: bits "
+                                 f"{same}, launches {got} vs {ref_got}")
+        if not bool(torch.isfinite(torch.stack(outs)).all()):
+            raise AssertionError(f"{tag} NaN/inf logits")
+        serve = dict(step_host_ms_mesh=mesh_ms, step_host_ms=ref_ms, launches=got)
+        sharding.enable(None)
+        del dp, params, model, ref, outs
+        torch.cuda.empty_cache()
+
+        # -- llm-100m FeDLRT round ---------------------------------------------
+        spec = ExperimentSpec(name="chip-mesh-llm-100m", seed=0)
+        fc = spec.fed.to_fed_config()
+        lcfg = PRESETS["llm-100m"]
+        lmodel = build_model(lcfg)
+        wgen.manual_seed(1)
+        with torch.no_grad():
+            lparams, _ = lmodel.init(wgen)
+            # row-major, as the mesh's shards are (QR's bases are column-major,
+            # and cuBLAS rounds a product of the two layouts differently)
+            lparams = tree_map(lambda t: t.contiguous(), lparams)
+        batches = {"tokens": torch.randint(
+            1, lcfg.vocab_size, (fc.num_clients, spec.data.batch, spec.data.seq + 1),
+            generator=gen, device="cuda")}
+
+        def round_run(p, **mesh_kw):
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, m = fedlrt_round(lmodel.loss_fn, p, batches, fc, **mesh_kw)
+            torch.cuda.synchronize()
+            return new, m, _launch_counts(), time.perf_counter() - t0
+
+        new0, m0, got0, s0 = round_run(lparams)
+        dp, specs = layout(lmodel, lparams)
+        sharding.set_client_mode(True)
+        try:
+            new1, m1, got1, s1 = round_run(dp, spec_tree=specs, client_axes=("data",))
+        finally:
+            sharding.set_client_mode(False)
+        add(got1)
+        same = _bits_equal(torch, new0, new1) and all(
+            torch.equal(m0[k], m1[k].to_local()) for k in ("loss_before", "loss_after"))
+        launches_equal = all(got0[k] == got1[k] for k in ("xus", "avt", "atb"))
+        log(f"{tag} llm-100m FeDLRT round (C={fc.num_clients}, s*={fc.s_star}) with spec_tree / "
+            f"client_axes on the 1x1 mesh: bit-identical to no mesh: {same}; launches "
+            f"xus/avt/atb {got1['xus']}/{got1['avt']}/{got1['atb']} (no mesh {got0['xus']}/"
+            f"{got0['avt']}/{got0['atb']}); host {s1:.2f} s with the mesh, {s0:.2f} s without; "
+            f"loss {float(m0['loss_before']):.4f} -> {float(m0['loss_after']):.4f}")
+        if not same or not launches_equal:
+            raise AssertionError(f"{tag} the llm-100m round on a 1x1 mesh differs from no mesh: "
+                                 f"bits {same}, launches {got1} vs {got0}")
+        train = dict(round_s_mesh=s1, round_s=s0, launches=got1)
+        sharding.enable(None)
+        del dp, lparams, new0, new1, lmodel
+        torch.cuda.empty_cache()
+
+        # -- the custom-op route's host cost -----------------------------------
+        x = torch.randn(4, 3584, device="cuda", dtype=torch.bfloat16)
+        U = torch.randn(3584, 256, device="cuda", dtype=torch.bfloat16)
+        S = torch.randn(256, 256, device="cuda", dtype=torch.bfloat16)
+        V = torch.randn(3584, 256, device="cuda", dtype=torch.bfloat16)
+        A = torch.randn(512, 3584, device="cuda")
+        B = torch.randn(512, 256, device="cuda")
+        ops = torch.ops.repro_torch
+        host = {
+            "xus": (host_us(torch, lambda i: xus(x, U, S)),
+                    host_us(torch, lambda i: ops.xus(x, U, S))),
+            "avt": (host_us(torch, lambda i: avt(x[:, :256].contiguous(), V)),
+                    host_us(torch, lambda i: ops.avt(x[:, :256].contiguous(), V))),
+            "atb": (host_us(torch, lambda i: atb(A, B)), host_us(torch, lambda i: ops.atb(A, B))),
+        }
+        torch.cuda.synchronize()
+        for k, (direct, op) in host.items():
+            log(f"{tag} host us a call, {k}: wrapper {direct:.1f}, custom op {op:.1f} "
+                f"(+{op - direct:.1f})")
+        if not torch.equal(xus(x, U, S), ops.xus(x, U, S)):
+            raise AssertionError(f"{tag} the custom op xus differs from the wrapper")
+    finally:
+        sharding.enable(None)
+        dist.destroy_process_group()
+    counters["mesh"] = mesh_counts
+
+    # -- without a mesh: the serve phase's engine step, and a model step -----
+    if serve_stats["aten_dispatches"] != SERVE_STEP_DISPATCHES:
+        raise AssertionError(f"{tag} the engine's decode step dispatched "
+                             f"{serve_stats['aten_dispatches']} ATen operators without a mesh, "
+                             f"{SERVE_STEP_DISPATCHES} before the mesh was ported")
+    want = decode_step_calls(cfg)
+    per = {k: sum(n for (kk, *_), n in want.items() if kk == k) for k in ("xus", "avt")}
+    if any(ref_one[k] != per[k] for k in per):
+        raise AssertionError(f"{tag} a decode step without a mesh launched {ref_one}, "
+                             f"decode_step_calls says {per}")
+    log(f"{tag} without a mesh: the engine's decode step dispatched "
+        f"{serve_stats['aten_dispatches']} ATen operators (serve phase; {SERVE_STEP_DISPATCHES} "
+        f"before the mesh was ported); a model step launched {ref_one['xus']} xus + "
+        f"{ref_one['avt']} avt (decode_step_calls: {per['xus']} + {per['avt']}), the same on "
+        f"the 1x1 mesh")
+    return dict(serve=serve, train=train,
+                custom_op_host_us={k: dict(wrapper=v[0], custom_op=v[1]) for k, v in host.items()},
+                decode_xus_avt_per_forward=per)
+
+
+def phase_dryrun(torch, records):
+    """``python -m repro_torch.launch.dryrun`` on the card machine's host
+    (fake tensors on the card's device; nothing runs on it): the combos of
+    :data:`DRYRUNS` at once, one process each, each writing its JSON under
+    ``results/dryrun_torch``; their ``OK`` lines (mesh, devices,
+    per-device argument / temp bytes, compute / memory / collective ms,
+    dominant term) and the documented ``SKIP``. Then every local shape at
+    which those traces call ``xus`` / ``avt`` / ``atb`` that the kernels
+    phases lack, against its plain version on the card. Returns the new
+    kernel records and the dry runs' results."""
+    out = os.path.join(ROOT, "results", "dryrun_torch")
+    os.makedirs(out, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    t0 = time.perf_counter()
+    for arch, shape, _ in DRYRUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape, "--out", out]
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True, env=env, cwd=ROOT))
+    results = {}
+    for (arch, shape, skip), p in zip(DRYRUNS, procs):
+        stdout, stderr = p.communicate(timeout=600)
+        lines = [ln for ln in stdout.splitlines() if ln.startswith(("OK", "SKIP", "FAIL"))]
+        log(f"[dryrun] {lines[-1] if lines else '(no result line)'}")
+        want = "SKIP" if skip else "OK"
+        if p.returncode != 0 or not lines or not lines[-1].startswith(want):
+            raise AssertionError(f"[dryrun] {arch} x {shape}: expected {want}, rc "
+                                 f"{p.returncode}: {stderr[-2000:]}")
+        name = f"{'skip' if skip else '16x16'}__{arch}__{shape}.json"
+        with open(os.path.join(out, name)) as f:
+            results[(arch, shape)] = json.load(f)
+    log(f"[dryrun] {len(DRYRUNS)} combos in {time.perf_counter() - t0:.1f} s (in parallel)")
+
+    have = {(r["kernel"], r["dtype"], r.get("dim"), r.get("R"), r.get("G", 1), r["M"])
+            for r in records if r["kernel"] in ("xus", "avt")}
+    have |= {("atb", r["dtype"], r["Ka"], r["Kb"], 1, r["M"]) for r in records
+             if r["kernel"] == "atb"}
+    shapes = set()
+    for res in results.values():
+        for kernel, dtype, M, dim, R, G, _ in res.get("kernel_shapes", []):
+            shapes.add((kernel, dtype, dim, R, G, M))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    new = []
+    for kernel, dtype, dim, R, G, M in sorted(shapes - have):
+        if kernel == "atb":
+            new.append(atb_case(torch, dtype, M, dim, R, gen, G=G, tag="[kernels dryrun]"))
+        else:
+            new.append(kernel_case(torch, kernel, dtype, M, dim, R, gen, G=G,
+                                   tag="[kernels dryrun]"))
+        torch.cuda.empty_cache()
+    _check_records(new)
+    log(f"[dryrun] {len(shapes)} local kernel shapes recorded, {len(new)} new ones held to "
+        f"their plain versions")
+    summary = {f"{a} x {s}": ({"skipped": r["skipped"]} if "skipped" in r else {
+        "mesh": r["mesh"], "devices": r["devices"], "lower_s": r["lower_s"],
+        "memory": r["memory"], "roofline": {k: v for k, v in r["roofline"].items()
+                                            if k != "collectives"}})
+        for (a, s), r in results.items()}
+    return new, summary
+
+
+def atb_case(torch, dtype_name, M, Ka, Kb, gen, G=1, tag="[kernels]"):
+    """One ``atb`` shape (stacked over G where G > 1) against its plain
+    version, timed (kernel, plain, ``matmul(A.T, B)``) in a CUDA graph, with
+    its bound and device launches held to ``atb_plan``; logs one line."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.coeff_grad import atb, atb_plan
+
+    dtype = getattr(torch, dtype_name)
+    lead = (G,) if G > 1 else ()
+    set_bytes = G * M * (Ka + Kb) * dtype.itemsize
+    n_sets = max(2, min(64, math.ceil(L2_DEFEAT_BYTES / set_bytes)))
+    sets = [(torch.randn(lead + (M, Ka), generator=gen, device="cuda").to(dtype),
+             torch.randn(lead + (M, Kb), generator=gen, device="cuda").to(dtype))
+            for _ in range(n_sets)]
+    got, want = atb(*sets[0]), ref.atb_ref(*sets[0])
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype_name == "float32":
+        ok = err <= ATB_F32_RTOL * want.abs().max().item()
+    else:
+        ok = torch.allclose(got.float(), want.float(), **TOL[dtype_name])
+    plan = atb_plan(G, M, Ka, Kb)
+    dev = device_launches(torch, lambda: atb(*sets[0]))
+    if dev != plan.launches:
+        raise AssertionError(f"atb G={G} M={M} Ka={Ka} Kb={Kb}: {dev} device launches, plan "
+                             f"{plan.launches}")
+    reps = max(n_sets, 8)
+    rec = dict(kernel="atb", model="dryrun", dtype=dtype_name, M=M, Ka=Ka, Kb=Kb, G=G,
+               max_abs_err=err, ok=ok, splits=plan.splits, launches=dev,
+               ms=graph_ms(torch, lambda i: atb(*sets[i]), n_sets, reps),
+               plain_ms=graph_ms(torch, lambda i: ref.atb_ref(*sets[i]), n_sets, reps),
+               library_ms=graph_ms(torch, lambda i: torch.matmul(
+                   sets[i][0].transpose(-1, -2), sets[i][1]), n_sets, reps))
+    b_ms, rec["bound_by"] = _atb_bound_ms(dtype_name, M, Ka, Kb)
+    rec["bound_ms"] = G * b_ms
+    log(f"{tag} atb {dtype_name:8s} {f'G={G:<3d}' if G > 1 else ''}M={M:<5d} Ka={Ka:<6d} "
+        f"Kb={Kb:<4d} max_abs_err={err:.3g} {'ok' if ok else 'MISMATCH'}  "
+        f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+        f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.6f} "
+        f"({rec['bound_by']}) splits={plan.splits} launches={dev}")
+    del sets
+    return rec
+
+
+
 def decode_step_sums(name, cfg, records):
     """``name``'s measured numbers summed over one decode step of ``cfg``
     (each shape's record at its decode M: 4 rows, or 1 row an expert of a
@@ -3107,6 +3464,12 @@ def main() -> int:
     ev_records, ev_stats, ev_sums = phase_encdec_vlm(torch, counters, records + model_records)
     model_records += ev_records
     done("encdec-vlm")
+    mesh_stats = phase_mesh(torch, counters, serve_stats)
+    done("mesh")
+    dry_records, dry_stats = phase_dryrun(torch, records + model_records + atb_records)
+    model_records += [r for r in dry_records if r["kernel"] != "atb"]
+    atb_records += [r for r in dry_records if r["kernel"] == "atb"]
+    done("dryrun")
     train = phase_train(torch, counters)
     done("train")
     flash_records = phase_flash(torch, counters)
@@ -3119,7 +3482,8 @@ def main() -> int:
     done("sim")
     log("[summary] " + json.dumps({"card": smi, "serve": serve_stats,
                                    "serve_quant": quant_stats, "models": model_stats,
-                                   "encdec_vlm": ev_stats,
+                                   "encdec_vlm": ev_stats, "mesh": mesh_stats,
+                                   "dryrun": dry_stats,
                                    "train": train,
                                    "flash": flash_records, "spec": spec_stats,
                                    "sim": sim_stats, "xus_train": xus_train,

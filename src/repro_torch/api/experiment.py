@@ -308,7 +308,7 @@ def serve(spec: ExperimentSpec, *, params=None, device="cuda", telemetry=None) -
             gen = torch.Generator(device=dev)
             gen.manual_seed(spec.seed)
             with torch.inference_mode():
-                params = model.init(gen)
+                params, _ = model.init(gen)
 
     with torch.inference_mode():
         if sv.rank_slice:

@@ -145,7 +145,7 @@ def _build_lm(spec, device) -> Task:
     cfg = lm_model_config(m)
     model = build_model(cfg)
     with torch.no_grad():
-        params = model.init(_generator(spec.seed, device))
+        params, _ = model.init(_generator(spec.seed, device))
     n_params = sum(x.numel() for x in tree_leaves(params))
     # Markov stream with planted low-rank transitions: a real loss floor
     tokens = make_token_stream(

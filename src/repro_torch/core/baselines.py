@@ -52,12 +52,13 @@ class _DenseProgram:
         first = first_step_batch(client_batches, ctx.cfg)
         if self.corrected:
             losses, g_c = unzip(
-                ctx.vmap_c(lambda b: value_and_grad(loss_fn, params, b))(first)
+                ctx.vmap_c(lambda p, b: value_and_grad(loss_fn, p, b), in_axes=(None, 0))(
+                    params, first)
             )
             corr_c = variance_correction(ctx.aggregate(g_c), g_c)
         else:
             with torch.no_grad():
-                losses = ctx.vmap_c(lambda b: loss_fn(params, b))(first)
+                losses = ctx.vmap_c(loss_fn, in_axes=(None, 0))(params, first)
             corr_c = None  # FedAvg sends no per-client correction
         shared = {"params0": params, SERVER: {"loss_before": ctx.aggregate(losses)}}
         return shared, corr_c
@@ -81,7 +82,7 @@ class _DenseProgram:
             first = first_step_batch(client_batches, ctx.cfg)
             with torch.no_grad():
                 metrics["loss_after"] = ctx.aggregate(
-                    ctx.vmap_c(lambda b: loss_fn(new_params, b))(first)
+                    ctx.vmap_c(loss_fn, in_axes=(None, 0))(new_params, first)
                 )
         return new_params, metrics
 
@@ -102,17 +103,24 @@ class FedLinProgram(_DenseProgram):
 
 
 def fedavg_round(loss_fn: LossFn, params, client_batches, cfg: FedConfig, *,
-                 round_idx: int = 0, client_weights=None, wire=None):
-    """Algorithm 3: local SGD, aggregate by averaging."""
+                 round_idx: int = 0, client_weights=None, wire=None, spec_tree=None,
+                 client_axes=None):
+    """Algorithm 3: local SGD, aggregate by averaging. ``spec_tree`` /
+    ``client_axes``: under a mesh, as in :func:`repro_torch.core.fedlrt.fedlrt_round`."""
     return run_round(FedAvgProgram(), loss_fn, params, client_batches, cfg,
-                     round_idx=round_idx, client_weights=client_weights, wire=wire)
+                     round_idx=round_idx, client_weights=client_weights, wire=wire,
+                     spec_tree=spec_tree, client_axes=client_axes)
 
 
 def fedlin_round(loss_fn: LossFn, params, client_batches, cfg: FedConfig, *,
-                 round_idx: int = 0, client_weights=None, wire=None):
-    """Algorithm 4: FedAvg + variance correction (extra comm round)."""
+                 round_idx: int = 0, client_weights=None, wire=None, spec_tree=None,
+                 client_axes=None):
+    """Algorithm 4: FedAvg + variance correction (extra comm round).
+    ``spec_tree`` / ``client_axes``: under a mesh, as in
+    :func:`repro_torch.core.fedlrt.fedlrt_round`."""
     return run_round(FedLinProgram(), loss_fn, params, client_batches, cfg,
-                     round_idx=round_idx, client_weights=client_weights, wire=wire)
+                     round_idx=round_idx, client_weights=client_weights, wire=wire,
+                     spec_tree=spec_tree, client_axes=client_axes)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.factorization import is_factor
 from repro_torch.utils.tree import tree_leaves
@@ -114,7 +115,8 @@ def fedlrt_round_comm_bytes_effective(params, correction: str = "simplified") ->
     ranks. An f32 scalar; stacked factors sum their per-slice ranks."""
     total = torch.zeros((), dtype=torch.float32)
     for f in _factor_leaves(params):
-        r = f.rank.float().cpu()
+        r = f.rank.full_tensor() if isinstance(f.rank, DTensor) else f.rank  # whole on every rank
+        r = r.float().cpu()
         nr = (f.n_in + f.n_out) * r
         r2 = r * r
         per = nr + r2 + nr + nr

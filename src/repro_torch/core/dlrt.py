@@ -13,20 +13,31 @@ Cholesky, the triangular solve, QR and SVD are ``torch.linalg`` calls, as
 the JAX package runs them outside any Pallas kernel. QR and SVD leave the
 signs of basis vectors free, so results agree with the JAX package's on
 spans, on ``U S Vᵀ``, on σ and on the chosen rank, not on raw bases.
+
+Under a mesh (DTensor factors) the bases stay sharded on their feature
+dim (``u_spec`` / ``v_spec``): every product here contracts over rows into
+an ``r × r`` sum or is row-local, and the Cholesky, the triangular solve
+and the SVD, which DTensor has no rule for, run on whole copies of their
+small ``r × r`` / ``2r × 2r`` operands on every rank
+(:func:`repro_torch.utils.meshctx.replicated_local`).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.factorization import (
     AugmentedFactor,
     LowRankFactor,
     augmented_mask,
     mask_coeff,
+    pad_coeff,
     rank_mask,
 )
+from repro_torch.utils import meshctx
+from repro_torch.utils.tree import tree_map
 
 
 def _mT(a: torch.Tensor) -> torch.Tensor:
@@ -47,7 +58,16 @@ def qr_pos(a: torch.Tensor) -> torch.Tensor:
     return q * d[..., None, :]
 
 
-def _ortho_complement_cholqr2(U: torch.Tensor, G: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+def _chol_inv(C: torch.Tensor) -> torch.Tensor:
+    """``L⁻¹`` of ``C = L Lᵀ``; a failed batch member gives NaN."""
+    eye = torch.eye(C.shape[-1], dtype=C.dtype, device=C.device)
+    L, info = torch.linalg.cholesky_ex(C)
+    L = torch.where((info != 0)[..., None, None], torch.full_like(L, float("nan")), L)
+    return torch.linalg.solve_triangular(L, eye.expand(C.shape), upper=False, left=True)
+
+
+def _ortho_complement_cholqr2(U: torch.Tensor, G: torch.Tensor, eps: float = 1e-7,
+                              spec=None) -> torch.Tensor:
     """Orthonormalize ``G`` against the orthonormal ``U`` by CholeskyQR2.
 
     The left block is already orthonormal, so the span of ``qr([U | G])`` is
@@ -61,7 +81,12 @@ def _ortho_complement_cholqr2(U: torch.Tensor, G: torch.Tensor, eps: float = 1e-
     batch members are set to NaN here so that both packages take the same
     path: every non-finite column is zeroed, and a zero basis column is
     inert in ``Ũ S̃ Ṽᵀ``.
+
+    ``spec`` (under a mesh) pins the rows of Q to the basis' sharding, so
+    no step gathers the basis.
     """
+    if isinstance(G, DTensor) or isinstance(U, DTensor):
+        return _ortho_complement_sharded(U, G, eps, spec)
 
     def once(Q):
         Q = Q - U @ (_mT(U) @ Q)
@@ -79,8 +104,79 @@ def _ortho_complement_cholqr2(U: torch.Tensor, G: torch.Tensor, eps: float = 1e-
     return finite(once(finite(once(G))))
 
 
+def _ortho_complement_sharded(U, G, eps: float, spec):
+    """:func:`_ortho_complement_cholqr2` on DTensors: the ``r × r`` Gram
+    matrix is summed over the row shards, its Cholesky inverse taken on
+    every rank, and the rows of Q stay pinned to ``spec``."""
+
+    def pin(Q):
+        return meshctx.constrain(Q, spec) if spec is not None else Q
+
+    def once(Q):
+        Q = pin(Q - U @ (_mT(U) @ Q))
+        C = _mT(Q) @ Q
+        C = C + eps * torch.eye(C.shape[-1], dtype=C.dtype, device=C.device)
+        return pin(Q @ _mT(meshctx.replicated_local(_chol_inv, C)))
+
+    def finite(Q):
+        return torch.where(torch.isfinite(Q), Q, torch.zeros_like(Q))
+
+    return finite(once(finite(once(G))))
+
+
+def _split_by_member(f):
+    """``(mesh, placements)`` when no axis of size > 1 splits the DTensor
+    factor ``f`` but on its stack dims (the experts): each rank then holds
+    whole members, which augmentation and truncation treat one by one, so
+    both run unchanged on the local shards (on a mesh of size-1 axes, the
+    same calls as without a mesh). The placements keep the stack splits and
+    are ``Replicate`` elsewhere. None otherwise."""
+    if not isinstance(f.U, DTensor):
+        return None
+    mesh, ns = f.U.device_mesh, f.U.dim() - 2
+    pl = []
+    for i, p in enumerate(f.U.placements):
+        if mesh.size(i) == 1:
+            pl.append(Replicate())
+        elif (isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim < ns)) and all(
+                isinstance(t, DTensor) and t.placements[i] == p for t in (f.V, f.S)):
+            pl.append(p)
+        else:
+            return None
+    return mesh, tuple(pl)
+
+
+def _members_local(fn, split, *tensors):
+    """``fn`` on the local members of ``tensors`` (laid out as ``split``
+    says); its tensor outputs (a tuple, possibly of factors and dicts) come
+    back as DTensors split the same way."""
+    mesh, pl = split
+
+    def local(t):
+        if not isinstance(t, DTensor):
+            return t
+        if any(p != q and mesh.size(i) > 1 for i, (p, q) in enumerate(zip(t.placements, pl))):
+            t = t.redistribute(mesh, pl)
+        return t.to_local()  # a size-1 axis holds it whole, however tagged
+
+    def wrap(t):
+        if not torch.is_tensor(t):
+            return t
+        shape = list(t.shape)
+        for i, p in enumerate(pl):
+            if isinstance(p, Shard):
+                shape[p.dim] *= mesh.size(i)
+        return DTensor.from_local(t.contiguous(), mesh, pl, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=torch.empty(shape, device="meta").stride())
+
+    out = fn(*(tree_map(local, t) for t in tensors))
+    return tree_map(wrap, out)
+
+
 def augment_basis(
-    f: LowRankFactor, G_U: torch.Tensor, G_V: torch.Tensor, *, method: str = "cholqr2"
+    f: LowRankFactor, G_U: torch.Tensor, G_V: torch.Tensor, *, method: str = "cholqr2",
+    u_spec=None, v_spec=None,
 ) -> AugmentedFactor:
     """Paper Eq. (6) + Lemma 1: ``Ũ = qr([Uᵗ | G_U])`` (and likewise for V).
 
@@ -88,7 +184,13 @@ def augment_basis(
     (the span does not change). ``method``: ``"cholqr2"`` (default,
     :func:`_ortho_complement_cholqr2`) or ``"householder"`` (the paper's
     QR). Returns the augmented factor with ``S̃ = [[Sᵗ, 0], [0, 0]]``.
+    ``u_spec`` / ``v_spec`` (under a mesh) pin the complements' rows to the
+    bases' sharding.
     """
+    split = _split_by_member(f)
+    if split is not None:
+        return _members_local(lambda f, gu, gv: augment_basis(f, gu, gv, method=method),
+                              split, f, G_U, G_V)
     r_max = f.r_max
     if 2 * r_max > min(f.n_in, f.n_out):
         raise ValueError(
@@ -103,8 +205,8 @@ def augment_basis(
     U32, V32 = f.U.float(), f.V.float()
     if method == "cholqr2":
         # inactive columns come out (numerically) zero; mask exactly
-        ubar = _ortho_complement_cholqr2(U32, gu) * m[..., None, :]
-        vbar = _ortho_complement_cholqr2(V32, gv) * m[..., None, :]
+        ubar = _ortho_complement_cholqr2(U32, gu, spec=u_spec) * m[..., None, :]
+        vbar = _ortho_complement_cholqr2(V32, gv, spec=v_spec) * m[..., None, :]
         U_t = torch.cat([U32, ubar], dim=-1)
         V_t = torch.cat([V32, vbar], dim=-1)
     elif method == "householder":
@@ -113,10 +215,13 @@ def augment_basis(
         V_t = qr_pos(torch.cat([V32, gv], dim=-1)) * am[..., None, :]
     else:
         raise ValueError(method)
-    S_t = torch.zeros(
-        f.S.shape[:-2] + (2 * r_max, 2 * r_max), dtype=f.S.dtype, device=f.S.device
-    )
-    S_t[..., :r_max, :r_max] = f.S
+    if isinstance(f.S, DTensor):  # the same zero padding
+        S_t = pad_coeff(f.S, r_max)
+    else:
+        S_t = torch.zeros(
+            f.S.shape[:-2] + (2 * r_max, 2 * r_max), dtype=f.S.dtype, device=f.S.device
+        )
+        S_t[..., :r_max, :r_max] = f.S
     return AugmentedFactor(U=U_t.to(f.U.dtype), S=S_t, V=V_t.to(f.V.dtype), rank=f.rank)
 
 
@@ -146,25 +251,34 @@ def truncate(
     runs on the ``2r_max × 2r_max`` coefficient only; the weight matrix is
     never formed. Columns past the new rank are zeroed.
     """
+    split = _split_by_member(f)
+    if split is not None:
+        return _members_local(lambda f: truncate(f, tau=tau, theta_abs=theta_abs), split, f)
     r_max = f.r_max
-    S32 = f.S.float()
-    P, sigma, Qt = torch.linalg.svd(S32, full_matrices=False)
-    if theta_abs is not None:
-        theta = torch.full(S32.shape[:-2], float(theta_abs), device=S32.device)
-    else:
-        theta = tau * torch.linalg.norm(S32, dim=(-2, -1))
-    r1 = pick_rank(sigma, theta, r_max)
-    keep = rank_mask(r1, r_max)
+
+    def small(S):
+        """Everything that reads only the 2r × 2r coefficient."""
+        S32 = S.float()
+        P, sigma, Qt = torch.linalg.svd(S32, full_matrices=False)
+        if theta_abs is not None:
+            theta = torch.full(S32.shape[:-2], float(theta_abs), device=S32.device)
+        else:
+            theta = tau * torch.linalg.norm(S32, dim=(-2, -1))
+        r1 = pick_rank(sigma, theta, r_max)
+        keep = rank_mask(r1, r_max)
+        diag_vals = sigma[..., :r_max] * keep
+        eye = torch.eye(r_max, dtype=torch.float32, device=S32.device)
+        S_new = (eye * diag_vals[..., None, :]).to(S.dtype)
+        trunc_err = torch.sqrt(torch.clamp(
+            torch.sum(torch.square(sigma), -1) - torch.sum(torch.square(diag_vals), -1), min=0.0
+        ))
+        return P, Qt, r1, keep, S_new, trunc_err, theta, sigma[..., 0]
+
+    P, Qt, r1, keep, S_new, trunc_err, theta, sigma_max = meshctx.replicated_local(small, f.S)
     U_new = (f.U @ P[..., :, :r_max].to(f.U.dtype)) * keep[..., None, :]
     V_new = (f.V @ _mT(Qt[..., :r_max, :]).to(f.V.dtype)) * keep[..., None, :]
-    diag_vals = sigma[..., :r_max] * keep
-    eye = torch.eye(r_max, dtype=torch.float32, device=S32.device)
-    S_new = (eye * diag_vals[..., None, :]).to(f.S.dtype)
     out = LowRankFactor(U=U_new, S=S_new, V=V_new, rank=r1)
-    trunc_err = torch.sqrt(torch.clamp(
-        torch.sum(torch.square(sigma), -1) - torch.sum(torch.square(diag_vals), -1), min=0.0
-    ))
-    info = {"rank": r1, "trunc_err": trunc_err, "theta": theta, "sigma_max": sigma[..., 0]}
+    info = {"rank": r1, "trunc_err": trunc_err, "theta": theta, "sigma_max": sigma_max}
     return out, info
 
 

@@ -22,6 +22,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass
@@ -102,6 +103,18 @@ def augmented_mask(rank: torch.Tensor, r_max: int, dtype=torch.float32) -> torch
     r = rank[..., None]
     active = (i < r) | ((i >= r_max) & (i < r_max + r))
     return active.to(dtype)
+
+
+def pad_coeff(S, r_max: int):
+    """The DTensor coefficient ``S`` (…, r, r) zero-padded into the top-left
+    block of (…, 2r, 2r), on each rank's shard: the rank dims are never
+    split, so the placements carry over (DTensor's own rule for ``pad``
+    drops a mesh dim in torch 2.11)."""
+    local = torch.nn.functional.pad(S.to_local(), (0, r_max, 0, r_max))
+    shape = tuple(S.shape[:-2]) + (2 * r_max, 2 * r_max)
+    return DTensor.from_local(local, S.device_mesh, S.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def mask_coeff(S: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

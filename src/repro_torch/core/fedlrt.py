@@ -20,11 +20,18 @@ Round structure (Alg. 1 / Alg. 5) mapped onto the phases:
     6. aggregate S̃* = mean_c S̃_c  → Eq. (10)               [comm: 4r²]
   finalize:
     7. truncation (2r×2r SVD)      → automatic compression
+
+Under a mesh (``spec_tree``, ``client_axes``) the per-client gradients, the
+augmented factors and the truncated ones are pinned to the parameters'
+layout (:func:`_constrain_clientwise`, :func:`_constrain_factor`), as the
+JAX package pins them.
 """
 from __future__ import annotations
 
 import dataclasses
+
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import cost_model
 from repro_torch.core.dlrt import augment_basis, coeff_grad_mask, truncate
@@ -33,6 +40,7 @@ from repro_torch.core.factorization import (
     LowRankFactor,
     is_factor,
     mask_coeff,
+    pad_coeff,
 )
 from repro_torch.core.round import (
     SERVER,
@@ -47,6 +55,8 @@ from repro_torch.core.round import (
     value_and_grad,
     variance_correction,
 )
+from repro_torch.utils import meshctx
+from repro_torch.utils.meshctx import P
 from repro_torch.utils.tree import Cohort, tree_map, tree_map_with_path, unzip
 
 __all__ = ["FedConfig", "FedLRTProgram", "fedlrt_round", "make_fedlrt_step"]
@@ -115,6 +125,33 @@ def _coeff_grad_norm(params, g_global) -> torch.Tensor:
     return torch.sqrt(sum(sq)) if sq else torch.zeros(())
 
 
+def _constrain_factor(x, spec):
+    """Re-pin U/V's tensor-parallel sharding on augmented and truncated
+    factors. The rank dim widens r → 2r through augmentation but the spec
+    (which shards only the feature dim) still applies."""
+    if spec is None or not is_factor(x):
+        return x
+    return dataclasses.replace(
+        x, U=meshctx.constrain(x.U, spec.U), V=meshctx.constrain(x.V, spec.V)
+    )
+
+
+def _constrain_clientwise(cohort, ctx: RoundContext):
+    """Pin each client's tree to the parameters' specs. The JAX package pins
+    the stacked (C, …) tree to ``P(client_axes, *spec)``; here the client
+    axis is the rank's own slice of the cohort, so each client's tree takes
+    the spec itself."""
+    if ctx.spec_tree is None or ctx.client_axes is None:
+        return cohort
+
+    def one(g, s):
+        if is_factor(g):
+            return tree_map(meshctx.constrain, g, s, is_leaf=meshctx.is_spec)
+        return meshctx.constrain(g, s)
+
+    return Cohort(_map_params(one, tree, ctx.spec_tree) for tree in cohort)
+
+
 # ---------------------------------------------------------------------------
 # the round program
 # ---------------------------------------------------------------------------
@@ -129,17 +166,30 @@ class FedLRTProgram:
 
         # -- 1/2: client basis (and coefficient) gradients at the shared point
         losses, per_client_g = unzip(
-            ctx.vmap_c(lambda b: value_and_grad(loss_fn, params, b))(first_batch)
+            ctx.vmap_c(lambda p, b: value_and_grad(loss_fn, p, b), in_axes=(None, 0))(
+                params, first_batch)
         )
+        per_client_g = _constrain_clientwise(per_client_g, ctx)
         loss_before = ctx.aggregate(losses)
         g_global = ctx.aggregate(per_client_g)  # server aggregate
 
         # -- 3: server-side basis augmentation, Lemma-1 S̃ assembly -----------
-        aug_params = _map_params(
-            lambda p, g: augment_basis(p, g.U, g.V) if isinstance(p, LowRankFactor) else p,
-            params,
-            g_global,
-        )
+        def _augment(p, g, spec=None):
+            if isinstance(p, LowRankFactor):
+                u_spec = spec.U if spec is not None and is_factor(spec) else None
+                v_spec = spec.V if spec is not None and is_factor(spec) else None
+                return augment_basis(p, g.U, g.V, u_spec=u_spec, v_spec=v_spec)
+            return p
+
+        if ctx.spec_tree is not None:
+            aug_params = _map_params(_augment, params, g_global, ctx.spec_tree)
+            if cfg.replicate_augmented:
+                repl = tree_map(lambda s: P(), ctx.spec_tree, is_leaf=meshctx.is_spec)
+                aug_params = _map_params(_constrain_factor, aug_params, repl)
+            else:
+                aug_params = _map_params(_constrain_factor, aug_params, ctx.spec_tree)
+        else:
+            aug_params = _map_params(_augment, params, g_global)
         trainable0 = trainable_of(aug_params)
         local_loss = self._local_loss(loss_fn, aug_params)
 
@@ -148,7 +198,9 @@ class FedLRTProgram:
         # corr_c = G_S̃ − G_S̃,c (global minus own; paper Eq. (8)).
         if cfg.correction == "full":
             # extra communication round: ∇_S̃ L_c at the augmented point
-            g0_c = ctx.vmap_c(lambda b: grad(local_loss, trainable0, b))(first_batch)
+            g0_c = ctx.vmap_c(
+                lambda a, t, b: grad(self._local_loss(loss_fn, a), t, b), in_axes=(None, None, 0)
+            )(aug_params, trainable0, first_batch)
             corr_c = variance_correction(ctx.aggregate(g0_c), g0_c)
         elif cfg.correction == "simplified":
             # reuse the round's first gradients: ∇_S L padded into the
@@ -157,6 +209,8 @@ class FedLRTProgram:
             def simpl(p, gbar, gc):
                 if isinstance(p, LowRankFactor):
                     r_max = p.r_max
+                    if isinstance(gc.S, DTensor):  # the same zero padding
+                        return pad_coeff(gbar.S - gc.S, r_max)
                     block = torch.zeros(
                         gc.S.shape[:-2] + (2 * r_max, 2 * r_max),
                         dtype=gc.S.dtype, device=gc.S.device,
@@ -227,6 +281,8 @@ class FedLRTProgram:
             return x
 
         new_params = tree_map_with_path(_truncate, merged, is_leaf=is_factor)
+        if ctx.spec_tree is not None:
+            new_params = _map_params(_constrain_factor, new_params, ctx.spec_tree)
         metrics = {
             "loss_before": shared[SERVER]["loss_before"],
             "rank": {k: v["rank"] for k, v in infos.items()},
@@ -243,17 +299,21 @@ class FedLRTProgram:
             ),
         }
         if cfg.track_drift:
-            metrics["max_coeff_drift"] = torch.max(torch.stack(list(drift_c)))
+            metrics["max_coeff_drift"] = (
+                ctx.reduce_max(drift_c) if ctx.reduce_max is not None
+                else torch.max(torch.stack(list(drift_c)))
+            )
         if cfg.eval_after:
             last_batch = last_step_batch(client_batches, cfg)
             with torch.no_grad():
-                losses_after = ctx.vmap_c(lambda b: loss_fn(new_params, b))(last_batch)
+                losses_after = ctx.vmap_c(loss_fn, in_axes=(None, 0))(new_params, last_batch)
             metrics["loss_after"] = ctx.aggregate(losses_after)
         return new_params, metrics
 
 
 def fedlrt_round(loss_fn: LossFn, params, client_batches, cfg: FedConfig, *,
-                 round_idx: int = 0, client_weights=None, wire=None):
+                 round_idx: int = 0, spec_tree=None, client_axes=None,
+                 client_weights=None, wire=None):
     """One full FeDLRT aggregation round. Returns ``(new_params, metrics)``.
 
     ``client_batches`` leaves lead with the client axis ``C`` (``(C, s*,
@@ -263,10 +323,18 @@ def fedlrt_round(loss_fn: LossFn, params, client_batches, cfg: FedConfig, *,
     ``wire`` (optional :class:`repro_torch.fed.wire.Wire`): the codec for
     the round's payloads; the metrics then gain the measured
     ``wire_bytes_{down,up}_per_client``.
+
+    ``spec_tree`` (the parameters' spec tree, under a mesh) keeps the
+    augmented and truncated factors on their tensor-parallel layout;
+    ``client_axes`` names the mesh axes of the client dim: each rank then
+    runs its slice of the cohort and the aggregates all-reduce over those
+    axes (:func:`repro_torch.core.round.make_context`). ``params`` are then
+    DTensors laid out by ``spec_tree``.
     """
     return run_round(
         FedLRTProgram(), loss_fn, params, client_batches, cfg,
         round_idx=round_idx, client_weights=client_weights, wire=wire,
+        spec_tree=spec_tree, client_axes=client_axes,
     )
 
 

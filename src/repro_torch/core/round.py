@@ -17,6 +17,14 @@ keeps the per-client results as a :class:`~repro_torch.utils.tree.Cohort`,
 one tree per client. Every aggregate is a weighted sum taken in that same
 order, so one card gives the same bits on every run.
 
+Under a mesh (``spec_tree`` / ``client_axes``: the cohort's client axis
+on the mesh's data axes, as the JAX package's ``vmap(spmd_axis_name=…)``
+puts it) each rank runs the clients of its own slice of the cohort, and
+every aggregate is a weighted sum over the rank's clients all-reduced over
+the client axes (:func:`make_context`). The rank's client trees are
+DTensors laid out like the parameters. Without a mesh nothing of this
+runs.
+
 Gradients come from :func:`value_and_grad`: ``torch.autograd.grad`` over
 the floating tensor leaves of a parameter tree, a factor's ``U``, ``S``
 and ``V`` among them and never its ``rank``.
@@ -35,9 +43,11 @@ from typing import Any, Callable, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.core.factorization import is_factor
 from repro_torch.optim import make_optimizer
+from repro_torch.utils import meshctx
 from repro_torch.utils.tree import (
     Cohort,
     cohort_size,
@@ -69,6 +79,9 @@ class FedConfig:
     per_step_batches: bool = False  # batch leaves have a (C, s*, ...) layout
     eval_after: bool = True  # compute the global loss after the round (extra fwd)
     track_drift: bool = False  # record max_s ‖S̃_c^s − S̃‖ (Theorem-1 diagnostics)
+    # replicate the augmented bases for the client loop under a mesh (the
+    # JAX package's switch; off by default, as there)
+    replicate_augmented: bool = False
 
     def __post_init__(self):
         if self.correction not in ("none", "simplified", "full"):
@@ -126,6 +139,10 @@ class RoundContext:
     aggregate: Callable[[Cohort], Any]
     vmap_c: Callable = vmap_c
     client_weights: Optional[np.ndarray] = None
+    spec_tree: Any = None
+    client_axes: Any = None
+    #: under a mesh: the max over the cohort of a per-client scalar
+    reduce_max: Optional[Callable[[Cohort], Any]] = None
 
 
 #: key under which ``broadcast`` stashes server-local state. Everything else
@@ -192,13 +209,125 @@ def make_aggregator(client_weights) -> Callable[[Cohort], Any]:
     return aggregate
 
 
-def make_context(cfg: FedConfig, *, round_idx: int = 0, client_weights=None) -> RoundContext:
+def make_context(cfg: FedConfig, *, round_idx: int = 0, client_weights=None,
+                 spec_tree=None, client_axes=None) -> RoundContext:
+    """The round's context. With ``client_axes`` (under a mesh) the client
+    "vmap" runs this rank's slice of the cohort and the aggregates reduce
+    over the client axes (:func:`_mesh_context`)."""
+    if client_axes:
+        return _mesh_context(cfg, round_idx, client_weights, spec_tree, tuple(client_axes))
     return RoundContext(
         cfg=cfg,
         round_idx=int(round_idx),
         aggregate=make_aggregator(client_weights),
         client_weights=client_weights,
+        spec_tree=spec_tree,
     )
+
+
+def _mesh_context(cfg, round_idx, client_weights, spec_tree, client_axes) -> RoundContext:
+    """Rank-local clients: rank ``k`` along the (pod-major) client axes runs
+    clients ``[k·C/n, (k+1)·C/n)``.
+
+    A client's work runs on the sub-mesh of the other axes (the rank's model
+    group), where its batch is whole on every rank: there no operation can
+    split a tensor over the client axes, so no collective mixes two
+    clients. Its results come back to the whole mesh as rank-local values,
+    whole on the client axes, and meet other clients' only in an aggregate:
+    the rank's clients summed in cohort order, weighted, then all-reduced
+    over the client axes, divided by the cohort's size (a weighted one
+    sums each client's share; a max all-reduces likewise). On one rank that
+    is the plain mean's arithmetic, bit for bit."""
+    mesh = meshctx.mesh()
+    if mesh is None:
+        raise ValueError("client_axes needs a mesh (sharding.enable)")
+    C = cfg.num_clients
+    n = meshctx.axis_size(client_axes, mesh)
+    if C % n:
+        raise ValueError(f"{C} clients do not split over {n} ranks of the client axes "
+                         f"{client_axes}")
+    lo = meshctx.mesh_coordinate(mesh, client_axes) * (C // n)
+    if client_weights is not None:
+        w = np.asarray(client_weights, np.float32)
+        w = w / np.sum(w, dtype=np.float32)
+    dims = [mesh.mesh_dim_names.index(a) for a in client_axes]
+    group = mesh[tuple(a for a in mesh.mesh_dim_names if a not in client_axes)]
+
+    def to_group(x):
+        if not isinstance(x, DTensor) or x.device_mesh.ndim != mesh.ndim:
+            return x  # not on the whole mesh: a client's value already
+        if any(not isinstance(x.placements[i], Replicate) for i in dims):
+            raise ValueError(f"a client's operand is split over the client axes: {x.placements}")
+        pl = [p for i, p in enumerate(x.placements) if i not in dims]
+        return DTensor.from_local(x.to_local(), group, pl, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+
+    def to_mesh(x):
+        if not isinstance(x, DTensor) or x.device_mesh.ndim == mesh.ndim:
+            return x
+        pl = iter(x.placements)
+        full = [Replicate() if i in dims else next(pl) for i in range(mesh.ndim)]
+        return DTensor.from_local(x.to_local(), mesh, full, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+
+    def client_slice(tree, c):
+        def one(x):
+            if isinstance(x, DTensor):
+                x = x.to_local()[c]
+            elif torch.is_tensor(x):
+                x = x[lo + c]
+            else:
+                return x
+            return DTensor.from_local(x, group, [Replicate()] * group.ndim, run_check=False)
+
+        if isinstance(tree, Cohort):
+            return tree_map(to_group, tree[c])
+        return tree_map(one, tree)
+
+    def vmap(fn: Callable, in_axes=0) -> Callable:
+        def run(*args):
+            axes = (0,) * len(args) if in_axes == 0 else tuple(in_axes)
+            return Cohort(
+                tree_map(to_mesh, fn(*(
+                    client_slice(a, c) if ax == 0 and a is not None else tree_map(to_group, a)
+                    for a, ax in zip(args, axes))))
+                for c in range(C // n)
+            )
+        return run
+
+    def across(total, op):
+        total = meshctx.as_dtensor(total, mesh)
+        pl = list(total.placements)
+        src = [Partial(op) if i in dims else p for i, p in enumerate(pl)]
+        dst = [Replicate() if i in dims else p for i, p in enumerate(pl)]
+        part = DTensor.from_local(total.to_local(), mesh, src, run_check=False,
+                                  shape=total.shape, stride=total.stride())
+        return part.redistribute(mesh, dst)
+
+    def aggregate(cohort: Cohort):
+        if client_weights is None:  # the plain mean's order: sum, then divide
+            def mean(*xs):
+                total = xs[0]
+                for x in xs[1:]:
+                    total = total + x
+                return across(total, "sum") / C
+
+            return tree_map(mean, cohort[0], *cohort[1:])
+
+        def wsum(*xs):
+            total = float(w[lo]) * xs[0].float()
+            for k, x in enumerate(xs[1:], 1):
+                total = total + float(w[lo + k]) * x.float()
+            return across(total, "sum").to(xs[0].dtype)
+
+        return tree_map(wsum, cohort[0], *cohort[1:])
+
+    def reduce_max(cohort: Cohort):
+        return across(torch.max(torch.stack([meshctx.as_dtensor(x, mesh) for x in cohort])), "max")
+
+    return RoundContext(cfg=cfg, round_idx=int(round_idx), aggregate=aggregate, vmap_c=vmap,
+                        client_weights=client_weights, spec_tree=spec_tree,
+                        client_axes=client_axes, reduce_max=reduce_max)
 
 
 def run_client_phases(program: RoundProgram, loss_fn: LossFn, params, client_batches,
@@ -219,16 +348,17 @@ def run_client_phases(program: RoundProgram, loss_fn: LossFn, params, client_bat
         client_shared, bytes_shared = wire.roundtrip(client_shared, name="broadcast")
         per_client, bytes_pc = wire.roundtrip(per_client, name="per_client", batched=True)
     client_out = ctx.vmap_c(
-        lambda pc, b: program.client_step(loss_fn, client_shared, pc, b, ctx),
-        in_axes=(None if per_client is None else 0, 0),
-    )(per_client, client_batches)
+        lambda cs, pc, b: program.client_step(loss_fn, cs, pc, b, ctx),
+        in_axes=(None, None if per_client is None else 0, 0),
+    )(client_shared, per_client, client_batches)
     if wire is not None:
         client_out, bytes_up = wire.roundtrip(client_out, name="client_out", batched=True)
     return shared, client_out, (bytes_shared, bytes_pc, bytes_up)
 
 
 def run_round(program: RoundProgram, loss_fn: LossFn, params, client_batches, cfg: FedConfig,
-              *, round_idx: int = 0, client_weights=None, wire=None):
+              *, round_idx: int = 0, client_weights=None, wire=None, spec_tree=None,
+              client_axes=None):
     """Execute one round of ``program``. Returns ``(new_params, metrics)``.
 
     ``wire`` (optional :class:`repro_torch.fed.wire.Wire`) decorates the
@@ -238,8 +368,26 @@ def run_round(program: RoundProgram, loss_fn: LossFn, params, client_batches, cf
     ``wire_bytes_down_per_client`` (the shared broadcast once per client
     plus that client's slice) and ``wire_bytes_up_per_client``. With the
     identity codec the round is bit-identical to ``wire=None``.
+
+    ``spec_tree`` (the parameters' specs) keeps the augmented and truncated
+    factors on their layout under a mesh; ``client_axes`` names the mesh
+    axes of the client dim (see :func:`make_context`). A wire under a mesh
+    is not supported.
     """
-    ctx = make_context(cfg, round_idx=round_idx, client_weights=client_weights)
+    if spec_tree is not None or client_axes:
+        if wire is not None:
+            raise ValueError("a wire codec under a mesh is not supported")
+        with meshctx.implicit_replication():
+            return _run_round(program, loss_fn, params, client_batches, cfg, round_idx,
+                              client_weights, None, spec_tree, client_axes)
+    return _run_round(program, loss_fn, params, client_batches, cfg, round_idx,
+                      client_weights, wire, None, None)
+
+
+def _run_round(program, loss_fn, params, client_batches, cfg, round_idx, client_weights, wire,
+               spec_tree, client_axes):
+    ctx = make_context(cfg, round_idx=round_idx, client_weights=client_weights,
+                       spec_tree=spec_tree, client_axes=client_axes)
     shared, client_out, (bytes_shared, bytes_pc, bytes_up) = run_client_phases(
         program, loss_fn, params, client_batches, ctx, wire=wire
     )

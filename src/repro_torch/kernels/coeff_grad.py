@@ -14,7 +14,9 @@ adds the splits' partials in split order. It takes 2-D operands or
 operands with one leading batch dim. A CUDA tensor launches the kernel, or
 the wrapper raises; a CPU tensor takes the plain version
 :func:`repro_torch.kernels.ref.atb_ref`. ``atb.launches`` counts the calls
-that reached the card.
+that reached the card. On fake tensors it calls the custom op
+``repro_torch::atb`` instead (shape and FLOP count, no launch), as ``xus``
+and ``avt`` do (:mod:`repro_torch.kernels.lowrank_matmul`).
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import functools
 from typing import NamedTuple, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import load_library
@@ -37,6 +41,7 @@ from repro_torch.kernels.lowrank_matmul import (
     _check_cuda,
     _counter_slot,
     _on_device,
+    _record,
 )
 
 #: a block's tile of C (Ka × Kb) and the rows of M it stages a step
@@ -101,6 +106,13 @@ def atb_plan(G: int, M: int, Ka: int, Kb: int) -> AtbPlan:
 
 def atb(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """C = Aᵀ @ B.  A: ([G,] M, Ka), B: ([G,] M, Kb) → ([G,] Ka, Kb)."""
+    if isinstance(A, FakeTensor):
+        _record("atb", A, A.shape[-1], B.shape[-1])
+        return torch.ops.repro_torch.atb(A, B)
+    return _atb(A, B)
+
+
+def _atb(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     if A.device.type == "cpu":
         return ref.atb_ref(A, B)
     if A.device.type != "cuda":
@@ -135,3 +147,19 @@ def atb(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 
 atb.launches = 0
+
+
+@torch.library.custom_op("repro_torch::atb", mutates_args=())
+def _atb_op(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return _atb(A, B)
+
+
+@_atb_op.register_fake
+def _(A, B):
+    return A.new_empty(tuple(A.shape[:-2]) + (A.shape[-1], B.shape[-1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.atb)
+def _atb_flops(A_shape, B_shape, *args, out_shape=None, **kwargs) -> int:
+    G = A_shape[0] if len(A_shape) == 3 else 1
+    return 2 * G * A_shape[-2] * A_shape[-1] * B_shape[-1]

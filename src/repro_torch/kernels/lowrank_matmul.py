@@ -20,6 +20,14 @@ kernel, or the wrapper raises; a CPU tensor takes the plain version in
 :mod:`repro_torch.kernels.ref`. Each wrapper counts its launches in a plain
 integer attribute (``xus.launches``, ``avt.launches``): one per call that
 reached the card, whatever number of device kernels the call runs.
+
+On fake tensors (``torch._subclasses.FakeTensorMode``: the multi-card dry
+run, :mod:`repro_torch.launch.dryrun`) the wrappers call the custom ops
+``repro_torch::xus`` / ``repro_torch::avt`` instead, which give the output's
+shape and a FLOP count (``torch.utils.flop_counter``) without a launch;
+:func:`record_shapes` collects the local shapes those calls took. Real
+tensors never take that route: its dispatch would add an operator to every
+call.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import load_library
@@ -235,6 +245,13 @@ def _counter_slot(device: torch.device, stream: int) -> int:
 def xus(x: torch.Tensor, U: torch.Tensor, S: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A = (x @ U) @ S.  x: ([G,] M, K), U: ([G,] K, R), S: ([G,] R, R) or
     None for A = x @ U."""
+    if isinstance(x, FakeTensor):
+        _record("xus", x, U.shape[-2], U.shape[-1])
+        return torch.ops.repro_torch.xus(x, U, S)
+    return _xus(x, U, S)
+
+
+def _xus(x: torch.Tensor, U: torch.Tensor, S: Optional[torch.Tensor]) -> torch.Tensor:
     if x.device.type == "cpu":
         return ref.xus_ref(x, U, S)
     if x.device.type != "cuda":
@@ -335,6 +352,13 @@ def avt_plan(G: int, M: int, N: int, R: int) -> AvtPlan:
 
 def avt(A: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     """y = A @ Vᵀ.  A: ([G,] M, R), V: ([G,] N, R) → ([G,] M, N)."""
+    if isinstance(A, FakeTensor):
+        _record("avt", A, V.shape[-2], V.shape[-1])
+        return torch.ops.repro_torch.avt(A, V)
+    return _avt(A, V)
+
+
+def _avt(A: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     if A.device.type == "cpu":
         return ref.avt_ref(A, V)
     if A.device.type != "cuda":
@@ -367,3 +391,63 @@ def avt(A: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
 
 xus.launches = 0
 avt.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the traced route: custom ops with a fake implementation and a FLOP count
+# ---------------------------------------------------------------------------
+
+#: the list :func:`record_shapes` fills, or None
+_SHAPES: Optional[list] = None
+
+
+@contextlib.contextmanager
+def record_shapes():
+    """Collect ``(kernel, dtype, M, K or N, R, G)`` for every traced call of
+    ``xus`` / ``avt`` / ``atb`` (``atb``: ``(atb, dtype, M, Ka, Kb, G)``)
+    made inside the block; yields the list."""
+    global _SHAPES
+    prev, _SHAPES = _SHAPES, []
+    try:
+        yield _SHAPES
+    finally:
+        _SHAPES = prev
+
+
+def _record(kernel: str, a: torch.Tensor, k: int, r: int) -> None:
+    if _SHAPES is not None:
+        G = a.shape[0] if a.dim() == 3 else 1
+        _SHAPES.append((kernel, str(a.dtype).replace("torch.", ""), a.shape[-2], k, r, G))
+
+
+@torch.library.custom_op("repro_torch::xus", mutates_args=())
+def _xus_op(x: torch.Tensor, U: torch.Tensor, S: Optional[torch.Tensor]) -> torch.Tensor:
+    return _xus(x, U, S)
+
+
+@_xus_op.register_fake
+def _(x, U, S):
+    return x.new_empty(tuple(x.shape[:-1]) + (U.shape[-1],))
+
+
+@torch.library.custom_op("repro_torch::avt", mutates_args=())
+def _avt_op(A: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    return _avt(A, V)
+
+
+@_avt_op.register_fake
+def _(A, V):
+    return A.new_empty(tuple(A.shape[:-1]) + (V.shape[-2],))
+
+
+@register_flop_formula(torch.ops.repro_torch.xus)
+def _xus_flops(x_shape, U_shape, S_shape, *args, out_shape=None, **kwargs) -> int:
+    G = x_shape[0] if len(x_shape) == 3 else 1
+    M, K, R = x_shape[-2], x_shape[-1], U_shape[-1]
+    return 2 * G * M * K * R + (0 if S_shape is None else 2 * G * M * R * R)
+
+
+@register_flop_formula(torch.ops.repro_torch.avt)
+def _avt_flops(A_shape, V_shape, *args, out_shape=None, **kwargs) -> int:
+    G = A_shape[0] if len(A_shape) == 3 else 1
+    return 2 * G * A_shape[-2] * A_shape[-1] * V_shape[-2]

@@ -5,9 +5,10 @@ VLM family).
 
 ``build_model(cfg)`` returns a :class:`Model` with
 
-- ``init(gen) → params``: a nested dict of LowRankFactor and dense leaves
-  in the JAX package's layout, drawn from the ``torch.Generator`` ``gen``
-  on its device;
+- ``init(gen) → (params, specs)``: a nested dict of LowRankFactor and
+  dense leaves in the JAX package's layout, drawn from the
+  ``torch.Generator`` ``gen`` on its device, and the matching tree of
+  sharding specs (:mod:`repro_torch.models.sharding`);
 - ``loss_fn(params, batch) → scalar``: next-token cross-entropy on
   ``batch["tokens"]`` (B, T+1), on the cache-free path, plus the MoE
   blocks' auxiliary loss. Factor leaves may be AugmentedFactors (the
@@ -30,10 +31,13 @@ Batch layouts by family (as in the JAX package):
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.models import sharding
+from repro_torch.utils import meshctx
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     Builder,
@@ -64,12 +68,17 @@ def has_recurrent_mixer(cfg: ModelConfig) -> bool:
     return bool(set(cfg.block_pattern) & {"mamba", "rwkv"})
 
 
-def build_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+def build_params(cfg: ModelConfig, gen: torch.Generator):
+    """``(params, specs)``: the parameter tree and its spec tree."""
     pol = cfg.lowrank
     b = Builder(gen, pol, dtype=torch_dtype(cfg.param_dtype))
     NB = cfg.superblocks
-    b.linear("embed", cfg.vocab_size, cfg.d_model, force_dense=not pol.factorize_embed)
-    b.linear("lm_head", cfg.d_model, cfg.vocab_size, force_dense=not pol.factorize_head)
+    # embed's U stays replicated (the gather is local); lm_head's V is
+    # vocab-sharded (logits computed shard-local)
+    b.linear("embed", cfg.vocab_size, cfg.d_model, li=None, lo="embed",
+             force_dense=not pol.factorize_embed)
+    b.linear("lm_head", cfg.d_model, cfg.vocab_size, li="embed", lo="vocab",
+             force_dense=not pol.factorize_head)
     b.vector("final_norm", (cfg.d_model,))
     for i, kind in enumerate(cfg.block_pattern):
         build_block(b, f"blocks/pos{i}", kind, cfg, NB, moe_here=cfg.moe_on_layer(i),
@@ -94,7 +103,9 @@ def _encode(params, frames, cfg: ModelConfig):
 
 
 def _logits(params, h, kernels: str = "off"):
-    return apply_linear(params["lm_head"], h, kernels=kernels)
+    logits = apply_linear(params["lm_head"], h, kernels=kernels)
+    # sequence-sharded logits: the cross-entropy is elementwise over (B, T)
+    return sharding.shard(logits, "batch", "seq", None)
 
 
 def _xent(logits, labels, mask=None) -> torch.Tensor:
@@ -111,10 +122,25 @@ def _xent(logits, labels, mask=None) -> torch.Tensor:
     return torch.mean(nll)
 
 
+def _on_mesh(fn):
+    """Under a mesh (sharding enabled) run ``fn`` with plain tensors (the
+    positions, masks and constants the model makes) taken as DTensors every
+    rank holds whole; without one, call it as it is."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        if not sharding.ENABLED:
+            return fn(*args, **kwargs)
+        with meshctx.implicit_replication():
+            return fn(*args, **kwargs)
+
+    return run
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
-    init: Callable[[torch.Generator], Any]
+    init: Callable[[torch.Generator], Tuple[Any, Any]]
     loss_fn: Callable[[Any, Any], torch.Tensor]
     serve_prefill: Callable[..., Tuple[torch.Tensor, Any]]
     serve_step: Callable[[Any, Any, torch.Tensor], Tuple[torch.Tensor, Any]]
@@ -155,6 +181,7 @@ def build_model(cfg: ModelConfig) -> Model:
         tokens = batch["tokens"].long()
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         emb = apply_embedding(params["embed"], inputs, dtype=dt, kernels=cfg.kernels)
+        emb = sharding.shard(emb, "batch", None, None)
         emb, cross_kv, n_prefix = embed_inputs(params, batch, emb)
         positions = torch.arange(emb.shape[1], device=emb.device)
         h, _, aux = stack_apply(params["blocks"], emb, cfg, positions=positions,
@@ -183,6 +210,10 @@ def build_model(cfg: ModelConfig) -> Model:
         if cfg.is_encdec:
             cache["enc_h"] = torch.zeros((batch, cfg.encoder.num_frames, cfg.d_model),
                                          dtype=dt, device=device)
+        if sharding.ENABLED and device.type != "meta":
+            if per_slot:
+                raise ValueError("a per-slot cache is not laid out on a mesh")
+            return sharding.distribute_cache(cache, batch, meshctx.mesh())
         return cache
 
     def serve_prefill(params, batch, cache_len: int = 0, last_index: Optional[int] = None):
@@ -251,8 +282,8 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=lambda gen: build_params(cfg, gen),
-        loss_fn=loss_fn,
-        serve_prefill=serve_prefill,
-        serve_step=serve_step,
+        loss_fn=_on_mesh(loss_fn),
+        serve_prefill=_on_mesh(serve_prefill),
+        serve_step=_on_mesh(serve_step),
         init_cache=init_cache,
     )

@@ -19,9 +19,12 @@ rows, the same bits on every run.
 
 FeDLRT treats every expert's ``(U_e, S_e, V_e)`` like any other factor
 leaf: the stacked axis is one more batch dim of the augmentation and the
-truncation. The JAX package's ``sharding.shard`` pins are layout hints for
-a TPU mesh that move no numbers, and are left out (distribution is
-ROADMAP.md, queue 1, item 7).
+truncation.
+
+Under a mesh the expert pipeline is pinned to the expert-parallel layout
+(the experts on "model", as the JAX package pins it), and the routing,
+which DTensor has no rule for (a stable sort, gathers over all tokens),
+runs on each rank over every token of its batch (:func:`_sharded_moe`).
 """
 from __future__ import annotations
 
@@ -29,27 +32,39 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.factorization import is_factor, lr_matmul
+from repro_torch.kernels.ops import _from_local, _local
+from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.layers import Builder
+from repro_torch.utils import meshctx
 
 
 def build_moe(b: Builder, prefix: str, cfg: ModelConfig, n_blocks: int):
     """Register MoE params for a stack of ``n_blocks`` layers."""
     m = cfg.moe
     d = cfg.d_model
-    bs = (n_blocks, m.num_experts)
+    bs, ba = (n_blocks, m.num_experts), ("layers", "experts")
     b.linear(f"{prefix}/router", d, m.num_experts, batch_shape=(n_blocks,),
-             force_dense=True, init_scale=0.02)
-    b.linear(f"{prefix}/up", d, m.d_expert, batch_shape=bs)
-    b.linear(f"{prefix}/gate", d, m.d_expert, batch_shape=bs)
-    b.linear(f"{prefix}/down", m.d_expert, d, batch_shape=bs)
+             batch_axes=("layers",), force_dense=True, init_scale=0.02)
+    # expert-parallel only: the expert dim carries the "model" axis, so the
+    # per-expert feature dims stay unsharded (a mesh axis appears once a spec)
+    b.linear(f"{prefix}/up", d, m.d_expert, li=None, lo=None,
+             batch_shape=bs, batch_axes=ba)
+    b.linear(f"{prefix}/gate", d, m.d_expert, li=None, lo=None,
+             batch_shape=bs, batch_axes=ba)
+    b.linear(f"{prefix}/down", m.d_expert, d, li=None, lo=None,
+             batch_shape=bs, batch_axes=ba)
     if m.num_shared_experts:
         ds = m.d_shared or m.d_expert * m.num_shared_experts
-        b.linear(f"{prefix}/shared_up", d, ds, batch_shape=(n_blocks,))
-        b.linear(f"{prefix}/shared_gate", d, ds, batch_shape=(n_blocks,))
-        b.linear(f"{prefix}/shared_down", ds, d, batch_shape=(n_blocks,))
+        b.linear(f"{prefix}/shared_up", d, ds, li="embed", lo="ffn",
+                 batch_shape=(n_blocks,), batch_axes=("layers",))
+        b.linear(f"{prefix}/shared_gate", d, ds, li="embed", lo="ffn",
+                 batch_shape=(n_blocks,), batch_axes=("layers",))
+        b.linear(f"{prefix}/shared_down", ds, d, li="ffn", lo="embed",
+                 batch_shape=(n_blocks,), batch_axes=("layers",))
 
 
 def _stacked_linear(w, x, kernels: str = "off") -> torch.Tensor:
@@ -175,6 +190,58 @@ class _Combine(torch.autograd.Function):
         return _zero_where_not(ctx.s.kept_rows, g[ctx.s.take.T]), None
 
 
+def _sharded_dispatch(p: dict, x, m: MoEConfig):
+    """The routing and dispatch of :func:`moe_block` on DTensor tokens.
+
+    Every rank gathers all N tokens and routes them (the routing is a
+    stable sort and gathers over all tokens, which DTensor has no rule
+    for), then dispatches the rows of its own experts: the experts' mesh
+    axes are those the expert factors are sharded on. Each rank's combine
+    sums the rows of its experts, so the output is a partial sum over those
+    axes, and so is each rank's share of the auxiliary loss; the local
+    gradients of the gathered tokens and of the router are declared partial
+    sums likewise. ``x`` is (B, T, d); the combine returns (B, T, d).
+    Returns (xe, gate weights, combine, aux share)."""
+    mesh = x.device_mesh
+    nd = mesh.ndim
+    w_up = p["up"].U if is_factor(p["up"]) else p["up"]
+    edims = [i for i in range(nd) if mesh.size(i) > 1
+             and isinstance(w_up.placements[i], Shard) and w_up.placements[i].dim == 0]
+    ne = 1
+    coord = 0
+    for i in edims:
+        ne *= mesh.size(i)
+        coord = coord * mesh.size(i) + mesh.get_local_rank(i)
+    rep = [Replicate()] * nd
+    grad = [Partial() if i in edims else Replicate() for i in range(nd)]
+    on_experts = [Shard(0) if i in edims else Replicate() for i in range(nd)]
+    summed = [Partial() if i in edims else Replicate() for i in range(nd)]
+    B, T, d = x.shape
+    xl = _local(x, mesh, rep, grad).reshape(B * T, d)
+    router = _local(meshctx.as_dtensor(p["router"], mesh), mesh, rep, grad)
+    r = route(router, xl, m)
+    s = _slots(r)
+    E = m.num_experts
+    El = E // ne
+    e0, e1 = coord * El, (coord + 1) * El
+    mine = (s.src >= e0 * r.cap) & (s.src < e1 * r.cap)
+    sl = _Slots(take=s.take[:, e0:e1], src=torch.where(mine, s.src - e0 * r.cap, 0),
+                kept=s.kept & mine, kept_rows=s.kept_rows[e0:e1])
+    xe = _Dispatch.apply(xl, sl) if xl.requires_grad else xl[sl.take.T]
+    xe = _from_local(xe, mesh, on_experts, (E, r.cap, d))
+    w = _from_local(r.w_taken[:, e0:e1].T[..., None], mesh, on_experts, (E, r.cap, 1))
+
+    def combine(ye):
+        yl = ye.to_local()
+        out = (_Combine.apply(yl, sl) if yl.requires_grad
+               else _sum_kept(yl.reshape(El * r.cap, d), sl))
+        return _from_local(out.reshape(B, T, d), mesh, summed, (B, T, d))
+
+    frac_routed = torch.mean((r.chose > 0).to(torch.float32), dim=0)  # (E,)
+    aux = m.aux_loss_weight * E * torch.sum(frac_routed * torch.mean(r.probs, dim=0))
+    return xe, w, combine, _from_local(aux / ne, mesh, summed, ())
+
+
 def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
               with_aux: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Apply one MoE FFN. x: (B, T, d) → (y, aux_loss); the aux loss is
@@ -186,18 +253,35 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     m = cfg.moe
     B, T, d = x.shape
     N = B * T
-    xf = x.reshape(N, d)
     E = m.num_experts
-    r = route(p["router"], xf, m)
-    s = _slots(r)
+    if isinstance(x, DTensor):
+        # the shared experts below take (B, T, d): a DTensor split on T
+        # cannot be flattened into rows
+        xe, w, combine, aux = _sharded_dispatch(p, x, m)
+        xf = x
+    else:
+        xf = x.reshape(N, d)
+        r = route(p["router"], xf, m)
+        s = _slots(r)
+        xe = _Dispatch.apply(xf, s) if xf.requires_grad else xf[s.take.T]  # (E, cap, d)
+        w = r.w_taken.T[..., None]
 
-    xe = _Dispatch.apply(xf, s) if xf.requires_grad else xf[s.take.T]  # (E, cap, d)
-    gate_h = _stacked_linear(p["gate"], xe, cfg.kernels)
-    up_h = _stacked_linear(p["up"], xe, cfg.kernels)
+        def combine(ye):
+            if ye.requires_grad:
+                return _Combine.apply(ye, s)
+            return _sum_kept(ye.reshape(E * r.cap, d), s)
+
+        aux = None
+    # every stage of the expert pipeline is pinned to the expert-parallel
+    # layout
+    xe = sharding.shard(xe, "experts", None, None)
+    gate_h = sharding.shard(_stacked_linear(p["gate"], xe, cfg.kernels), "experts", None, None)
+    up_h = sharding.shard(_stacked_linear(p["up"], xe, cfg.kernels), "experts", None, None)
     h = F.silu(gate_h) * up_h
     ye = _stacked_linear(p["down"], h, cfg.kernels)  # (E, cap, d)
-    ye = ye * r.w_taken.T[..., None].to(ye.dtype)
-    out = _Combine.apply(ye, s) if ye.requires_grad else _sum_kept(ye.reshape(E * r.cap, d), s)
+    ye = sharding.shard(ye, "experts", None, None)
+    ye = ye * w.to(ye.dtype)
+    out = combine(ye)
 
     # shared ("always-on") experts: the DeepSeekMoE design
     if "shared_up" in p:
@@ -208,6 +292,8 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     out = out.reshape(B, T, d)
     if not with_aux:
         return out, None
+    if aux is not None:
+        return out, aux
 
     # switch-style load-balance auxiliary loss
     frac_routed = torch.mean((r.chose > 0).to(torch.float32), dim=0)  # (E,)

@@ -21,6 +21,9 @@ so the port writes them in plain PyTorch:
 The dtypes are the JAX package's: the scan workspace is the compute dtype
 (bf16 at full width), Mamba's returned state ``h``, ``A = -exp(A_log)``
 and the whole wkv are f32.
+
+Under a mesh RWKV's wkv and decay LoRA run on each rank's rows and heads
+(:func:`_sharded_wkv`, :func:`repro_torch.kernels.ops.rowwise_local`).
 """
 from __future__ import annotations
 
@@ -28,9 +31,13 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.kernels.ops import _from_local, _local, rowwise_local
+from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Builder, apply_linear, rms_norm
+from repro_torch.utils import meshctx
 
 
 # ===========================================================================
@@ -82,8 +89,32 @@ def linear_recurrence(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> tor
     every ``h_t``. a, b: (B, T, ...); h0: (B, ...). The backward keeps only
     ``a``, ``h`` and ``h0`` (the reason the JAX package gives its scan a
     custom VJP: differentiating the scan itself keeps O(log T) full-size
-    intermediates a layer)."""
+    intermediates a layer). Under a mesh it runs on each rank's rows and
+    channels, over all of T (:func:`_sharded_recurrence`)."""
+    if isinstance(a, DTensor):
+        return _sharded_recurrence(a, b, h0)
     return _LinearRecurrence.apply(a, b, h0)
+
+
+def _sharded_recurrence(a, b, h0):
+    """:func:`linear_recurrence` on DTensors: elementwise over the batch and
+    the channels, so each rank runs its shard of them; a split of T is
+    gathered (the recurrence runs along all of it)."""
+    mesh = a.device_mesh
+    b, h0 = meshctx.as_dtensor(b, mesh), meshctx.as_dtensor(h0, mesh)
+    pa, ph = [], []
+    for i, p in enumerate(a.placements):
+        if mesh.size(i) == 1 or not isinstance(p, Shard) or p.dim == 1:
+            pa.append(p if mesh.size(i) == 1 else Replicate())
+            ph.append(h0.placements[i] if mesh.size(i) == 1 else Replicate())
+        else:  # the batch (dim 0) or a channel dim (h0 has no T dim)
+            pa.append(p)
+            ph.append(Shard(p.dim if p.dim == 0 else p.dim - 1))
+    none = [None] * mesh.ndim
+    h = _LinearRecurrence.apply(_local(a, mesh, pa, none), _local(b, mesh, pa, none),
+                                _local(h0, mesh, ph, none))
+    return _from_local(h, mesh, [Replicate() if mesh.size(i) == 1 else p
+                                 for i, p in enumerate(pa)], tuple(a.shape))
 
 
 def mamba_dims(cfg: ModelConfig):
@@ -99,18 +130,26 @@ def build_mamba(b: Builder, prefix: str, cfg: ModelConfig, n_blocks: int):
     ``dt_bias``), so parameter trees and checkpoints match key for key."""
     d = cfg.d_model
     d_inner, dt_rank, d_state, d_conv = mamba_dims(cfg)
-    bs = (n_blocks,)
-    b.linear(f"{prefix}/in_x", d, d_inner, batch_shape=bs)
-    b.linear(f"{prefix}/in_z", d, d_inner, batch_shape=bs)
-    b.linear(f"{prefix}/x_proj", d_inner, dt_rank + 2 * d_state, batch_shape=bs)
-    b.linear(f"{prefix}/dt_proj", dt_rank, d_inner, batch_shape=bs, bias=True)
-    b.linear(f"{prefix}/out", d_inner, d, batch_shape=bs)
-    b.normal(f"{prefix}/conv_w", bs + (d_conv, d_inner), scale=0.5 / d_conv)
+    bs, ba = (n_blocks,), ("layers",)
+    b.linear(f"{prefix}/in_x", d, d_inner, li="embed", lo="mamba_inner",
+             batch_shape=bs, batch_axes=ba)
+    b.linear(f"{prefix}/in_z", d, d_inner, li="embed", lo="mamba_inner",
+             batch_shape=bs, batch_axes=ba)
+    b.linear(f"{prefix}/x_proj", d_inner, dt_rank + 2 * d_state,
+             li="mamba_inner", lo=None, batch_shape=bs, batch_axes=ba)
+    b.linear(f"{prefix}/dt_proj", dt_rank, d_inner, li=None, lo="mamba_inner",
+             batch_shape=bs, batch_axes=ba, bias=True)
+    b.linear(f"{prefix}/out", d_inner, d, li="mamba_inner", lo="embed",
+             batch_shape=bs, batch_axes=ba)
+    b.normal(f"{prefix}/conv_w", bs + (d_conv, d_inner),
+             axes=ba + (None, "mamba_inner"), scale=0.5 / d_conv)
     # f32 whatever the parameter dtype, as in the JAX package
     a_log = torch.log(torch.arange(1, d_state + 1, dtype=torch.float32, device=b.device))
-    b._put(f"{prefix}/A_log", a_log.expand(bs + (d_inner, d_state)).contiguous())
-    b.vector(f"{prefix}/D", bs + (d_inner,), init=1.0)
-    b.vector(f"{prefix}/dt_bias", bs + (d_inner,), init=-4.6)  # softplus⁻¹(0.01)
+    b._put(f"{prefix}/A_log", a_log.expand(bs + (d_inner, d_state)).contiguous(),
+           sharding.spec(*ba, "mamba_inner", None))
+    b.vector(f"{prefix}/D", bs + (d_inner,), axes=ba + ("mamba_inner",), init=1.0)
+    b.vector(f"{prefix}/dt_bias", bs + (d_inner,), axes=ba + ("mamba_inner",),
+             init=-4.6)  # softplus⁻¹(0.01)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, tail: Optional[torch.Tensor]):
@@ -144,6 +183,7 @@ def mamba_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     xz = apply_linear(p["in_x"], x, kernels=kernels)
     z = apply_linear(p["in_z"], x, kernels=kernels)
+    xz = sharding.shard(xz, "batch", None, "mamba_inner")
     tail = state["conv"] if state is not None else None
     xc, new_tail = _causal_conv(xz, p["conv_w"].to(dt), tail)
     xc = F.silu(xc)
@@ -152,6 +192,8 @@ def mamba_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     dt_low, Bp, Cp = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
     delta = F.softplus(apply_linear(p["dt_proj"], dt_low.to(dt), bias=p["dt_bias"],
                                     kernels=kernels).float())  # (B, T, d_inner)
+    # channel-sharded (unpinned it would be replicated, in f32)
+    delta = sharding.shard(delta, "batch", None, "mamba_inner")
     A = -torch.exp(p["A_log"].float())  # (d_inner, N)
 
     xc32 = xc.float()
@@ -218,20 +260,22 @@ def build_rwkv(b: Builder, prefix: str, cfg: ModelConfig, n_blocks: int):
     d = cfg.d_model
     H, hd = rwkv_dims(cfg)
     lora = cfg.rwkv.decay_lora
-    bs = (n_blocks,)
+    bs, ba = (n_blocks,), ("layers",)
     for name in ("r", "k", "v", "g"):
-        b.linear(f"{prefix}/{name}", d, d, batch_shape=bs)
-    b.linear(f"{prefix}/out", d, d, batch_shape=bs)
+        b.linear(f"{prefix}/{name}", d, d, li="embed", lo="rwkv_heads",
+                 batch_shape=bs, batch_axes=ba)
+    b.linear(f"{prefix}/out", d, d, li="rwkv_heads", lo="embed",
+             batch_shape=bs, batch_axes=ba)
     # the data-dependent decay LoRA (Finch's mechanism), dense
-    b.normal(f"{prefix}/w_lora_a", bs + (d, lora), scale=0.02)
-    b.normal(f"{prefix}/w_lora_b", bs + (lora, d), scale=0.02)
-    b.vector(f"{prefix}/w0", bs + (d,), init=-1.0)
-    b.vector(f"{prefix}/u", bs + (H, hd), init=0.5)
+    b.normal(f"{prefix}/w_lora_a", bs + (d, lora), axes=ba + (None, None), scale=0.02)
+    b.normal(f"{prefix}/w_lora_b", bs + (lora, d), axes=ba + (None, "rwkv_heads"), scale=0.02)
+    b.vector(f"{prefix}/w0", bs + (d,), axes=ba + ("rwkv_heads",), init=-1.0)
+    b.vector(f"{prefix}/u", bs + (H, hd), axes=ba + ("rwkv_heads", None), init=0.5)
     # static token-shift mixing coefficients (the JAX package's
     # simplification of ddlerp)
     for name in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w"):
-        b.vector(f"{prefix}/{name}", bs + (d,), init=0.5)
-    b.vector(f"{prefix}/ln_x", bs + (d,), init=1.0)
+        b.vector(f"{prefix}/{name}", bs + (d,), axes=ba + (None,), init=0.5)
+    b.vector(f"{prefix}/ln_x", bs + (d,), axes=ba + ("rwkv_heads",), init=1.0)
 
 
 def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]):
@@ -291,6 +335,40 @@ def _rwkv_chunked(r, k, v, logw, u, S0, chunk: int):
     return o[:, :T], S
 
 
+def _sharded_wkv(r, k, v, logw, u, S0, chunk: int):
+    """:func:`_rwkv_chunked` on DTensors, each rank on its shards: the
+    recurrence runs over all of T, so a sequence split is gathered; a batch
+    split and a split of the heads are kept (r, k, v, logw on their batch
+    and head dims, u on its heads, the state on its batch and heads); an
+    operand whole on an axis that splits the others takes a partial
+    gradient there."""
+    mesh = r.device_mesh
+    u, S0 = meshctx.as_dtensor(u, mesh), meshctx.as_dtensor(S0, mesh)
+    H = r.shape[2]
+    rep = Replicate()
+    p4, pu, ps, g4, gu, gs, po = [], [], [], [], [], [], []
+    for i in range(mesh.ndim):
+        a = r.placements[i]
+        if mesh.size(i) == 1:
+            p4.append(a), pu.append(u.placements[i]), ps.append(S0.placements[i])
+            g4.append(None), gu.append(None), gs.append(None), po.append(rep)
+        elif isinstance(a, Shard) and a.dim == 0:
+            p4.append(Shard(0)), pu.append(rep), ps.append(Shard(0)), po.append(Shard(0))
+            g4.append(None), gu.append(Partial()), gs.append(None)
+        elif H % mesh.size(i) == 0 and (isinstance(a, Shard) and a.dim == 2
+                                       or isinstance(S0.placements[i], Shard)):
+            p4.append(Shard(2)), pu.append(Shard(0)), ps.append(Shard(1)), po.append(Shard(2))
+            g4.append(None), gu.append(None), gs.append(None)
+        else:
+            p4.append(rep), pu.append(rep), ps.append(rep), po.append(rep)
+            g4.append(None), gu.append(None), gs.append(None)
+    loc = [_local(t, mesh, p4, g4) for t in (r, k, v, logw)]
+    o, S_T = _rwkv_chunked(*loc, _local(u, mesh, pu, gu), _local(S0, mesh, ps, gs), chunk)
+    pS = [Shard(1) if isinstance(q, Shard) and q.dim == 2 else q for q in po]
+    return (_from_local(o, mesh, po, tuple(r.shape)),
+            _from_local(S_T, mesh, pS, tuple(S0.shape)))
+
+
 def rwkv_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
              state: Optional[dict] = None) -> Tuple[torch.Tensor, Optional[dict]]:
     """RWKV6 time mixing. x: (B, T, d); ``state``: {"S": (B, H, hd, hd)
@@ -314,13 +392,21 @@ def rwkv_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     # data-dependent decay (Finch): w = exp(-exp(w0 + tanh(x A) B))
     xw = mix(p["mu_w"]).float()
-    dd = torch.tanh(xw @ p["w_lora_a"].float()) @ p["w_lora_b"].float()
+
+    def decay_lora(x_, a_, b_):
+        return torch.tanh(x_ @ a_) @ b_
+
+    lora = (p["w_lora_a"].float(), p["w_lora_b"].float())
+    if isinstance(xw, DTensor):  # rows split over two axes: on the local rows
+        dd = rowwise_local(decay_lora, xw, *lora)
+    else:
+        dd = decay_lora(xw, *lora)
     logw = -torch.exp(torch.clamp(p["w0"].float() + dd, -8.0, 4.0)).reshape(B, T, H, hd)
 
     S0 = (state["S"].float() if state is not None
           else torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device))
-    o, S_T = _rwkv_chunked(r.float(), k.float(), v.float(), logw, p["u"].float(), S0,
-                           cfg.rwkv.chunk_len)
+    wkv = _sharded_wkv if isinstance(r, DTensor) else _rwkv_chunked
+    o, S_T = wkv(r.float(), k.float(), v.float(), logw, p["u"].float(), S0, cfg.rwkv.chunk_len)
     o = rms_norm(o.reshape(B, T, d), p["ln_x"], cfg.norm_eps).to(dt)
     o = o * F.silu(g)
     out = apply_linear(p["out"], o, kernels=kernels)

@@ -16,8 +16,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.factorization import is_factor
+from repro_torch.kernels.ops import _local
+from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     Builder,
@@ -35,6 +38,7 @@ from repro_torch.models.ssm import (
     rwkv_init_state,
     rwkv_mix,
 )
+from repro_torch.utils import meshctx
 
 
 # ---------------------------------------------------------------------------
@@ -45,36 +49,47 @@ from repro_torch.models.ssm import (
 def build_attn(b: Builder, prefix: str, cfg: ModelConfig, n_blocks: int, *,
                cross: bool = False):
     d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    bs = (n_blocks,)
-    b.linear(f"{prefix}/q", d, H * hd, batch_shape=bs, bias=cfg.qkv_bias)
-    b.linear(f"{prefix}/k", d, Hkv * hd, batch_shape=bs, bias=cfg.qkv_bias)
-    b.linear(f"{prefix}/v", d, Hkv * hd, batch_shape=bs, bias=cfg.qkv_bias)
-    b.linear(f"{prefix}/o", H * hd, d, batch_shape=bs)
+    bs, ba = (n_blocks,), ("layers",)
+    b.linear(f"{prefix}/q", d, H * hd, li="embed", lo="heads",
+             batch_shape=bs, batch_axes=ba, bias=cfg.qkv_bias)
+    b.linear(f"{prefix}/k", d, Hkv * hd, li="embed", lo="kv_heads",
+             batch_shape=bs, batch_axes=ba, bias=cfg.qkv_bias)
+    b.linear(f"{prefix}/v", d, Hkv * hd, li="embed", lo="kv_heads",
+             batch_shape=bs, batch_axes=ba, bias=cfg.qkv_bias)
+    b.linear(f"{prefix}/o", H * hd, d, li="heads", lo="embed",
+             batch_shape=bs, batch_axes=ba)
     if cfg.qk_norm:
-        b.vector(f"{prefix}/q_norm", bs + (hd,))
-        b.vector(f"{prefix}/k_norm", bs + (hd,))
+        b.vector(f"{prefix}/q_norm", bs + (hd,), axes=ba + (None,))
+        b.vector(f"{prefix}/k_norm", bs + (hd,), axes=ba + (None,))
     if cross:
-        b.linear(f"{prefix}/xq", d, H * hd, batch_shape=bs)
-        b.linear(f"{prefix}/xk", d, Hkv * hd, batch_shape=bs)
-        b.linear(f"{prefix}/xv", d, Hkv * hd, batch_shape=bs)
-        b.linear(f"{prefix}/xo", H * hd, d, batch_shape=bs)
-        b.vector(f"{prefix}/ln_x", bs + (d,))
+        b.linear(f"{prefix}/xq", d, H * hd, li="embed", lo="heads",
+                 batch_shape=bs, batch_axes=ba)
+        b.linear(f"{prefix}/xk", d, Hkv * hd, li="embed", lo="kv_heads",
+                 batch_shape=bs, batch_axes=ba)
+        b.linear(f"{prefix}/xv", d, Hkv * hd, li="embed", lo="kv_heads",
+                 batch_shape=bs, batch_axes=ba)
+        b.linear(f"{prefix}/xo", H * hd, d, li="heads", lo="embed",
+                 batch_shape=bs, batch_axes=ba)
+        b.vector(f"{prefix}/ln_x", bs + (d,), axes=ba + (None,))
 
 
 def build_mlp(b: Builder, prefix: str, cfg: ModelConfig, n_blocks: int):
     d, dff = cfg.d_model, cfg.d_ff
-    bs = (n_blocks,)
+    bs, ba = (n_blocks,), ("layers",)
     if cfg.gated_mlp:
-        b.linear(f"{prefix}/gate", d, dff, batch_shape=bs)
-    b.linear(f"{prefix}/up", d, dff, batch_shape=bs)
-    b.linear(f"{prefix}/down", dff, d, batch_shape=bs)
+        b.linear(f"{prefix}/gate", d, dff, li="embed", lo="ffn",
+                 batch_shape=bs, batch_axes=ba)
+    b.linear(f"{prefix}/up", d, dff, li="embed", lo="ffn",
+             batch_shape=bs, batch_axes=ba)
+    b.linear(f"{prefix}/down", dff, d, li="ffn", lo="embed",
+             batch_shape=bs, batch_axes=ba)
 
 
 def build_block(b: Builder, prefix: str, kind: str, cfg: ModelConfig,
                 n_blocks: int, *, moe_here: bool, cross: bool = False):
-    bs = (n_blocks,)
-    b.vector(f"{prefix}/ln1", bs + (cfg.d_model,))
-    b.vector(f"{prefix}/ln2", bs + (cfg.d_model,))
+    bs, ba = (n_blocks,), ("layers",)
+    b.vector(f"{prefix}/ln1", bs + (cfg.d_model,), axes=ba + (None,))
+    b.vector(f"{prefix}/ln2", bs + (cfg.d_model,), axes=ba + (None,))
     if kind == "attn":
         build_attn(b, f"{prefix}/attn", cfg, n_blocks, cross=cross)
     elif kind == "mamba":
@@ -112,15 +127,17 @@ def attn_mix(p: dict, x, cfg: ModelConfig, *, positions, cache: Optional[dict],
     """
     B, T, _ = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    q = apply_linear(p["q"], x, bias=p.get("q_b"), kernels=cfg.kernels).reshape(B, T, H, hd)
-    k = apply_linear(p["k"], x, bias=p.get("k_b"), kernels=cfg.kernels).reshape(B, T, Hkv, hd)
-    v = apply_linear(p["v"], x, bias=p.get("v_b"), kernels=cfg.kernels).reshape(B, T, Hkv, hd)
+    q = _heads(apply_linear(p["q"], x, bias=p.get("q_b"), kernels=cfg.kernels), H, hd)
+    k = _heads(apply_linear(p["k"], x, bias=p.get("k_b"), kernels=cfg.kernels), Hkv, hd)
+    v = _heads(apply_linear(p["v"], x, bias=p.get("v_b"), kernels=cfg.kernels), Hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    # context parallelism: the queries stay sequence-sharded
+    q = sharding.shard(q, "batch", "seq", None, None)
 
     new_cache = None
     if cache is not None:
@@ -134,7 +151,12 @@ def attn_mix(p: dict, x, cfg: ModelConfig, *, positions, cache: Optional[dict],
         # (index tensors on the device: no host sync on the decode path)
         t_idx = torch.arange(T, device=x.device)
         s_idx = torch.arange(S, dtype=torch.int32, device=x.device)
-        if idx.dim():  # per-slot (B,): each row writes at its own position
+        if isinstance(ck, DTensor):
+            cols = (torch.remainder(idx, S) + t_idx).long()
+            _write_sharded(ck, k, cols)
+            _write_sharded(cv, v, cols)
+            newest = idx + (T - 1)
+        elif idx.dim():  # per-slot (B,): each row writes at its own position
             rows = torch.arange(B, device=x.device)[:, None]
             cols = (torch.remainder(idx, S)[:, None] + t_idx).long()  # (B, T)
             ck[rows, cols] = k.to(ck.dtype)
@@ -155,21 +177,73 @@ def attn_mix(p: dict, x, cfg: ModelConfig, *, positions, cache: Optional[dict],
     else:
         y = attention(q, k, v, q_positions=positions, kv_positions=positions, causal=causal,
                       sliding_window=cfg.sliding_window, q_chunk=cfg.attn_q_chunk)
+    y = sharding.shard(y, "batch", "seq", None, None)
     out = apply_linear(p["o"], y.reshape(B, T, H * hd), kernels=cfg.kernels)
 
     if cross_kv is not None:
         # the block's normed input plus the self-attention's output, as the
         # JAX package normalises it (not the residual stream)
         xh = rms_norm(x + out, p["ln_x"], cfg.norm_eps)
-        qx = apply_linear(p["xq"], xh, kernels=cfg.kernels).reshape(B, T, H, hd)
+        qx = _heads(apply_linear(p["xq"], xh, kernels=cfg.kernels), H, hd)
         Tenc = cross_kv.shape[1]
-        ek = apply_linear(p["xk"], cross_kv, kernels=cfg.kernels).reshape(B, Tenc, Hkv, hd)
-        ev = apply_linear(p["xv"], cross_kv, kernels=cfg.kernels).reshape(B, Tenc, Hkv, hd)
+        ek = _heads(apply_linear(p["xk"], cross_kv, kernels=cfg.kernels), Hkv, hd)
+        ev = _heads(apply_linear(p["xv"], cross_kv, kernels=cfg.kernels), Hkv, hd)
         yx = attention(qx, ek, ev, q_positions=positions,
                        kv_positions=torch.arange(Tenc, device=x.device),
                        causal=False, sliding_window=0, q_chunk=cfg.attn_q_chunk)
         out = out + apply_linear(p["xo"], yx.reshape(B, T, H * hd), kernels=cfg.kernels)
     return out, new_cache
+
+
+def _heads(t, H: int, hd: int):
+    """(B, T, H·hd) → (B, T, H, hd). A DTensor split on its last dim over a
+    mesh axis that does not divide ``H`` is gathered on that dim first
+    (DTensor cannot split the heads unevenly)."""
+    if isinstance(t, DTensor):
+        mesh, pl = t.device_mesh, list(t.placements)
+        bad = [i for i, p in enumerate(pl) if isinstance(p, Shard) and p.dim == t.dim() - 1
+               and H % mesh.size(i)]
+        if bad:
+            t = t.redistribute(mesh, [Replicate() if i in bad else p for i, p in enumerate(pl)])
+    return t.reshape(tuple(t.shape[:-1]) + (H, hd))
+
+
+def _write_sharded(c, new, cols):
+    """``c[:, cols] = new`` on the local shard of the DTensor cache ``c``
+    (B, S, Hkv, hd): ``new`` (B, T, Hkv, hd) takes ``c``'s placements on
+    the batch and head dims; a cache sharded on its sequence dim (a batch
+    smaller than the data axes) writes each slot on the rank that holds it."""
+    mesh = c.device_mesh
+    want, seq = [], []
+    for i, pl in enumerate(c.placements):
+        if isinstance(pl, Shard) and pl.dim == 1:
+            want.append(Replicate())
+            seq.append(i)
+        else:
+            want.append(pl)
+    local = c.to_local()
+    nl = _local(meshctx.as_dtensor(new, mesh), mesh, want, [None] * mesh.ndim).to(local.dtype)
+    cols = cols.full_tensor() if isinstance(cols, DTensor) else cols
+    if not seq:
+        local.index_copy_(1, cols, nl)
+        return
+    n = local.shape[1]
+    off = 0
+    for i in seq:
+        off = off * mesh.size(i) + mesh.get_local_rank(i)
+    if nl.shape[1] == 1:  # a decode step: one slot, on one rank
+        at = cols - off * n
+        mine = (at >= 0) & (at < n)
+        at = torch.clamp(at, 0, n - 1)
+        old = local.index_select(1, at)
+        local.index_copy_(1, at, torch.where(mine[None, :, None, None], nl, old))
+        return
+    # a prefill writes T contiguous slots from cols[0] (it does not wrap):
+    # each local slot takes its token, if one falls on it
+    t = off * n + torch.arange(n, device=local.device) - cols[0]
+    mine = (t >= 0) & (t < nl.shape[1])
+    rows = nl.index_select(1, torch.clamp(t, 0, nl.shape[1] - 1))
+    local.copy_(torch.where(mine[None, :, None, None], rows, local))
 
 
 def mlp_apply(p: dict, x, cfg: ModelConfig):
@@ -179,6 +253,7 @@ def mlp_apply(p: dict, x, cfg: ModelConfig):
         )
     else:
         h = F.gelu(apply_linear(p["up"], x, kernels=cfg.kernels), approximate="tanh")
+    h = sharding.shard(h, "batch", "seq", None)
     return apply_linear(p["down"], h, kernels=cfg.kernels)
 
 
@@ -270,7 +345,10 @@ def stack_apply(blocks: dict, x, cfg: ModelConfig, *, positions,
     aux = 0
     new = {f"pos{i}": {} for i in range(len(pattern))}
     for sb in range(blocks["pos0"]["ln1"].shape[0]):
+        h = sharding.shard(h, "batch", "seq", None)
         for i, kind in enumerate(pattern):
+            # the residual stream's layout is pinned at every layer
+            h = sharding.shard(h, "batch", "seq", None)
             key = f"pos{i}"
             c_i = _layer(caches[key], sb) if caches is not None else None
             h, nc, a = block_apply(_layer(blocks[key], sb), kind, h, cfg,

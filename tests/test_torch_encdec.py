@@ -200,7 +200,7 @@ def test_param_tree_matches_the_reference(arch):
     jcfg, tcfg = _configs(arch)
     jtree = jax.eval_shape(lambda key: jax_build_model(jcfg).init(key)[0], jax.random.PRNGKey(0))
     with torch.no_grad():
-        flat = torch_flatten(build_model(tcfg).init(torch.Generator().manual_seed(0)))
+        flat = torch_flatten(build_model(tcfg).init(torch.Generator().manual_seed(0))[0])
     want = _flatten(jtree)
     assert {k: tuple(v.shape) for k, v in flat.items()} == {k: v.shape for k, v in want.items()}
     for key, v in flat.items():

@@ -682,7 +682,7 @@ def test_train_avt_calls_llm_100m_round():
     from repro_torch.models.model import build_params
 
     smoke = _chip_smoke()
-    params = build_params(PRESETS["llm-100m"], torch.Generator().manual_seed(0))
+    params, _ = build_params(PRESETS["llm-100m"], torch.Generator().manual_seed(0))
     cfg = ExperimentSpec().fed.to_fed_config()
     calls = smoke.train_avt_calls(params, cfg)
     assert calls == {(640, 320): 2144, (640, 160): 780, (2560, 320): 576, (2560, 160): 240,
@@ -727,7 +727,7 @@ def test_decode_step_calls_are_the_calls_a_decode_step_makes(arch, monkeypatch):
         cfg = dataclasses.replace(cfg, num_kv_heads=2, head_dim=96)  # H·hd ≠ d, as published
     model = build_model(cfg)
     with torch.no_grad():
-        params = model.init(torch.Generator().manual_seed(0))
+        params, _ = model.init(torch.Generator().manual_seed(0))
         cache = model.init_cache(params, 4, max(12, cfg.sliding_window),
                                  per_slot=not cfg.is_encdec)
         model.serve_step(params, cache, torch.ones((4, 1), dtype=torch.int64))

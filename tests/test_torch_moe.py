@@ -308,7 +308,7 @@ def test_continuous_serving_matches_single_sequences_when_capacity_never_binds()
     cfg = _with_cf(reduced(get_config("olmoe-1b-7b")), 8.0)
     model = build_model(cfg)
     with torch.no_grad():
-        params = model.init(torch.Generator().manual_seed(0))
+        params, _ = model.init(torch.Generator().manual_seed(0))
     eng = ServeEngine(model, params, max_batch=3, max_prompt=16, prompt_bucket=8,
                       max_new_tokens=5)
     rng = np.random.default_rng(5)

@@ -88,7 +88,7 @@ def _built(arch):
     jcfg, tcfg = _configs(arch)
     model = build_model(tcfg)
     with torch.no_grad():
-        params = model.init(torch.Generator().manual_seed(0))
+        params, _ = model.init(torch.Generator().manual_seed(0))
     flat = {k: v.numpy() for k, v in torch_flatten(params).items()}
     rng = np.random.default_rng(0)
     for k in sorted(flat):
@@ -233,7 +233,7 @@ def test_param_tree_matches_the_reference(arch, param_dtype):
     jcfg, tcfg = (dataclasses.replace(c, param_dtype=param_dtype) for c in _configs(arch))
     jtree = jax.eval_shape(lambda key: jax_build_model(jcfg).init(key)[0], jax.random.PRNGKey(0))
     with torch.no_grad():
-        flat = torch_flatten(build_model(tcfg).init(torch.Generator().manual_seed(0)))
+        flat = torch_flatten(build_model(tcfg).init(torch.Generator().manual_seed(0))[0])
     want = _flatten(jtree)
     assert {k: tuple(v.shape) for k, v in flat.items()} == {k: v.shape for k, v in want.items()}
     for key, v in flat.items():
