@@ -40,7 +40,14 @@ per source, all started together) and drives each of the port's paths:
   step; then their new ``xus`` / ``avt`` shapes (the experts' G = 64 and
   G = 16 stacks included) against the plain versions; OLMoE-1B-7B in f32,
   kernel path against plain path: logits, and every layer's expert
-  choices; RWKV6-7B in f32 the same: logits and greedy tokens;
+  choices; RWKV6-7B in f32 the same: logits and greedy tokens; the
+  recurrent models' 37-token prefill, host and device time; Jamba's
+  chunked Mamba state scan against the token-by-token loop in bf16 at
+  full width: one mixer over 1,100 tokens (output and state within
+  ``MAMBA_BF16_RTOL``), and a reduced-depth model (one 8-layer superblock)
+  prefilled over 37 and 1,100 tokens (bf16 logits within
+  ``MAMBA_MODEL_RTOL``, with the prefill's host and device time both ways;
+  f32 logits within ``MODEL_F32_RTOL`` and greedy tokens identical);
 - train: three FeDLRT rounds of llm-100m at full width and depth in f32
   through ``repro_torch.api.build(spec).run()``, counting the launches
   against the counts the model's factors imply; one more round under
@@ -92,7 +99,15 @@ per source, all started together) and drives each of the port's paths:
   (train_4k, prefill_32k, decode_32k; long_500k the documented skip),
   RWKV6-7B (long_500k) and OLMoE-1B-7B (train_4k) on a fake 256-rank
   16 x 16 mesh, then every local ``xus`` / ``avt`` / ``atb`` shape those
-  traces record against its plain version on the card.
+  traces record against its plain version on the card;
+- examples (last): the example twins ``examples/torch_*.py`` through their
+  ``main``: the quickstart (the planted rank 4 found), ``torch_train_llm.py
+  --preset llm-100m --rounds 2`` (llm-100m at full width and depth on
+  ``xus`` / ``avt`` / ``atb``), a dropout-participation run of it under
+  ``repro_torch.analysis.trace_audit`` (one step signature per callsite),
+  ``torch_serve_llm.py`` (trained, then continuous ≡ static), and
+  ``torch_federated_vision.py --clients 4 --rounds 6`` (the ``mlp`` task's
+  ``lr_matmul`` on the kernels).
 
 Every failure raises and exits non-zero. The last two lines of standard
 output are one JSON object with each kernel's numbers and one with the
@@ -112,6 +127,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -132,7 +148,7 @@ SOURCES = {
 }
 KERNELS = tuple(SOURCES)
 PATHS = ("serve", "serve-quant", "models", "encdec", "vlm", "mesh", "train", "flash", "spec",
-         "sim")
+         "sim", "examples")
 #: tolerance of a kernel against its plain version, with the reason
 TOL = {
     # both round once from f32 to bf16; f32 sums taken in different orders
@@ -1164,6 +1180,13 @@ def phase_models(torch, counters, records):
                                           f"{tag} profile", 8)
             log(f"{tag} profile: one decode step, {n} kernels, device busy "
                 f"{busy_s * 1e3:.3f} ms")
+        prefill_dev_ms = None
+        if eng.exact_prefill:  # the recurrent models: the prefill's device time too
+            n, busy_s, _ = device_profile(torch, lambda: eng.prefill(np.arange(3, 40)),
+                                          f"{tag} prefill profile", 5)
+            prefill_dev_ms = busy_s * 1e3
+            log(f"{tag} a 37-token prefill: host {prefill_ms:.2f} ms, {n} kernels, device busy "
+                f"{prefill_dev_ms:.3f} ms")
         res, fb = resident_bytes(eng.params), factor_bytes(eng.params)
         step_bytes = factor_bytes_per_step(eng.params)
         floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
@@ -1180,7 +1203,7 @@ def phase_models(torch, counters, records):
                    factor_bytes=fb, planned_factor_gb=planned, step_factor_bytes=step_bytes,
                    floor_ms=floor_ms, step_host_ms=host_ms, step_device_ms=dev_ms,
                    peak_gib=peak, per_forward=pf, aten_dispatches=dispatches, launches=got,
-                   prefill37_host_ms=prefill_ms)
+                   prefill37_host_ms=prefill_ms, prefill37_device_ms=prefill_dev_ms)
         if cfg.moe is not None:
             m = cfg.moe
             n_moe = cfg.superblocks * sum(map(cfg.moe_on_layer, range(len(cfg.block_pattern))))
@@ -1203,7 +1226,157 @@ def phase_models(torch, counters, records):
         torch.cuda.empty_cache()
     stats["olmoe-1b-7b f32"] = olmoe_f32_check(torch)
     stats["rwkv6-7b f32"] = greedy_f32_check(torch, "rwkv6-7b", 3)
+    stats["jamba mamba scan"] = mamba_scan_check(torch)
     return model_records, stats
+
+
+#: the Mamba state-scan check: Jamba-1.5-Large at full width cut to one
+#: 8-layer superblock (7 Mamba layers, one attention layer, MoE on every
+#: other layer), fresh weights; prompts of 37 tokens (one chunk of the scan)
+#: and 1,100 (two whole 512-step chunks and a ragged one of 76), 2 rows
+#: each, then 8 greedy decode steps
+MAMBA_CHECK_LAYERS = 8
+MAMBA_CHECK_T = (37, 1100)
+MAMBA_CHECK_STEPS = 8
+#: one full-width Mamba mixer in bf16, the chunked doubling scan against the
+#: token-by-token loop: output and new state within this share of their
+#: largest entry (both round every step's state to bf16, in other orders)
+MAMBA_BF16_RTOL = 5e-2
+#: the 8-layer model's bf16 prefill logits, scan against loop, within this
+#: share of max |logit|: a bf16 difference in a Mamba layer's output moves
+#: the MoE routers whose top-2 margin is under it, and a token whose expert
+#: choice flips gets another expert's output (on an H100 the 8-layer model
+#: read 0.021-0.091 over 37-1,100 tokens, with 3-5 % of its expert choices
+#: flipped). Its greedy tokens follow those flips, so they are held
+#: identical in f32 (within ``MODEL_F32_RTOL``), where no router flips.
+MAMBA_MODEL_RTOL = 0.15
+
+
+def _mamba_prefill(torch, model, params, tokens, order):
+    """A prefill of ``tokens`` and 8 greedy decode steps under ``order``
+    (the scan, or the loop patched in): the prefill's logits, the greedy
+    tokens and the MoE routings of the prefill."""
+    routed = []
+    with torch.inference_mode(), order:
+        with path_calls(routed, set()):
+            pre, cache = model.serve_prefill(params, {"tokens": tokens},
+                                             cache_len=tokens.shape[1] + MAMBA_CHECK_STEPS)
+        greedy = [pre.argmax(-1)]
+        for _ in range(MAMBA_CHECK_STEPS):
+            logits, cache = model.serve_step(params, cache, greedy[-1][:, None])
+            greedy.append(logits.argmax(-1))
+    if not bool(torch.isfinite(pre).all()):
+        raise AssertionError("[models jamba mamba scan] prefill logits are not finite")
+    return dict(logits=pre.float(), tokens=torch.stack(greedy, 1), routed=routed)
+
+
+def mamba_scan_check(torch):
+    """The serving prefill's Mamba state branch (the chunked doubling scan
+    from the given state) against the token-by-token loop it replaced
+    (``ssm._stepped_recurrence`` in ``linear_recurrence``'s place), on the
+    same weights and inputs, at full width:
+
+    - layer 0's Mamba mixer in bf16 from a random state over 2 x 1,100
+      tokens: output and new ``h`` within ``MAMBA_BF16_RTOL`` of their
+      largest entry; the host ms of each (second calls);
+    - the 8-layer model's prefill at each of ``MAMBA_CHECK_T``, in bf16:
+      logits within ``MAMBA_MODEL_RTOL`` of max |logit|, with the expert
+      choices that flipped, the greedy tokens that agree (readings), and
+      the prefill's host and device ms both ways; in f32 (the same weights):
+      logits within ``MODEL_F32_RTOL``, the prefill's and 8 decode steps'
+      greedy tokens identical."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, ssm
+    from repro_torch.models.transformer import _layer
+    from repro_torch.utils.tree import tree_map
+
+    tag = "[models jamba mamba scan]"
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b"), num_layers=MAMBA_CHECK_LAYERS)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    with torch.inference_mode():
+        params, _ = model.init(gen)
+    stepped = lambda: unittest.mock.patch.object(  # noqa: E731
+        ssm, "linear_recurrence", ssm._stepped_recurrence)
+    orders = (("scan", contextlib.nullcontext), ("steps", stepped))
+    out = {}
+
+    # one mixer: no router downstream, the scan's own bf16 difference
+    p = _layer(params["blocks"]["pos0"]["mamba"], 0)
+    T = MAMBA_CHECK_T[-1]
+    with torch.inference_mode():
+        x = torch.randn((2, T, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+        state = {k: 0.3 * torch.randn(v.shape, generator=gen, device="cuda").to(v.dtype)
+                 for k, v in ssm.mamba_init_state(cfg, 2, torch.bfloat16, "cuda").items()}
+        mix = {}
+        for name, order in orders:
+            with order():
+                for _ in range(2):  # the second call timed
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    y, new = ssm.mamba_mix(p, x, cfg, state=state)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+            mix[name] = (y.float(), new["h"], ms)
+    rel = [((mix["scan"][i] - mix["steps"][i]).abs().max() / mix["steps"][i].abs().max()).item()
+           for i in (0, 1)]
+    log(f"{tag} one Mamba mixer (d_inner {2 * cfg.d_model}), 2 x {T} tokens from a random "
+        f"state, bf16: max |scan - steps| / max of the output {rel[0]:.3g}, of the new h "
+        f"{rel[1]:.3g} (tol {MAMBA_BF16_RTOL}); host {mix['scan'][2]:.1f} ms (scan) vs "
+        f"{mix['steps'][2]:.1f} ms (token by token)")
+    if not max(rel) <= MAMBA_BF16_RTOL:
+        raise AssertionError(f"{tag}: the mixer's scan differs from the loop by {rel} "
+                             f"(> {MAMBA_BF16_RTOL})")
+    out["mixer"] = dict(tokens=T, out_rel_err=rel[0], h_rel_err=rel[1], scan_ms=mix["scan"][2],
+                        steps_ms=mix["steps"][2])
+    del x, state, mix, y, new
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32", param_dtype="float32")
+    with torch.inference_mode():
+        params32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
+    models = (("bfloat16", model, params, MAMBA_MODEL_RTOL),
+              ("float32", build_model(cfg32), params32, MODEL_F32_RTOL))
+    k, n_moe = cfg.moe.top_k, sum(map(cfg.moe_on_layer, range(len(cfg.block_pattern))))
+    for T in MAMBA_CHECK_T:
+        tokens = torch.randint(1, cfg.vocab_size, (2, T), generator=gen, device="cuda")
+        for dtype, m, prm, rtol in models:
+            a, b = (_mamba_prefill(torch, m, prm, tokens, order()) for _, order in orders)
+            err = ((a["logits"] - b["logits"]).abs().max() / b["logits"].abs().max()).item()
+            same = (a["tokens"] == b["tokens"]).all(0)
+            decode_same = int(same[1:].cumprod(0).sum())
+            flips, _ = routing_flips(torch, a["routed"], b["routed"], k, n_moe)
+            log(f"{tag} {MAMBA_CHECK_LAYERS} layers, {dtype}, 2 x {T} tokens: max |logits(scan) "
+                f"- logits(steps)| / max |logit| = {err:.3g} (tol {rtol}); expert choices "
+                f"flipped in the prefill: {len(flips)} of {2 * T * n_moe} (token, layer); the "
+                f"prefill's greedy tokens {'the same' if bool(same[0]) else 'differ'}, decode "
+                f"steps the same before the first difference: {decode_same} of "
+                f"{MAMBA_CHECK_STEPS}")
+            if not err <= rtol:
+                raise AssertionError(f"{tag} {dtype} T {T}: prefill logits differ by {err} of "
+                                     f"max |logit| (> {rtol})")
+            if dtype == "float32" and not bool(same.all()):
+                raise AssertionError(f"{tag} f32 T {T}: greedy tokens differ: "
+                                     f"{a['tokens'].tolist()} vs {b['tokens'].tolist()}")
+            rec = dict(rel_err=err, flips=len(flips), prefill_token_same=bool(same[0]),
+                       decode_same=decode_same)
+            if dtype == "bfloat16":  # the prefill's cost both ways
+                for name, order in orders:
+                    with torch.inference_mode(), order():
+                        n, busy_s, wall = device_profile(
+                            torch, lambda: m.serve_prefill(prm, {"tokens": tokens},
+                                                           cache_len=T + MAMBA_CHECK_STEPS),
+                            f"{tag} {name}", 0)
+                    rec[f"{name}_host_ms"], rec[f"{name}_device_ms"] = wall * 1e3, busy_s * 1e3
+                log(f"{tag} {dtype} 2 x {T}-token prefill: host {rec['scan_host_ms']:.1f} ms, "
+                    f"device busy {rec['scan_device_ms']:.1f} ms (scan); host "
+                    f"{rec['steps_host_ms']:.1f} ms, device busy {rec['steps_device_ms']:.1f} ms "
+                    f"(token by token), under the profiler")
+            out[f"{dtype}_T{T}"] = rec
+            del a, b
+    del params, params32, models
+    torch.cuda.empty_cache()
+    return out
 
 
 def f32_runs(torch, arch, seed):
@@ -3344,6 +3517,137 @@ def atb_case(torch, dtype_name, M, Ka, Kb, gen, G=1, tag="[kernels]"):
 
 
 
+# ---------------------------------------------------------------------------
+# the example twins: examples/torch_*.py through their main()
+# ---------------------------------------------------------------------------
+
+
+def _twin(stem: str):
+    """``examples/<stem>.py`` loaded as a module (``examples/`` is not a
+    package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"twin_{stem}",
+                                                  os.path.join(ROOT, "examples", f"{stem}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _twin_launches(torch, before, tag):
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in _launch_counts().items()}
+    log(f"{tag} launches: xus {got['xus']}, avt {got['avt']}, atb {got['atb']}")
+    return got
+
+
+def phase_examples(torch, counters):
+    """The four example twins on the card, each through its ``main(argv)``
+    with the flags a user would give, the counts at 0 just before the path
+    and read just after:
+
+    - ``torch_quickstart.py``: 100 FeDLRT rounds of the §4.1 least-squares
+      problem (plain tensors: its loss contracts the factors itself); the
+      planted rank 4 found;
+    - ``torch_train_llm.py --preset llm-100m --rounds 2``: llm-100m at full
+      width and depth, every factorized layer on ``xus`` / ``avt`` /
+      ``atb``; then ``--rounds 3 --participation dropout:0.5`` under
+      ``repro_torch.analysis.trace_audit``: cohorts of several sizes, one
+      step signature at the engine's one round callsite;
+    - ``torch_serve_llm.py``: two llm-tiny rounds, then 6 requests served
+      from the checkpoint; fresh weights served continuous and static,
+      token-identical;
+    - ``torch_federated_vision.py --clients 4 --rounds 6``: the Fig. 5 table,
+      the ``mlp`` task's factorized layer through ``lr_matmul`` on the
+      kernels.
+
+    Fails unless ``xus``, ``avt`` and ``atb`` each launched in the path."""
+    from repro_torch.analysis import trace_audit
+
+    stats = {}
+    _zero_counts()
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+
+    tag, t0, before = "[examples quickstart]", time.perf_counter(), _launch_counts()
+    params = _twin("torch_quickstart").main([])
+    if int(params.rank) != 4 or params.U.device.type != "cuda":
+        raise AssertionError(f"{tag}: rank {int(params.rank)} on {params.U.device}, expected 4 "
+                             f"on the card")
+    stats["quickstart"] = dict(rank=int(params.rank), s=time.perf_counter() - t0,
+                               launches=_twin_launches(torch, before, tag))
+    log(f"{tag} the planted rank 4 found; {stats['quickstart']['s']:.1f} s")
+
+    tag, t0, before = "[examples train]", time.perf_counter(), _launch_counts()
+    train = _twin("torch_train_llm")
+    hist = train.main(["--preset", "llm-100m", "--rounds", "2"])
+    got = _twin_launches(torch, before, tag)
+    if len(hist) != 2 or not all(math.isfinite(r.loss_before) and math.isfinite(r.loss_after)
+                                 for r in hist):
+        raise AssertionError(f"{tag}: {len(hist)} rounds, losses "
+                             f"{[(r.loss_before, r.loss_after) for r in hist]}")
+    if not all(got[k] for k in ("xus", "avt", "atb")):
+        raise AssertionError(f"{tag}: llm-100m did not run on every kernel: {got}")
+    stats["train"] = dict(s=time.perf_counter() - t0, host_s=[r.seconds for r in hist],
+                          loss=[(r.loss_before, r.loss_after) for r in hist], launches=got)
+    log(f"{tag} llm-100m, 2 rounds: host {', '.join(f'{r.seconds:.3f}' for r in hist)} s; "
+        f"{stats['train']['s']:.1f} s with the build")
+
+    tag, before = "[examples train dropout]", _launch_counts()
+    with trace_audit() as audit:
+        hist = train.main(["--preset", "llm-100m", "--rounds", "3", "--participation",
+                           "dropout:0.5", "--log-every", "0"])
+    got = _twin_launches(torch, before, tag)
+    sizes = [r.cohort_size for r in hist]
+    if len(set(sizes)) < 2:
+        raise AssertionError(f"{tag}: the dropout draw gave one cohort size {sizes}")
+    audit.assert_within_limit()
+    if len(audit.counts) != 1:
+        raise AssertionError(f"{tag}: {len(audit.counts)} round callsites, expected the "
+                             f"engine's one: {audit.counts}")
+    [((site_file, site_line, fn), n)] = audit.counts.items()
+    log(f"{tag} cohorts {sizes} padded to 4: {n} step signature at "
+        f"{os.path.relpath(site_file, ROOT)}:{site_line} ({fn}) over {len(hist)} rounds")
+    stats["train_dropout"] = dict(cohorts=sizes, signatures=n, launches=got,
+                                  host_s=[r.seconds for r in hist])
+
+    tag, t0, before = "[examples serve]", time.perf_counter(), _launch_counts()
+    serve_twin = _twin("torch_serve_llm")
+    comps = serve_twin.main([])
+    if len(comps) != 6 or any(len(c.tokens) != 16 for c in comps):
+        raise AssertionError(f"{tag}: {[len(c.tokens) for c in comps]} tokens, expected 6 x 16")
+    modes = {m: {c.rid: c.tokens.tolist() for c in serve_twin.main(["--skip-train", "--mode", m])}
+             for m in ("continuous", "static")}
+    if modes["continuous"] != modes["static"]:
+        raise AssertionError(f"{tag}: continuous and static batching served different tokens")
+    got = _twin_launches(torch, before, tag)
+    if not (got["xus"] and got["avt"]):
+        raise AssertionError(f"{tag}: serving did not run on xus / avt: {got}")
+    stats["serve"] = dict(s=time.perf_counter() - t0, launches=got)
+    log(f"{tag} trained and served 6 x 16 tokens; continuous ≡ static token for token; "
+        f"{stats['serve']['s']:.1f} s")
+
+    tag, t0, before = "[examples vision]", time.perf_counter(), _launch_counts()
+    table = _twin("torch_federated_vision").main(["--clients", "4", "--rounds", "6"])
+    got = _twin_launches(torch, before, tag)
+    if list(table) != ["fedavg", "fedlin", "fedlrt:none", "fedlrt:simplified"] or not all(
+            c.startswith("acc=") for cells in table.values() for c in cells):
+        raise AssertionError(f"{tag}: unexpected table {table}")
+    if not all(got[k] for k in ("xus", "avt", "atb")):
+        raise AssertionError(f"{tag}: lr_matmul did not run on every kernel: {got}")
+    stats["vision"] = dict(s=time.perf_counter() - t0, table=table, launches=got)
+    log(f"{tag} the Fig. 5 table at C = 4, 6 rounds; {stats['vision']['s']:.1f} s")
+
+    torch.cuda.synchronize()
+    counters["examples"] = _launch_counts()
+    missing = [k for k in ("xus", "avt", "atb") if not counters["examples"][k]]
+    if missing:
+        raise AssertionError(f"[examples] the path launched no {missing}")
+    stats["path_s"] = time.perf_counter() - t_path
+    log(f"[examples] the path in {stats['path_s']:.1f} s; launches {counters['examples']}")
+    return stats
+
+
 def decode_step_sums(name, cfg, records):
     """``name``'s measured numbers summed over one decode step of ``cfg``
     (each shape's record at its decode M: 4 rows, or 1 row an expert of a
@@ -3480,13 +3784,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sim_") as workdir:
         sim_stats = phase_sim(torch, counters, workdir)
     done("sim")
+    examples_stats = phase_examples(torch, counters)
+    done("examples")
     log("[summary] " + json.dumps({"card": smi, "serve": serve_stats,
                                    "serve_quant": quant_stats, "models": model_stats,
                                    "encdec_vlm": ev_stats, "mesh": mesh_stats,
                                    "dryrun": dry_stats,
                                    "train": train,
                                    "flash": flash_records, "spec": spec_stats,
-                                   "sim": sim_stats, "xus_train": xus_train,
+                                   "sim": sim_stats, "examples": examples_stats,
+                                   "xus_train": xus_train,
                                    "avt_train": avt_train}))
     print(json.dumps({"kernels": kernel_summary(
         records, model_records, atb_records, flash_records, counters, cfg, atb_round, xus_round,

@@ -117,6 +117,8 @@ def params_from_numpy(flat: Dict[str, np.ndarray], device, dtype: Optional[torch
         missing = {"U", "S", "V", "rank"} - set(fields)
         if missing:
             raise ValueError(f"factor {k!r} lacks fields {sorted(missing)}")
+        # repro-lint: disable=RPL005 -- a saved factor's leaves restored
+        # verbatim: the round that wrote them kept the inactive columns zero
         insert(k, LowRankFactor(
             U=_tensor(fields["U"], device, dtype),
             S=_tensor(fields["S"], device, dtype),

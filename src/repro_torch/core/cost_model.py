@@ -112,11 +112,14 @@ def fedlrt_round_comm_bytes_effective(params, correction: str = "simplified") ->
     """:func:`fedlrt_round_comm_bytes` priced at each factor's *current*
     rank instead of the ``r_max`` buffer width: what a deployment that ships
     only active columns puts on the wire. It shrinks as truncation adapts
-    ranks. An f32 scalar; stacked factors sum their per-slice ranks."""
-    total = torch.zeros((), dtype=torch.float32)
-    for f in _factor_leaves(params):
+    ranks. An f32 scalar on the factors' device (no host sync inside the
+    round); stacked factors sum their per-slice ranks."""
+    factors = list(_factor_leaves(params))
+    total = torch.zeros((), dtype=torch.float32,
+                        device=factors[0].rank.device if factors else None)
+    for f in factors:
         r = f.rank.full_tensor() if isinstance(f.rank, DTensor) else f.rank  # whole on every rank
-        r = r.float().cpu()
+        r = r.float()
         nr = (f.n_in + f.n_out) * r
         r2 = r * r
         per = nr + r2 + nr + nr

@@ -41,6 +41,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional, Protocol, runtime_checkable
 
+# repro-lint: disable=RPL004 -- client weights arrive from the engine as
+# host numpy arrays and are normalized on the host; no tensor is read back
 import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate
@@ -454,6 +456,8 @@ def value_and_grad(fn: Callable, tree, *args):
 
     def back(x):
         if is_factor(x):
+            # repro-lint: disable=RPL005 -- a gradient tree in the factor's
+            # shape, not a factor buffer: its callers mask it before use
             return dataclasses.replace(
                 x, U=next(it), S=next(it), V=next(it), rank=torch.zeros_like(x.rank)
             )

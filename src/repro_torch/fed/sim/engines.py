@@ -603,6 +603,9 @@ class AsyncFederatedEngine(FederatedEngine):
 
             def apply(ps, d):
                 if is_factor(ps):
+                    # repro-lint: disable=RPL005 -- each delta is masked to the
+                    # factor's rank in _server_delta, so their sum keeps S's
+                    # inactive block zero (the dataflow cannot see into tree_map)
                     return dataclasses.replace(ps, S=ps.S + d)
                 return ps + d
 

@@ -19,9 +19,10 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
 from typing import Optional
+
+from repro_torch.telemetry.clock import perf_seconds
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -71,7 +72,7 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    t0 = time.perf_counter()
+    t0 = perf_seconds()
     # build in a private directory, then rename the library: concurrent
     # builds never see (or load) a half-written one
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -90,7 +91,7 @@ def build() -> Path:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         _check(proc.returncode, cmd, proc.stderr)
         os.replace(lib, out)
-    BUILD_LOG["seconds"] = time.perf_counter() - t0
+    BUILD_LOG["seconds"] = perf_seconds() - t0
     BUILD_LOG["ptxas"] = "".join(logs)
     return out
 

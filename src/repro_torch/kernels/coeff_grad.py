@@ -28,13 +28,11 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import constraints, ref
 from repro_torch.kernels.build import load_library
+from repro_torch.kernels.constraints import COUNTER_INTS, GRID_X_MAX, GRID_YZ_MAX, grid_fits
 from repro_torch.kernels.lowrank_matmul import (
     _DTYPE_CODE,
-    COUNTER_INTS,
-    GRID_X_MAX,
-    GRID_YZ_MAX,
     _batched,
     _call,
     _cdiv,
@@ -94,7 +92,7 @@ def atb_plan(G: int, M: int, Ka: int, Kb: int) -> AtbPlan:
         want = min(_cdiv(ATB_BLOCKS, tiles), max(1, ATB_PARTIALS * M * (Ka + Kb) // (Ka * Kb)))
         mc = min(M, max(ATB_MC_MIN, _cdiv(_cdiv(M, want), ATB_STEP) * ATB_STEP))
     splits = _cdiv(M, mc)
-    if ta > GRID_X_MAX or tb > GRID_YZ_MAX or G * splits > GRID_YZ_MAX:
+    if not grid_fits(ta, tb, G * splits):
         raise ValueError(
             f"atb: grid too large for G={G} M={M} Ka={Ka} Kb={Kb}: {ta} x {tb} tiles x "
             f"{G * splits} (M splits x G); at most {GRID_X_MAX} x {GRID_YZ_MAX} x {GRID_YZ_MAX}"
@@ -120,13 +118,9 @@ def _atb(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     A3, B3 = _batched(A, "A"), _batched(B, "B")
     G, M, Ka = A3.shape
     Kb = B3.shape[-1]
-    if B3.shape != (G, M, Kb):
-        raise ValueError(
-            f"atb shapes disagree: A {tuple(A.shape)}, B {tuple(B.shape)}"
-        )
+    constraints.check_atb_shapes(A.shape, B.shape)
     _check_cuda("atb", A3, B3)
-    if B3.dtype != A3.dtype:
-        raise TypeError(f"atb dtypes: A {A.dtype}, B {B.dtype} must match")
+    constraints.check_pair_dtypes("atb", "AB", A.dtype, B.dtype)
     lib = load_library()
     plan = atb_plan(G, M, Ka, Kb)
     C = torch.empty((G, Ka, Kb), dtype=A.dtype, device=A.device)

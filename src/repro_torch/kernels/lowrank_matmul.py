@@ -40,32 +40,21 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import constraints, ref
 from repro_torch.kernels.build import load_library
+from repro_torch.kernels.constraints import COUNTER_INTS, GRID_X_MAX, GRID_YZ_MAX, grid_fits
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {getattr(torch, name): code for name, code in constraints.DTYPE_CODES.items()}
 
 
 def _batched(t: torch.Tensor, name: str) -> torch.Tensor:
-    if t.dim() == 2:
-        return t.unsqueeze(0)
-    if t.dim() == 3:
-        return t
-    raise ValueError(f"{name} must be 2-D or 3-D (one stack dim), got {tuple(t.shape)}")
+    constraints.check_stack_dims(name, t.shape)
+    return t.unsqueeze(0) if t.dim() == 2 else t
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: operands on different devices {t.device} / {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
-    if tensors[0].dtype not in _DTYPE_CODE:
-        raise TypeError(
-            f"{name}: dtype {tensors[0].dtype} not supported "
-            f"(float32 or bfloat16)"
-        )
+    constraints.check_operands(name, [t.device for t in tensors],
+                               [t.is_contiguous() for t in tensors], tensors[0].dtype)
 
 
 def _call(fn, *args) -> None:
@@ -104,12 +93,6 @@ TILED_BLOCKS = 200
 #: blocks in one wave: one per SM of an H100. Constants, so a plan depends
 #: on the shapes alone and not on the card it runs on.
 WAVE = 132
-#: ticket counters one call may use (a slot of the pool): a stream route
-#: call takes G · (column tiles + 1), a tiled one with K splits one a tile
-#: a pass, an ``atb`` call with M splits one a tile (``coeff_grad.py``)
-COUNTER_INTS = 4096
-GRID_X_MAX = 2**31 - 1
-GRID_YZ_MAX = 65535
 #: avt's stream route: elements of a row of V a lane takes a pass (16 bytes
 #: of bf16, 32 of f32), rows of V a lane group owns and warps a block (on
 #: the card 4 rows beat 8 and 4 warps beat 8 at every decode shape)
@@ -161,12 +144,12 @@ def xus_plan(G: int, M: int, K: int, R: int, has_s: bool) -> XusPlan:
     if min(G, M, K, R) < 1:
         raise ValueError(f"xus_plan: sizes must be positive, got G={G} M={M} K={K} R={R}")
     ctiles = _cdiv(R, STREAM_COLS)
-    if M <= STREAM_MAX_M and G * (ctiles + 1) <= COUNTER_INTS and G <= GRID_YZ_MAX:
+    if M <= STREAM_MAX_M and G * (ctiles + 1) <= COUNTER_INTS and grid_fits(1, 1, G):
         want = max(1, _cdiv(WAVE, G * ctiles))
         lo, hi4, hi16 = STREAM_KC
         kc = min(hi4 if M <= 4 else hi16, max(lo, _cdiv(_cdiv(K, want), 32) * 32))
         splits = _cdiv(K, kc)
-        if splits <= GRID_YZ_MAX:
+        if grid_fits(1, splits):
             # f64 partials, and f64 products of the column tiles with S
             work = 2 * (G * splits * M * R + (G * ctiles * M * R if has_s and ctiles > 1 else 0))
             return XusPlan("stream", splits, kc, R, 1, work, G * (ctiles + 1))
@@ -181,7 +164,7 @@ def xus_plan(G: int, M: int, K: int, R: int, has_s: bool) -> XusPlan:
 
     kc, kc_s = split(K), split(R) if has_s else R
     splits, splits_s = _cdiv(K, kc), _cdiv(R, kc_s)
-    if G * max(splits, splits_s) > GRID_YZ_MAX or _cdiv(M, TILE_M) > GRID_YZ_MAX:
+    if not grid_fits(1, _cdiv(M, TILE_M), G * max(splits, splits_s)):
         raise ValueError(f"xus: grid too large for G={G} M={M} K={K} R={R}")
     per_g = M * R
     work = (G * per_g if has_s else 0) + sum(G * n * per_g for n in (splits, splits_s) if n > 1)
@@ -260,18 +243,10 @@ def _xus(x: torch.Tensor, U: torch.Tensor, S: Optional[torch.Tensor]) -> torch.T
     S3 = None if S is None else _batched(S, "S")
     G, M, K = x3.shape
     R = U3.shape[-1]
-    if U3.shape != (G, K, R) or (S3 is not None and S3.shape != (G, R, R)):
-        raise ValueError(
-            f"xus shapes disagree: x {tuple(x.shape)}, U {tuple(U.shape)}, "
-            f"S {None if S is None else tuple(S.shape)}"
-        )
+    constraints.check_xus_shapes(x.shape, U.shape, None if S is None else S.shape)
     _check_cuda("xus", x3, U3, *(() if S3 is None else (S3,)))
     s_dtype = x3.dtype if S3 is None else S3.dtype
-    if U3.dtype != x3.dtype or s_dtype not in (x3.dtype, torch.float32):
-        raise TypeError(
-            f"xus dtypes: x {x.dtype}, U {U.dtype}, S {s_dtype} (U must match "
-            f"x; S must match x or be float32)"
-        )
+    constraints.check_xus_dtypes(x.dtype, U.dtype, s_dtype)
     lib = load_library()
     plan = xus_plan(G, M, K, R, S3 is not None)
     out = torch.empty((G, M, R), dtype=x.dtype, device=x.device)
@@ -338,12 +313,12 @@ def avt_plan(G: int, M: int, N: int, R: int) -> AvtPlan:
     if M <= STREAM_MAX_M:
         rows, warps = AVT_ROWS * (32 // _avt_lanes(R)), AVT_WARPS
         blocks = _cdiv(N, rows * warps) * _cdiv(M, 1 if M == 1 else AVT_M_BLOCK)
-        if blocks > GRID_X_MAX or G > GRID_YZ_MAX:
+        if not grid_fits(blocks, 1, G):
             raise ValueError(f"avt: grid too large for G={G} M={M} N={N} R={R}: {blocks} x {G} "
                              f"blocks; at most {GRID_X_MAX} x {GRID_YZ_MAX}")
         return AvtPlan("stream", rows, warps, None, 1, 0, 0)
     tiles = (_cdiv(N, TILE_N), _cdiv(M, TILE_M))
-    if tiles[0] > GRID_X_MAX or tiles[1] > GRID_YZ_MAX or G > GRID_YZ_MAX:
+    if not grid_fits(tiles[0], tiles[1], G):
         raise ValueError(f"avt: grid too large for G={G} M={M} N={N} R={R}: {tiles[0]} x "
                          f"{tiles[1]} x {G} tiles; at most {GRID_X_MAX} x {GRID_YZ_MAX} x "
                          f"{GRID_YZ_MAX}")
@@ -366,13 +341,9 @@ def _avt(A: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     A3, V3 = _batched(A, "A"), _batched(V, "V")
     G, M, R = A3.shape
     N = V3.shape[1]
-    if V3.shape != (G, N, R):
-        raise ValueError(
-            f"avt shapes disagree: A {tuple(A.shape)}, V {tuple(V.shape)}"
-        )
+    constraints.check_avt_shapes(A.shape, V.shape)
     _check_cuda("avt", A3, V3)
-    if V3.dtype != A3.dtype:
-        raise TypeError(f"avt dtypes: A {A.dtype}, V {V.dtype} must match")
+    constraints.check_pair_dtypes("avt", "AV", A.dtype, V.dtype)
     lib = load_library()
     plan = avt_plan(G, M, N, R)
     sizes = (plan.rows, plan.warps) if plan.route == "stream" else plan.tile

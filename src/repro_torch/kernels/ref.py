@@ -120,4 +120,6 @@ def flash_mismatch(out, want) -> tuple[float, float]:
         rms = w.square().mean(-1, keepdim=True).sqrt()
         tol = torch.clamp((w.abs() + rms) * 2.0**-5, max=5e-2)
     ratio = err / tol.clamp_min(1e-30)
+    # repro-lint: disable=RPL004 -- a checker's readout for the tests and the
+    # card smoke run, never called inside a step
     return err.max().item(), ratio.max().item()

@@ -43,9 +43,8 @@ import traceback
 import torch
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "../../../results/dryrun_torch")
-#: seconds ``--all`` gives one combo (Jamba-1.5-Large's train_4k traces in
-#: ~450 s on one CPU core; its prefill_32k's token-by-token Mamba state loop
-#: would take hours)
+#: seconds ``--all`` gives one combo (Jamba-1.5-Large's train_4k, the
+#: longest, traces in ~270-450 s on one CPU core)
 COMBO_TIMEOUT_S = 600
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "../.."))
 

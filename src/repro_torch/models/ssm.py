@@ -13,8 +13,12 @@ so the port writes them in plain PyTorch:
 - Mamba: the diagonal recurrence ``h_t = a_t ⊙ h_{t-1} + b_t`` as a
   log-depth doubling scan (:func:`linear_recurrence`, where the JAX
   package takes ``associative_scan``), time-chunked at
-  ``cfg.mamba.scan_chunk`` on the stateless path; step by step where a
-  state is given (decode, and the serving prefill).
+  ``cfg.mamba.scan_chunk``, from zeros (training) or from a given state
+  (the serving prefill); one step at T = 1 (decode). The reference steps
+  a given state token by token (``lax.scan``): the port's scan adds in
+  another order, equal in f32 to rounding and within a bf16 tolerance in
+  bf16 (``_stepped_recurrence`` is the token-by-token order, for the
+  checks that hold the scan to it).
 - RWKV6: chunked linear attention (per-chunk quadratic mixing, a loop over
   the chunk states), in f32 whatever the compute dtype.
 
@@ -117,6 +121,18 @@ def _sharded_recurrence(a, b, h0):
                                  for i, p in enumerate(pa)], tuple(a.shape))
 
 
+def _stepped_recurrence(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """:func:`linear_recurrence` token by token, in the reference's
+    sequential order (its ``lax.scan``): what the scan is held to, by the
+    checks that put it in :func:`linear_recurrence`'s place (it costs T
+    steps a layer)."""
+    h, hs = h0, []
+    for t in range(a.shape[1]):
+        h = torch.addcmul(b[:, t], a[:, t], h)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
 def mamba_dims(cfg: ModelConfig):
     m = cfg.mamba
     d_inner = m.expand * cfg.d_model
@@ -173,9 +189,10 @@ def mamba_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     ``F.softplus`` returns its input above 20, where ``jax.nn.softplus``
     computes ``log1p(exp(x))``: the two agree to f32 rounding there.
-    Without a state the scan runs in chunks of ``cfg.mamba.scan_chunk``
-    steps (zero-padded at the end), carrying ``h`` from chunk to chunk, so
-    its (B, chunk, d_inner, N) workspace exists one chunk at a time.
+    At T > 1 the scan runs in chunks of ``cfg.mamba.scan_chunk`` steps
+    (zero-padded at the end), carrying ``h`` from chunk to chunk, from
+    zeros or from ``state["h"]``, so its (B, chunk, d_inner, N) workspace
+    exists one chunk at a time; at T = 1 with a state it takes one step.
     """
     d_inner, dt_rank, d_state, _ = mamba_dims(cfg)
     dt = x.dtype
@@ -200,18 +217,13 @@ def mamba_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     scan_dt = dt  # the compute dtype: bf16 at full width, f32 reduced
     B, T = xc.shape[0], xc.shape[1]
 
-    if state is not None:
-        # step by step from the given state
+    if state is not None and T == 1:
+        # decode: one step from the given state
         a = torch.exp(delta[..., None] * A).to(scan_dt)
         b_in = ((delta * xc32)[..., None] * Bp[..., None, :]).to(scan_dt)
-        h = state["h"].to(scan_dt)
-        hs = []
-        for t in range(T):
-            h = torch.addcmul(b_in[:, t], a[:, t], h)
-            hs.append(h)
-        h_seq = torch.stack(hs, dim=1)
+        h = torch.addcmul(b_in[:, 0], a[:, 0], state["h"].to(scan_dt))
         new_state = {"h": h.float(), "conv": new_tail}
-        y = torch.sum(h_seq.float() * Cp[..., None, :], dim=-1)
+        y = torch.sum(h[:, None].float() * Cp[..., None, :], dim=-1)
     else:
         Lc = min(cfg.mamba.scan_chunk, T)
         nc = -(-T // Lc)
@@ -222,7 +234,10 @@ def mamba_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 t = torch.cat([t, t.new_zeros((B, pad) + t.shape[2:])], dim=1)
             return t.split(Lc, dim=1)
 
-        h = torch.zeros((B, d_inner, d_state), dtype=scan_dt, device=x.device)
+        if state is None:
+            h = torch.zeros((B, d_inner, d_state), dtype=scan_dt, device=x.device)
+        else:
+            h = state["h"].to(scan_dt)
         ys = []
         for d_c, dx_c, B_c, C_c in zip(*map(chunks, (delta, delta * xc32, Bp, Cp))):
             a_c = torch.exp(d_c[..., None] * A).to(scan_dt)
@@ -231,7 +246,9 @@ def mamba_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             ys.append(torch.sum(h_c.float() * C_c[..., None, :], dim=-1))
             h = h_c[:, -1]
         y = torch.cat(ys, dim=1)[:, :T]
-        new_state = None
+        # h at the true last step, not past the last chunk's zero padding
+        new_state = None if state is None else {"h": h_c[:, Lc - 1 - pad].float(),
+                                                "conv": new_tail}
 
     y = y + p["D"].float() * xc32
     y = y.to(dt) * F.silu(z)

@@ -1,6 +1,7 @@
-"""The port stands alone: no file under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and the port's entry
-points never fall back to the CPU on their own."""
+"""The port stands alone: no file under ``src/repro_torch/``, no example
+twin (``examples/torch_*.py``) and not ``chip_smoke.py`` imports JAX or the
+JAX package, and the port's entry points never fall back to the CPU on
+their own."""
 import ast
 import os
 import subprocess
@@ -14,7 +15,8 @@ from repro_torch.api import ExperimentSpec, ModelSpec, ServeSpec, serve
 from repro_torch.launch import serve as launch_serve
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = (sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+              + sorted((REPO / "examples").glob("torch_*.py")) + [REPO / "chip_smoke.py"])
 
 
 def _imported_modules(path: Path):
@@ -49,7 +51,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"lowrank_matmul.py", "engine.py", "chip_smoke.py"} <= names
+    assert {"lowrank_matmul.py", "engine.py", "chip_smoke.py", "torch_quickstart.py",
+            "torch_train_llm.py", "torch_serve_llm.py", "torch_federated_vision.py"} <= names
 
 
 def _cuda_absent():

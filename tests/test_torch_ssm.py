@@ -193,6 +193,46 @@ def test_mixer_matches(kind, T, with_state):
         _rel_close(tstate[k], jstate[k])
 
 
+@pytest.mark.parametrize("T", [37, 16])
+def test_mamba_state_scan_matches_the_reference_and_the_step_loop(T, monkeypatch):
+    """The state branch at T > 1 is the chunked scan from ``state["h"]``
+    (chunks of 8: T 37 ends on a chunk of 5 padded with 3 zero steps, T 16
+    on two whole chunks). Output and new state within 1e-5 of their
+    largest entry of the reference's sequential ``lax.scan`` and of the
+    port's token-by-token loop (``ssm._stepped_recurrence`` in the scan's
+    place); the new ``h`` is the true last step's, not one past the
+    padding."""
+    jcfg, tcfg, jp, tp, x, state = _mixer_case("mamba", T, True)
+    jy, jstate = jax.jit(lambda p, x, s: jssm.mamba_mix(p, x, jcfg, state=s))(
+        jp, jnp.asarray(x), jax.tree.map(jnp.asarray, state))
+    tstate = {k: torch.from_numpy(v) for k, v in state.items()}
+    with torch.no_grad():
+        ty, new = ssm.mamba_mix(tp, torch.from_numpy(x), tcfg, state=tstate)
+        monkeypatch.setattr(ssm, "linear_recurrence", ssm._stepped_recurrence)
+        sy, snew = ssm.mamba_mix(tp, torch.from_numpy(x), tcfg, state=tstate)
+    _rel_close(ty, jy)
+    _rel_close(ty, sy.numpy())
+    for k in ("h", "conv"):
+        assert new[k].dtype == torch.float32
+        _rel_close(new[k], jstate[k])
+        _rel_close(new[k], snew[k].numpy())
+
+
+def test_mamba_state_scan_takes_no_step_per_token(monkeypatch):
+    """A 37-token prefill from a state runs the doubling scan a chunk at a
+    time (5 chunks of 8), never the token-by-token loop."""
+    _, tcfg, _, tp, x, state = _mixer_case("mamba", 37, True)
+    calls = []
+    monkeypatch.setattr(ssm, "_stepped_recurrence", lambda *a: calls.append("step"))
+    real = ssm.linear_recurrence
+    monkeypatch.setattr(ssm, "linear_recurrence",
+                        lambda a, b, h: calls.append(a.shape[1]) or real(a, b, h))
+    with torch.no_grad():
+        ssm.mamba_mix(tp, torch.from_numpy(x), tcfg,
+                      state={k: torch.from_numpy(v) for k, v in state.items()})
+    assert calls == [8] * 5
+
+
 @pytest.mark.parametrize("kind", ["mamba", "rwkv"])
 def test_mixer_gradient_matches(kind):
     """The gradient of a random projection of the stateless mixer's output
