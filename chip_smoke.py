@@ -42,12 +42,16 @@ per source, all started together) and drives each of the port's paths:
   kernel path against plain path: logits, and every layer's expert
   choices; RWKV6-7B in f32 the same: logits and greedy tokens; the
   recurrent models' 37-token prefill, host and device time; Jamba's
-  chunked Mamba state scan against the token-by-token loop in bf16 at
-  full width: one mixer over 1,100 tokens (output and state within
-  ``MAMBA_BF16_RTOL``), and a reduced-depth model (one 8-layer superblock)
-  prefilled over 37 and 1,100 tokens (bf16 logits within
-  ``MAMBA_MODEL_RTOL``, with the prefill's host and device time both ways;
-  f32 logits within ``MODEL_F32_RTOL`` and greedy tokens identical);
+  Mamba state branch (the ``selective_scan`` kernel, one launch a Mamba
+  layer a prefill or decode step, held to the layers) against the
+  kernel's plain version at full width: one mixer over 2 x 1,100 tokens in
+  bf16 and f32 (output and state within ``MAMBA_BF16_RTOL`` /
+  ``MAMBA_F32_RTOL``, the state's differing bits counted), the kernel's
+  device time against its plain version's and its bound, and a
+  reduced-depth model (one 8-layer superblock) prefilled over 37 and 1,100
+  tokens (bf16 logits within ``MAMBA_MODEL_RTOL``, with the prefill's host
+  and device time both ways; f32 logits within ``MODEL_F32_RTOL`` and
+  greedy tokens identical);
 - train: three FeDLRT rounds of llm-100m at full width and depth in f32
   through ``repro_torch.api.build(spec).run()``, counting the launches
   against the counts the model's factors imply; one more round under
@@ -90,8 +94,9 @@ per source, all started together) and drives each of the port's paths:
   held to keep every factor's ``U S Vᵀ``;
 - mesh (after the models' phases): an NCCL group of one rank and a 1 x 1
   ``("data", "model")`` mesh; Qwen2-7B's bf16 prefill and 8 greedy steps
-  and an llm-100m FeDLRT round (``spec_tree``, ``client_axes``) held
-  bit-identical to the same calls without a mesh, with equal launches; the
+  and an llm-100m FeDLRT round (``spec_tree``, ``client_axes``), and the
+  round again with ``int8_affine`` on the wire, held bit-identical to the
+  same calls without a mesh, with equal launches and measured bytes; the
   host ms of a step both ways; the custom-op route's host µs a call; the
   engine's decode step without a mesh held to its ATen operator count from
   before the mesh was ported;
@@ -139,12 +144,16 @@ REPLACES = {
     "avt": "src/repro/kernels/lowrank_matmul.py:103",
     "atb": "src/repro/kernels/coeff_grad.py:22",
     "flash_attention": "src/repro/kernels/flash_attention.py:34",
+    # the port's own kernel: the reference computes this recurrence in XLA
+    # (mamba_mix's sequential lax.scan), no Pallas kernel does
+    "selective_scan": "src/repro/models/ssm.py:185",
 }
 SOURCES = {
     "xus": "src/repro_torch/csrc/lowrank_matmul.cu",
     "avt": "src/repro_torch/csrc/lowrank_matmul.cu",
     "atb": "src/repro_torch/csrc/coeff_grad.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "selective_scan": "src/repro_torch/csrc/selective_scan.cu",
 }
 KERNELS = tuple(SOURCES)
 PATHS = ("serve", "serve-quant", "models", "encdec", "vlm", "mesh", "train", "flash", "spec",
@@ -237,6 +246,12 @@ def decode_step_calls(cfg, encoder=False):
     add("xus", dt, d, r(d, V), 1)  # LM head
     add("avt", dt, V, r(d, V), 1)
     return calls
+
+
+def mamba_layers(cfg) -> int:
+    """Mamba layers of ``cfg``: one ``selective_scan`` launch each, a
+    prefill or a decode step."""
+    return cfg.superblocks * list(cfg.block_pattern).count("mamba")
 
 
 def per_forward(cfg) -> int:
@@ -704,9 +719,15 @@ def drive_session(torch, session, spec, tag, launches=None, n_requests=8):
             )
     if got["atb"] or got["flash_attention"]:
         raise AssertionError(f"{tag}: serving (forward only) launched atb / flash_attention: {got}")
+    mamba = mamba_layers(eng.model.cfg)
+    if got["selective_scan"] != mamba * (steps + prefills):
+        raise AssertionError(f"{tag} selective_scan: {got['selective_scan']} launches, expected "
+                             f"{mamba} Mamba layers x ({steps} decode steps + {prefills} "
+                             f"prefills)")
     log(f"{tag} launches: xus {got['xus']}, avt {got['avt']} = "
         f"{forward} per forward x ({steps} decode steps + {prefills} prefills); "
-        f"{forward} xus + {forward} avt per decode step")
+        f"{forward} xus + {forward} avt per decode step"
+        + (f"; selective_scan {got['selective_scan']} = {mamba} a forward" if mamba else ""))
     toks = sum(len(c.tokens) for c in comps)
     per_tok = np.concatenate([np.full(len(c.tokens), c.decode_s / len(c.tokens)) for c in comps])
     p50, p99 = np.percentile(per_tok, [50, 99])
@@ -1226,36 +1247,41 @@ def phase_models(torch, counters, records):
         torch.cuda.empty_cache()
     stats["olmoe-1b-7b f32"] = olmoe_f32_check(torch)
     stats["rwkv6-7b f32"] = greedy_f32_check(torch, "rwkv6-7b", 3)
+    t0 = time.perf_counter()
     stats["jamba mamba scan"] = mamba_scan_check(torch)
+    log(f"[models jamba mamba scan] the check took {time.perf_counter() - t0:.1f} s")
     return model_records, stats
 
 
-#: the Mamba state-scan check: Jamba-1.5-Large at full width cut to one
-#: 8-layer superblock (7 Mamba layers, one attention layer, MoE on every
-#: other layer), fresh weights; prompts of 37 tokens (one chunk of the scan)
-#: and 1,100 (two whole 512-step chunks and a ragged one of 76), 2 rows
-#: each, then 8 greedy decode steps
+#: the Mamba check: Jamba-1.5-Large at full width cut to one 8-layer
+#: superblock (7 Mamba layers, one attention layer, MoE on every other
+#: layer), fresh weights; prompts of 37 tokens and 1,100, 2 rows each, then
+#: 8 greedy decode steps
 MAMBA_CHECK_LAYERS = 8
 MAMBA_CHECK_T = (37, 1100)
 MAMBA_CHECK_STEPS = 8
-#: one full-width Mamba mixer in bf16, the chunked doubling scan against the
-#: token-by-token loop: output and new state within this share of their
-#: largest entry (both round every step's state to bf16, in other orders)
-MAMBA_BF16_RTOL = 5e-2
-#: the 8-layer model's bf16 prefill logits, scan against loop, within this
-#: share of max |logit|: a bf16 difference in a Mamba layer's output moves
-#: the MoE routers whose top-2 margin is under it, and a token whose expert
-#: choice flips gets another expert's output (on an H100 the 8-layer model
-#: read 0.021-0.091 over 37-1,100 tokens, with 3-5 % of its expert choices
-#: flipped). Its greedy tokens follow those flips, so they are held
-#: identical in f32 (within ``MODEL_F32_RTOL``), where no router flips.
-MAMBA_MODEL_RTOL = 0.15
+#: one full-width Mamba mixer, the selective-scan kernel against its plain
+#: version on the same weights and inputs: output and new state within this
+#: share of their largest entry. In bf16 both round every step's state at
+#: the same points (the new state's bits are the same where the two agree
+#: on every step); the output's sum over the 16 states runs in another
+#: order, and the mixer's bf16 output and its projection round that
+MAMBA_BF16_RTOL = 1e-2
+#: the same in f32: sums in another order
+MAMBA_F32_RTOL = 1e-5
+#: the 8-layer model's bf16 prefill logits, kernel against plain, within
+#: this share of max |logit|: a bf16 difference in a Mamba layer's output
+#: can move an MoE router whose top-2 margin is under it, and a token whose
+#: expert choice flips gets another expert's output (the flips are
+#: logged). The greedy tokens are held identical in f32, within
+#: ``MODEL_F32_RTOL``, where no router flips
+MAMBA_MODEL_RTOL = 5e-2
 
 
 def _mamba_prefill(torch, model, params, tokens, order):
     """A prefill of ``tokens`` and 8 greedy decode steps under ``order``
-    (the scan, or the loop patched in): the prefill's logits, the greedy
-    tokens and the MoE routings of the prefill."""
+    (the kernel, or its plain version patched in): the prefill's logits,
+    the greedy tokens and the MoE routings of the prefill."""
     routed = []
     with torch.inference_mode(), order:
         with path_calls(routed, set()):
@@ -1270,15 +1296,64 @@ def _mamba_prefill(torch, model, params, tokens, order):
     return dict(logits=pre.float(), tokens=torch.stack(greedy, 1), routed=routed)
 
 
-def mamba_scan_check(torch):
-    """The serving prefill's Mamba state branch (the chunked doubling scan
-    from the given state) against the token-by-token loop it replaced
-    (``ssm._stepped_recurrence`` in ``linear_recurrence``'s place), on the
-    same weights and inputs, at full width:
+def scan_bound_ms(args):
+    """The least time of one ``selective_scan`` call on these inputs: each
+    input read once (delta, x, Bp, Cp, A, h0, f32) and each output written
+    once (y, h_T, f32), or its ``SCAN_OPS`` operations a (b, t, channel,
+    state) at the f32 rate; the larger, and which."""
+    from repro_torch.kernels.selective_scan import SCAN_OPS
 
-    - layer 0's Mamba mixer in bf16 from a random state over 2 x 1,100
-      tokens: output and new ``h`` within ``MAMBA_BF16_RTOL`` of their
-      largest entry; the host ms of each (second calls);
+    delta, _, Bp = args[0], args[1], args[2]
+    B, T, D = delta.shape
+    N = Bp.shape[-1]
+    nbytes = 4 * (3 * B * T * D + 2 * B * T * N + D * N + 2 * B * D * N)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = SCAN_OPS * B * T * D * N / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def _mixer_pair(torch, cfg, p, x, state, orders):
+    """Layer 0's mixer over ``x`` from ``state`` under each order: output,
+    new ``h``, host ms (the second of two calls), and the arguments its
+    ``selective_scan`` call took (kernel order)."""
+    from repro_torch.models import ssm
+
+    out, args = {}, []
+    real = ssm.selective_scan
+    for name, order in orders:
+        def record(*a, real=real):
+            args[:] = a
+            return real(*a)
+
+        with torch.inference_mode(), order(), (
+                unittest.mock.patch.object(ssm, "selective_scan", record)
+                if name == "kernel" else contextlib.nullcontext()):
+            for _ in range(2):  # the second call timed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y, new = ssm.mamba_mix(p, x, cfg, state=state)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+        out[name] = (y.float(), new["h"], ms)
+    rel = [((out["kernel"][i] - out["plain"][i]).abs().max()
+            / out["plain"][i].abs().max()).item() for i in (0, 1)]
+    h_bits = int((out["kernel"][1] != out["plain"][1]).sum().item())
+    return rel, h_bits, out, args
+
+
+def mamba_scan_check(torch):
+    """The serving path's Mamba state branch, one ``selective_scan`` launch a
+    mixer call, against the kernel's plain version
+    (``ref.selective_scan_ref``, token by token, patched in for
+    ``ssm.selective_scan``) on the same weights and inputs, at full width:
+
+    - layer 0's Mamba mixer from a random state over 2 x 1,100 tokens, in
+      bf16 and in f32: output and new ``h`` within ``MAMBA_BF16_RTOL`` /
+      ``MAMBA_F32_RTOL`` of their largest entry, the entries of the new
+      ``h`` whose bits differ (a reading; the aim is none), the host ms of
+      each; then the kernel alone on the bf16 mixer's arguments: device ms
+      by CUDA events, the plain version's, the bound (the kernels JSON
+      line's ``selective_scan`` entry);
     - the 8-layer model's prefill at each of ``MAMBA_CHECK_T``, in bf16:
       logits within ``MAMBA_MODEL_RTOL`` of max |logit|, with the expert
       choices that flipped, the greedy tokens that agree (readings), and
@@ -1286,6 +1361,8 @@ def mamba_scan_check(torch):
       logits within ``MODEL_F32_RTOL``, the prefill's and 8 decode steps'
       greedy tokens identical."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.selective_scan import selective_scan
     from repro_torch.models import build_model, ssm
     from repro_torch.models.transformer import _layer
     from repro_torch.utils.tree import tree_map
@@ -1297,44 +1374,58 @@ def mamba_scan_check(torch):
     gen.manual_seed(4)
     with torch.inference_mode():
         params, _ = model.init(gen)
-    stepped = lambda: unittest.mock.patch.object(  # noqa: E731
-        ssm, "linear_recurrence", ssm._stepped_recurrence)
-    orders = (("scan", contextlib.nullcontext), ("steps", stepped))
+    plain = lambda: unittest.mock.patch.object(  # noqa: E731
+        ssm, "selective_scan", ref.selective_scan_ref)
+    orders = (("kernel", contextlib.nullcontext), ("plain", plain))
     out = {}
 
-    # one mixer: no router downstream, the scan's own bf16 difference
-    p = _layer(params["blocks"]["pos0"]["mamba"], 0)
+    # one mixer: no router downstream, the kernel's own difference
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32", param_dtype="float32")
     T = MAMBA_CHECK_T[-1]
     with torch.inference_mode():
-        x = torch.randn((2, T, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
-        state = {k: 0.3 * torch.randn(v.shape, generator=gen, device="cuda").to(v.dtype)
-                 for k, v in ssm.mamba_init_state(cfg, 2, torch.bfloat16, "cuda").items()}
-        mix = {}
-        for name, order in orders:
-            with order():
-                for _ in range(2):  # the second call timed
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    y, new = ssm.mamba_mix(p, x, cfg, state=state)
-                    torch.cuda.synchronize()
-                    ms = (time.perf_counter() - t0) * 1e3
-            mix[name] = (y.float(), new["h"], ms)
-    rel = [((mix["scan"][i] - mix["steps"][i]).abs().max() / mix["steps"][i].abs().max()).item()
-           for i in (0, 1)]
-    log(f"{tag} one Mamba mixer (d_inner {2 * cfg.d_model}), 2 x {T} tokens from a random "
-        f"state, bf16: max |scan - steps| / max of the output {rel[0]:.3g}, of the new h "
-        f"{rel[1]:.3g} (tol {MAMBA_BF16_RTOL}); host {mix['scan'][2]:.1f} ms (scan) vs "
-        f"{mix['steps'][2]:.1f} ms (token by token)")
-    if not max(rel) <= MAMBA_BF16_RTOL:
-        raise AssertionError(f"{tag}: the mixer's scan differs from the loop by {rel} "
-                             f"(> {MAMBA_BF16_RTOL})")
-    out["mixer"] = dict(tokens=T, out_rel_err=rel[0], h_rel_err=rel[1], scan_ms=mix["scan"][2],
-                        steps_ms=mix["steps"][2])
-    del x, state, mix, y, new
-
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32", param_dtype="float32")
-    with torch.inference_mode():
         params32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
+        x = torch.randn((2, T, cfg.d_model), generator=gen, device="cuda")
+        state = {k: 0.3 * torch.randn(v.shape, generator=gen, device="cuda").to(v.dtype)
+                 for k, v in ssm.mamba_init_state(cfg, 2, torch.float32, "cuda").items()}
+    for dtype, c, prm, rtol in (("bfloat16", cfg, params, MAMBA_BF16_RTOL),
+                                ("float32", cfg32, params32, MAMBA_F32_RTOL)):
+        dt = getattr(torch, dtype)
+        p = _layer(prm["blocks"]["pos0"]["mamba"], 0)
+        st = {"h": state["h"], "conv": state["conv"].to(dt)}
+        rel, h_bits, mix, args = _mixer_pair(torch, c, p, x.to(dt), st, orders)
+        n_h = mix["plain"][1].numel()
+        log(f"{tag} one Mamba mixer (d_inner {2 * cfg.d_model}, N {cfg.mamba.d_state}), 2 x {T} "
+            f"tokens from a random state, {dtype}: max |kernel - plain| / max of the output "
+            f"{rel[0]:.3g}, of the new h {rel[1]:.3g} (tol {rtol}); entries of the new h whose "
+            f"bits differ: {h_bits} of {n_h}; host {mix['kernel'][2]:.1f} ms (kernel) vs "
+            f"{mix['plain'][2]:.1f} ms (plain, token by token)")
+        if not max(rel) <= rtol:
+            raise AssertionError(f"{tag} {dtype}: the mixer's kernel differs from its plain "
+                                 f"version by {rel} (> {rtol})")
+        out[f"mixer_{dtype}"] = dict(tokens=T, out_rel_err=rel[0], h_rel_err=rel[1],
+                                     h_bits_differ=h_bits, h_entries=n_h,
+                                     kernel_host_ms=mix["kernel"][2],
+                                     plain_host_ms=mix["plain"][2])
+        if dtype == "bfloat16":  # the kernel alone at the serving prefill's shapes
+            n0 = selective_scan.launches
+            ms = _event_ms(torch, lambda i: selective_scan(*args), 1, 20)
+            plain_ms = _event_ms(torch, lambda i: ref.selective_scan_ref(*args), 1, 3)
+            selective_scan.launches = n0  # timing launches are not the path's
+            bound, bound_by, nbytes = scan_bound_ms(args)
+            err = max((a - b).abs().max().item() for a, b in
+                      zip(selective_scan(*args), ref.selective_scan_ref(*args)))
+            selective_scan.launches = n0
+            B_, T_, D_ = args[0].shape
+            out["kernel"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                                 library_ms=None, max_abs_err=err, bytes=nbytes,
+                                 shape=[B_, T_, D_, args[2].shape[-1]], scan_dt=dtype)
+            log(f"[kernels] selective_scan B {B_} T {T_} D {D_} N {args[2].shape[-1]} "
+                f"(state {dtype}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{bound:.3f} ms ({bound_by}: {nbytes / 1e6:.1f} MB), "
+                f"{100 * bound / ms:.1f} % of the bound; max |kernel - plain| {err:.3g}")
+        del mix, args, p, st
+    del x, state
+
     models = (("bfloat16", model, params, MAMBA_MODEL_RTOL),
               ("float32", build_model(cfg32), params32, MODEL_F32_RTOL))
     k, n_moe = cfg.moe.top_k, sum(map(cfg.moe_on_layer, range(len(cfg.block_pattern))))
@@ -1346,12 +1437,12 @@ def mamba_scan_check(torch):
             same = (a["tokens"] == b["tokens"]).all(0)
             decode_same = int(same[1:].cumprod(0).sum())
             flips, _ = routing_flips(torch, a["routed"], b["routed"], k, n_moe)
-            log(f"{tag} {MAMBA_CHECK_LAYERS} layers, {dtype}, 2 x {T} tokens: max |logits(scan) "
-                f"- logits(steps)| / max |logit| = {err:.3g} (tol {rtol}); expert choices "
-                f"flipped in the prefill: {len(flips)} of {2 * T * n_moe} (token, layer); the "
-                f"prefill's greedy tokens {'the same' if bool(same[0]) else 'differ'}, decode "
-                f"steps the same before the first difference: {decode_same} of "
-                f"{MAMBA_CHECK_STEPS}")
+            log(f"{tag} {MAMBA_CHECK_LAYERS} layers, {dtype}, 2 x {T} tokens: max "
+                f"|logits(kernel) - logits(plain)| / max |logit| = {err:.3g} (tol {rtol}); "
+                f"expert choices flipped in the prefill: {len(flips)} of {2 * T * n_moe} "
+                f"(token, layer); the prefill's greedy tokens "
+                f"{'the same' if bool(same[0]) else 'differ'}, decode steps the same before "
+                f"the first difference: {decode_same} of {MAMBA_CHECK_STEPS}")
             if not err <= rtol:
                 raise AssertionError(f"{tag} {dtype} T {T}: prefill logits differ by {err} of "
                                      f"max |logit| (> {rtol})")
@@ -1366,12 +1457,14 @@ def mamba_scan_check(torch):
                         n, busy_s, wall = device_profile(
                             torch, lambda: m.serve_prefill(prm, {"tokens": tokens},
                                                            cache_len=T + MAMBA_CHECK_STEPS),
-                            f"{tag} {name}", 0)
+                            f"{tag} {name}", 4 if T == MAMBA_CHECK_T[-1] else 0,
+                            cpu=name == "kernel")
                     rec[f"{name}_host_ms"], rec[f"{name}_device_ms"] = wall * 1e3, busy_s * 1e3
-                log(f"{tag} {dtype} 2 x {T}-token prefill: host {rec['scan_host_ms']:.1f} ms, "
-                    f"device busy {rec['scan_device_ms']:.1f} ms (scan); host "
-                    f"{rec['steps_host_ms']:.1f} ms, device busy {rec['steps_device_ms']:.1f} ms "
-                    f"(token by token), under the profiler")
+                log(f"{tag} {dtype} 2 x {T}-token prefill: host {rec['kernel_host_ms']:.1f} ms, "
+                    f"device busy {rec['kernel_device_ms']:.1f} ms (kernel, under the profiler "
+                    f"of host and card); host {rec['plain_host_ms']:.1f} ms, device busy "
+                    f"{rec['plain_device_ms']:.1f} ms (plain, token by token, under the card's "
+                    f"profiler alone)")
             out[f"{dtype}_T{T}"] = rec
             del a, b
     del params, params32, models
@@ -2182,8 +2275,10 @@ def _wrappers():
     from repro_torch.kernels.coeff_grad import atb
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.lowrank_matmul import avt, xus
+    from repro_torch.kernels.selective_scan import selective_scan
 
-    return {"xus": xus, "avt": avt, "atb": atb, "flash_attention": flash_attention}
+    return {"xus": xus, "avt": avt, "atb": atb, "flash_attention": flash_attention,
+            "selective_scan": selective_scan}
 
 
 def _launch_counts():
@@ -2195,15 +2290,20 @@ def _zero_counts():
         fn.launches = 0
 
 
-def device_profile(torch, fn, tag: str, top: int):
+def device_profile(torch, fn, tag: str, top: int, cpu: bool = True):
     """One call of ``fn`` under ``torch.profiler``: its kernels, the union
     of their intervals on the card (device busy seconds) and the host
     seconds of the call; logs the ``top`` kernel names by device time,
-    each with its share, as ``tag`` lines."""
+    each with its share, as ``tag`` lines. ``cpu=False`` traces the card
+    alone: for a call of ~10^5 small operators, whose host events take the
+    profiler tens of seconds to collect (the host seconds then lack the
+    profiler's per-operator cost; a trace without device events is taken
+    again with both)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2218,6 +2318,8 @@ def device_profile(torch, fn, tag: str, top: int):
     for start, end in sorted(spans):
         busy += max(0.0, end - max(start, reach))
         reach = max(reach, end)
+    if not spans and not cpu:
+        return device_profile(torch, fn, tag, top)
     total = sum(by_name.values()) or 1.0
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"{tag} {us / 1e3:9.3f} ms  {100 * us / total:5.1f} %  {name[:110]}")
@@ -2832,8 +2934,13 @@ def phase_spec(torch, counters, workdir):
 SIM_PROFILE = "straggler:0.25,10"
 #: FedBuff flushes of the async runs: with buffer 2 the three fast clients
 #: flush ~1.5 times a round trip, so the straggler's first round (priced
-#: 10x a fast one) lands after about 26 flushes, and its track with it
-SIM_FLUSHES = 30
+#: 10x a fast one) lands at flush 24 on an H100 (PERF.md), and its track
+#: with it; 26 keeps one flush after it
+SIM_FLUSHES = 26
+#: rounds of the sync engine and flushes of the uniform async engine held to
+#: the plain engine (2 before the script passed 900 s; the async runs above
+#: carry state over their flushes)
+SIM_SYNC_ROUNDS = 1
 
 
 def _inactive_nonzeros(torch, params) -> int:
@@ -2917,12 +3024,12 @@ def phase_sim(torch, counters, workdir):
     """The system simulator (``repro_torch.fed.sim``) through ``build(spec)``,
     at llm-100m's full width and depth:
 
-    1. ``[sim sync]``: the sync engine priced under ``SIM_PROFILE``, two
-       rounds, bit-identical to the plain engine's two rounds from the same
-       params and batches; each round's virtual seconds recomputed as the
-       straggler barrier;
-    2. ``[sim async-uniform]``: a uniform fleet with buffer 4, two flushes,
-       bit-identical to the plain rounds, with their launches;
+    1. ``[sim sync]``: the sync engine priced under ``SIM_PROFILE``,
+       ``SIM_SYNC_ROUNDS`` rounds, bit-identical to the plain engine's
+       rounds from the same params and batches; each round's virtual
+       seconds recomputed as the straggler barrier;
+    2. ``[sim async-uniform]``: a uniform fleet with buffer 4, as many
+       flushes, bit-identical to the plain rounds, with their launches;
     3. ``[sim async]``: ``examples/configs/async_straggler.toml`` (buffer 2,
        staleness power 0.5, downcast wire), ``SIM_FLUSHES`` flushes with the
        invariant held exactly after each; again with the jsonl, perfetto
@@ -2945,19 +3052,20 @@ def phase_sim(torch, counters, workdir):
 
     sets = ["model.preset=llm-100m"]
     configs = os.path.join(ROOT, "examples", "configs")
-    base = ExperimentSpec(name="chip-sim", seed=0, rounds=2, log_every=0).with_overrides(sets)
+    n = SIM_SYNC_ROUNDS
+    base = ExperimentSpec(name="chip-sim", seed=0, rounds=n, log_every=0).with_overrides(sets)
 
-    # the plain engine's two rounds: what steps 1 and 2 are held to (their
+    # the plain engine's rounds: what steps 1 and 2 are held to (their
     # launches are the comparison's, outside the path's count)
     plain = build(base, device="cuda")
     params0 = _clone(plain.params)
     cfg = plain.engine.cfg
     before = _launch_counts()
-    plain.run(rounds=2)
+    plain.run(rounds=n)
     torch.cuda.synchronize()
     plain_launches = _launch_delta(before)
     params_plain, plain_hist = plain.params, plain.history
-    log(f"[sim] plain sync engine, 2 rounds: host {[round(r.seconds, 3) for r in plain_hist]} "
+    log(f"[sim] plain sync engine, {n} rounds: host {[round(r.seconds, 3) for r in plain_hist]} "
         f"s; launches {plain_launches}")
     del plain
 
@@ -2971,7 +3079,7 @@ def phase_sim(torch, counters, workdir):
     fleet = Fleet.from_spec(SIM_PROFILE, cfg.num_clients, seed=s_spec.seed)
     tokens = s_spec.data.batch * (s_spec.data.seq + 1)  # a window is seq + 1 tokens
     sync_rows = []
-    for r in range(2):
+    for r in range(n):
         before = _launch_counts()
         res = exp.run(rounds=1)[-1]
         torch.cuda.synchronize()
@@ -2995,7 +3103,7 @@ def phase_sim(torch, counters, workdir):
         raise AssertionError("sim sync params differ from the plain engine's")
     if [r.loss_before for r in exp.history] != [r.loss_before for r in plain_hist]:
         raise AssertionError("sim sync losses differ from the plain engine's")
-    log(f"[sim sync] 2 rounds under {SIM_PROFILE}: params bit-identical to the plain engine's")
+    log(f"[sim sync] {n} rounds under {SIM_PROFILE}: params bit-identical to the plain engine's")
     del exp
 
     # 2. async, uniform fleet, buffer = C: the sync rounds
@@ -3004,7 +3112,7 @@ def phase_sim(torch, counters, workdir):
     uniform_rows = []
     _record_flushes(torch, exp.engine, uniform_rows, check=False)
     before = _launch_counts()
-    exp.run(rounds=2)
+    exp.run(rounds=n)
     torch.cuda.synchronize()
     got = _launch_delta(before)
     for row in uniform_rows:
@@ -3015,8 +3123,8 @@ def phase_sim(torch, counters, workdir):
         raise AssertionError("async (uniform, buffer C) params differ from the sync engine's")
     if got != plain_launches:
         raise AssertionError(f"async (uniform, buffer C) launches {got} != sync {plain_launches}")
-    log(f"[sim async-uniform] 2 flushes of {cfg.num_clients}: params bit-identical to the sync "
-        f"engine's 2 rounds, launches {got} equal")
+    log(f"[sim async-uniform] {n} flushes of {cfg.num_clients}: params bit-identical to the "
+        f"sync engine's {n} rounds, launches {got} equal")
     del exp
 
     # 3. FedBuff under the straggler fleet, twice: telemetry off, then on
@@ -3210,7 +3318,9 @@ def phase_mesh(torch, counters, serve_stats):
     - llm-100m, f32: one FeDLRT round (spec defaults: 4 clients, s* 4,
       simplified correction) without a mesh, then with ``spec_tree`` and
       ``client_axes=("data",)`` under client mode: the new parameters and
-      the losses bit-identical, ``xus`` / ``avt`` / ``atb`` launches equal.
+      the losses bit-identical, ``xus`` / ``avt`` / ``atb`` launches equal;
+      then both again with ``int8_affine`` on the wire: bit-identical, the
+      measured bytes equal.
     - the custom-op route the dry run traces through: host µs a call of
       ``torch.ops.repro_torch.xus`` / ``avt`` / ``atb`` on card tensors
       against the wrappers' direct calls.
@@ -3230,6 +3340,7 @@ def phase_mesh(torch, counters, serve_stats):
     from repro_torch.api.tasks import PRESETS
     from repro_torch.configs import get_config
     from repro_torch.core.fedlrt import fedlrt_round
+    from repro_torch.fed.wire import Wire
     from repro_torch.kernels.coeff_grad import atb
     from repro_torch.kernels.lowrank_matmul import avt, xus
     from repro_torch.models import build_model, sharding
@@ -3358,7 +3469,31 @@ def phase_mesh(torch, counters, serve_stats):
         if not same or not launches_equal:
             raise AssertionError(f"{tag} the llm-100m round on a 1x1 mesh differs from no mesh: "
                                  f"bits {same}, launches {got1} vs {got0}")
-        train = dict(round_s_mesh=s1, round_s=s0, launches=got1)
+        # the same round with int8 on the wire, both ways
+        n0, wm0, wgot0, _ = round_run(lparams, wire=Wire("int8_affine"))
+        sharding.set_client_mode(True)
+        try:
+            n1, wm1, wgot1, ws1 = round_run(dp, spec_tree=specs, client_axes=("data",),
+                                            wire=Wire("int8_affine"))
+        finally:
+            sharding.set_client_mode(False)
+        add(wgot1)
+        wbytes = ("wire_bytes_down_per_client", "wire_bytes_up_per_client")
+        same = _bits_equal(torch, n0, n1) and all(
+            torch.equal(wm0[k], wm1[k].to_local()) for k in ("loss_before", "loss_after"))
+        bytes_equal = all(wm0[k] == wm1[k] for k in wbytes)
+        launches_equal = all(wgot0[k] == wgot1[k] for k in ("xus", "avt", "atb"))
+        log(f"{tag} llm-100m FeDLRT round with int8_affine on the wire on the 1x1 mesh: "
+            f"bit-identical to no mesh: {same}; measured bytes down / up a client "
+            f"{wm1[wbytes[0]]} / {wm1[wbytes[1]]} (no mesh {wm0[wbytes[0]]} / "
+            f"{wm0[wbytes[1]]}); launches equal: {launches_equal}; host {ws1:.2f} s")
+        if not same or not bytes_equal or not launches_equal:
+            raise AssertionError(f"{tag} the int8 round on a 1x1 mesh differs from no mesh: "
+                                 f"bits {same}, bytes {bytes_equal}, launches {wgot1} vs "
+                                 f"{wgot0}")
+        train = dict(round_s_mesh=s1, round_s=s0, launches=got1, int8_round_s_mesh=ws1,
+                     int8_bytes={k: float(wm1[k]) for k in wbytes})
+        del n0, n1
         sharding.enable(None)
         del dp, lparams, new0, new1, lmodel
         torch.cuda.empty_cache()
@@ -3658,7 +3793,7 @@ def decode_step_sums(name, cfg, records):
 
 
 def kernel_summary(records, model_records, atb_records, flash_records, counters, cfg, atb_round,
-                   xus_round, avt_round, encdec_sums):
+                   xus_round, avt_round, encdec_sums, scan):
     """Per kernel: ``xus``/``avt`` as the sum over one Qwen2-7B decode
     step's launches (M = 4) of each measured number, with the sum over one
     decode step of each of the models phase's architectures under
@@ -3668,8 +3803,10 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
     ``atb`` as the sum over
     one llm-100m FeDLRT round's calls (M = 512, f32: ``phase_atb``'s
     ``[atb] round``); ``flash_attention``
-    as one Qwen2-7B 4096-token causal prefill (bf16). ``launches`` is the
-    count over the paths' runs; the worst error is over every checked case."""
+    as one Qwen2-7B 4096-token causal prefill (bf16); ``selective_scan`` as
+    one full-width Jamba Mamba mixer's scan over 2 x 1,100 tokens (``scan``,
+    the Mamba check's record). ``launches`` is the count over the paths'
+    runs; the worst error is over every checked case."""
 
     def launches(name):
         return {"launches": sum(counters[p][name] for p in PATHS),
@@ -3724,6 +3861,15 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
         "bound_by": pre["bound_by"], "library_ms": pre["library_ms"],
         "unit": "one Qwen2-7B 4096-token causal prefill (bf16)",
     })
+    B, T, D, N = scan["shape"]
+    out.append({
+        "name": "selective_scan", "route": "cuda", "source": SOURCES["selective_scan"],
+        "replaces": REPLACES["selective_scan"], **launches("selective_scan"),
+        "max_abs_err": scan["max_abs_err"], "ms": scan["ms"], "plain_ms": scan["plain_ms"],
+        "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"], "library_ms": None,
+        "unit": f"one Jamba-1.5-Large Mamba mixer's state scan over {B} x {T} tokens (d_inner "
+                f"{D}, N {N}, bf16 state)",
+    })
     return out
 
 
@@ -3764,6 +3910,8 @@ def main() -> int:
     quant_stats = phase_serve_quant(torch, counters, serve_stats, bf16_tokens)
     done("serve-quant")
     model_records, model_stats = phase_models(torch, counters, records)
+    if not counters["models"]["selective_scan"]:
+        raise AssertionError(f"the models path launched no selective_scan: {counters['models']}")
     done("models")
     ev_records, ev_stats, ev_sums = phase_encdec_vlm(torch, counters, records + model_records)
     model_records += ev_records
@@ -3797,7 +3945,7 @@ def main() -> int:
                                    "avt_train": avt_train}))
     print(json.dumps({"kernels": kernel_summary(
         records, model_records, atb_records, flash_records, counters, cfg, atb_round, xus_round,
-        avt_round, ev_sums)}))
+        avt_round, ev_sums, model_stats["jamba mamba scan"]["kernel"])}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -3,9 +3,9 @@
 The ids are the JAX package's (``repro.configs``), and each has a
 ``<arch>.py`` module exposing ``CONFIG`` with the exact published
 dimensions (source cited in the module docstring), copied from the JAX
-package. Building the model of a family or mixer the port does not run
-yet raises ``NotImplementedError`` naming ROADMAP.md, where the remaining
-work is queued (``repro_torch.models.build_model``).
+package. ``repro_torch.models.build_model`` builds every family here (the
+decoder-only transformers, MoE, the Mamba and RWKV mixers, the
+encoder-decoder and the vision-language model).
 """
 from __future__ import annotations
 

@@ -145,6 +145,9 @@ class RoundContext:
     client_axes: Any = None
     #: under a mesh: the max over the cohort of a per-client scalar
     reduce_max: Optional[Callable[[Cohort], Any]] = None
+    #: under a mesh: a count the rank measured over its own clients, summed
+    #: over the client axes (the wire's bytes of the per-client payloads)
+    sum_clients: Optional[Callable[[Any], Any]] = None
 
 
 #: key under which ``broadcast`` stashes server-local state. Everything else
@@ -327,9 +330,21 @@ def _mesh_context(cfg, round_idx, client_weights, spec_tree, client_axes) -> Rou
     def reduce_max(cohort: Cohort):
         return across(torch.max(torch.stack([meshctx.as_dtensor(x, mesh) for x in cohort])), "max")
 
+    def sum_clients(count):
+        """A python int summed exactly (in int64); a ``numpy.float32`` (the
+        ``topk_rank`` bytes, which follow each client's ranks) in f32."""
+        wide = isinstance(count, np.floating)
+        t = torch.tensor(count, dtype=torch.float32 if wide else torch.int64,
+                         device=mesh.device_type)
+        # repro-lint: disable=RPL004 -- the wire's byte counts are host
+        # numbers in the round's metrics: one read a payload, after the round
+        total = across(t, "sum").to_local().item()
+        return np.float32(total) if wide else int(total)
+
     return RoundContext(cfg=cfg, round_idx=int(round_idx), aggregate=aggregate, vmap_c=vmap,
                         client_weights=client_weights, spec_tree=spec_tree,
-                        client_axes=client_axes, reduce_max=reduce_max)
+                        client_axes=client_axes, reduce_max=reduce_max,
+                        sum_clients=sum_clients)
 
 
 def run_client_phases(program: RoundProgram, loss_fn: LossFn, params, client_batches,
@@ -373,15 +388,15 @@ def run_round(program: RoundProgram, loss_fn: LossFn, params, client_batches, cf
 
     ``spec_tree`` (the parameters' specs) keeps the augmented and truncated
     factors on their layout under a mesh; ``client_axes`` names the mesh
-    axes of the client dim (see :func:`make_context`). A wire under a mesh
-    is not supported.
+    axes of the client dim (see :func:`make_context`). Under a mesh the
+    codecs see each tensor whole (DTensor reductions: int8's range, the
+    ranks), and each rank measures the per-client payloads of its own
+    clients, summed over the client axes before the per-client bytes.
     """
     if spec_tree is not None or client_axes:
-        if wire is not None:
-            raise ValueError("a wire codec under a mesh is not supported")
         with meshctx.implicit_replication():
             return _run_round(program, loss_fn, params, client_batches, cfg, round_idx,
-                              client_weights, None, spec_tree, client_axes)
+                              client_weights, wire, spec_tree, client_axes)
     return _run_round(program, loss_fn, params, client_batches, cfg, round_idx,
                       client_weights, wire, None, None)
 
@@ -396,6 +411,8 @@ def _run_round(program, loss_fn, params, client_batches, cfg, round_idx, client_
     agg = program.aggregate(shared, client_out, ctx)
     new_params, metrics = program.finalize(loss_fn, params, shared, agg, client_batches, ctx)
     if wire is not None:
+        if ctx.sum_clients is not None:  # each rank measured its own clients
+            bytes_pc, bytes_up = ctx.sum_clients(bytes_pc), ctx.sum_clients(bytes_up)
         metrics = dict(metrics)
         metrics["wire_bytes_down_per_client"] = _per_client_bytes(
             bytes_shared, bytes_pc, cfg.num_clients

@@ -34,6 +34,13 @@ verbatim. ``nbytes`` is a python int, except under ``topk_rank`` where it
 follows the ranks: a ``numpy.float32``, summed in f32 as the JAX package
 sums it inside its jitted round. The codecs are plain tensor code (the JAX
 package has no kernel here).
+
+Under a mesh the leaves are DTensors: ``numel`` counts the global tensor,
+int8's range is a DTensor reduction over every shard, and a factor's rank
+is read whole, so a payload encodes, decodes and measures as the unsharded
+one does. A batched payload there holds the rank's own clients; the round
+sums their bytes over the client axes
+(:func:`repro_torch.core.round.run_round`).
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ from typing import Any, Protocol, Union, runtime_checkable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.factorization import (
     AugmentedFactor,
@@ -290,7 +298,8 @@ class TopKRankCodec:
             active = np.float32(0)
             ranks = 0
             for f in leaves:
-                cols = f.rank.float().cpu().numpy().astype(np.float32)
+                rank = f.rank.full_tensor() if isinstance(f.rank, DTensor) else f.rank
+                cols = rank.float().cpu().numpy().astype(np.float32)
                 if isinstance(f, AugmentedFactor):
                     cols = np.float32(2.0) * cols  # active directions
                 per_slice = np.float32(f.U.shape[-2] + f.V.shape[-2]) * cols + cols * cols

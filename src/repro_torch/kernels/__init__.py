@@ -1,5 +1,6 @@
-"""Hand-written Hopper kernels for the low-rank chain and for flash attention,
-their plain PyTorch versions, and the model-level dispatch (see
+"""Hand-written Hopper kernels for the low-rank chain, for flash attention and
+for Mamba's state recurrence (the selective scan), their plain PyTorch
+versions, and the model-level dispatch (see
 :mod:`repro_torch.kernels.ops`).
 """
 from repro_torch.kernels.coeff_grad import atb  # noqa: F401
@@ -12,3 +13,4 @@ from repro_torch.kernels.ops import (  # noqa: F401
     lowrank_apply_nd,
     use_kernels_for,
 )
+from repro_torch.kernels.selective_scan import selective_scan  # noqa: F401

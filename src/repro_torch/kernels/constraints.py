@@ -1,4 +1,5 @@
-"""The operand contract of the Hopper kernels ``xus``, ``avt`` and ``atb``.
+"""The operand contract of the Hopper kernels ``xus``, ``avt``, ``atb`` and
+``selective_scan``.
 
 One table, read twice: the wrappers
 (:mod:`repro_torch.kernels.lowrank_matmul`,
@@ -20,6 +21,10 @@ sublane multiple. What a call must meet:
   (:func:`check_xus_dtypes`, :func:`check_pair_dtypes`);
 - the shapes agree (:func:`check_xus_shapes`, :func:`check_avt_shapes`,
   :func:`check_atb_shapes`);
+- ``selective_scan``: every operand float32, the state's working dtype
+  one of :data:`DTYPE_CODES`, the shapes of Mamba's recurrence with a state
+  size of at most :data:`SCAN_N_MAX` and a batch within the grid's y
+  limit (:func:`check_selective_scan`);
 - the launch grid fits the card's limits, :data:`GRID_X_MAX` ×
   :data:`GRID_YZ_MAX` × :data:`GRID_YZ_MAX` (:func:`grid_fits`), and a
   call's ticket counters fit a slot of :data:`COUNTER_INTS`: the plans
@@ -42,6 +47,8 @@ STACK_DIMS = (2, 3)
 #: CUDA grid limits (x, and y / z)
 GRID_X_MAX = 2**31 - 1
 GRID_YZ_MAX = 65535
+#: ``selective_scan``: a channel's states are lanes of one warp
+SCAN_N_MAX = 32
 #: ticket counters one call may use (a slot of the pool): a stream route
 #: ``xus`` call takes G · (column tiles + 1), a tiled one with K splits one
 #: a tile a pass, an ``atb`` call with M splits one a tile
@@ -118,3 +125,27 @@ def check_atb_shapes(A, B) -> None:
 def grid_fits(x: int, y: int = 1, z: int = 1) -> bool:
     """A launch grid of ``x × y × z`` blocks fits the card's limits."""
     return x <= GRID_X_MAX and y <= GRID_YZ_MAX and z <= GRID_YZ_MAX
+
+
+def check_selective_scan(delta, x, Bp, Cp, A, h0, dtypes, scan_dt) -> None:
+    """delta, x: (B, T, D); Bp, Cp: (B, T, N); A: (D, N); h0: (B, D, N)
+    (shapes), every operand float32 (``dtypes``), ``scan_dt`` a dtype the
+    kernel takes; T ≥ 1, 1 ≤ N ≤ :data:`SCAN_N_MAX`, B within
+    :data:`GRID_YZ_MAX` (the grid's y)."""
+    shapes = [tuple(t) for t in (delta, x, Bp, Cp, A, h0)]
+    if len(shapes[0]) != 3:
+        raise ValueError(f"selective_scan: delta must be (B, T, D), got {shapes[0]}")
+    B, T, D = shapes[0]
+    N = shapes[2][-1] if len(shapes[2]) == 3 else -1
+    want = [(B, T, D), (B, T, D), (B, T, N), (B, T, N), (D, N), (B, D, N)]
+    if shapes != want:
+        raise ValueError(f"selective_scan shapes disagree: delta, x, Bp, Cp, A, h0 {shapes}")
+    if T < 1 or not 1 <= N <= SCAN_N_MAX or not grid_fits(1, B):
+        raise ValueError(f"selective_scan: T {T}, N {N}, B {B}: T must be at least 1, N in "
+                         f"1..{SCAN_N_MAX}, B at most {GRID_YZ_MAX}")
+    names = [dtype_name(d) for d in dtypes]
+    if any(n != "float32" for n in names):
+        raise TypeError(f"selective_scan: operands must be float32, got {names}")
+    if dtype_name(scan_dt) not in DTYPE_CODES:
+        raise TypeError(f"selective_scan: state dtype {scan_dt} not supported (float32 or "
+                        f"bfloat16)")

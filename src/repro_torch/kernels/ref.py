@@ -2,10 +2,11 @@
 
 They follow the kernels' numerics, which are the TPU kernels' numerics:
 f32 accumulation, ``S`` applied in f32 to the f32 ``x U``, one rounding to
-the working type at the output. The wrappers in
-:mod:`repro_torch.kernels.lowrank_matmul` use them for CPU tensors, the
-tests compare them with the JAX package, and ``chip_smoke.py`` holds each
-kernel to its plain version on the card. Leading batch dims broadcast.
+the working type at the output (the selective scan's are the JAX
+package's ``lax.scan`` in ``mamba_mix``). The kernel wrappers use them for
+CPU tensors, the tests compare them with the JAX package, and
+``chip_smoke.py`` holds each kernel to its plain version on the card.
+Leading batch dims broadcast.
 """
 from __future__ import annotations
 
@@ -38,6 +39,26 @@ def atb_ref(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     With A = x Ũ and B = dy Ṽ this is the coefficient gradient
     ``∇_S̃ L = Ũᵀ (xᵀ dy) Ṽ``, the hot op of the client loop's backward."""
     return (A.float().transpose(-1, -2) @ B.float()).to(A.dtype)
+
+
+def selective_scan_ref(delta, x, Bp, Cp, A, h0, scan_dt):
+    """Mamba's state recurrence from a given state, token by token (the JAX
+    package's sequential ``lax.scan`` in ``mamba_mix``'s state branch).
+
+    delta, x: (B, T, d_inner) f32; Bp, Cp: (B, T, N) f32; A: (d_inner, N)
+    f32; h0: (B, d_inner, N); ``scan_dt`` the state's working dtype. Each
+    step rounds ``a_t = exp(delta_t A)`` and ``b_t = (delta_t x_t) ⊗ B_t``
+    to ``scan_dt`` and takes ``h = b_t + a_t h`` in ``scan_dt`` (from
+    ``h0`` rounded to it); ``y_t = Σ_n h C_t`` in f32. Returns ``(y: (B, T,
+    d_inner) f32, h_T: (B, d_inner, N) f32)``."""
+    h = h0.to(scan_dt)
+    ys = []
+    for t in range(delta.shape[1]):
+        a = torch.exp(delta[:, t, :, None] * A).to(scan_dt)
+        b = ((delta[:, t] * x[:, t])[..., None] * Bp[:, t, None, :]).to(scan_dt)
+        h = torch.addcmul(b, a, h)
+        ys.append(torch.sum(h.float() * Cp[:, t, None, :], dim=-1))
+    return torch.stack(ys, dim=1), h.float()
 
 
 def mha_ref(q, k, v, *, q_positions, kv_positions, causal=True, sliding_window=0):

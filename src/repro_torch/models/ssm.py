@@ -7,18 +7,23 @@ x and dt projections; RWKV's r / k / v / g / out) go through
 ``avt`` kernel on the card; the recurrence parameters (A, the conv taps,
 the decay LoRA, the bonus u) are small dense tensors.
 
-The JAX package computes both recurrences in XLA, not in a Pallas kernel,
-so the port writes them in plain PyTorch:
+The JAX package computes both recurrences in XLA, not in a Pallas kernel.
+The port writes them so:
 
-- Mamba: the diagonal recurrence ``h_t = a_t ⊙ h_{t-1} + b_t`` as a
-  log-depth doubling scan (:func:`linear_recurrence`, where the JAX
-  package takes ``associative_scan``), time-chunked at
-  ``cfg.mamba.scan_chunk``, from zeros (training) or from a given state
-  (the serving prefill); one step at T = 1 (decode). The reference steps
-  a given state token by token (``lax.scan``): the port's scan adds in
-  another order, equal in f32 to rounding and within a bf16 tolerance in
-  bf16 (``_stepped_recurrence`` is the token-by-token order, for the
-  checks that hold the scan to it).
+- Mamba with a state (the serving prefill and every decode step): the
+  reference's sequential ``lax.scan`` from the given state, at any T, as one
+  call of the Hopper selective-scan kernel
+  (:func:`repro_torch.kernels.selective_scan.selective_scan`: token by
+  token, the state in registers, ``y_t = Σ_n h_t C_t`` fused in; its plain
+  version on CPU tensors, its custom op on fake ones), so every step sums
+  in the reference's order: the recurrence over T tokens is the recurrence
+  over the first few and then the rest a token at a time, bit for bit.
+- Mamba without a state (training): the diagonal recurrence
+  ``h_t = a_t ⊙ h_{t-1} + b_t`` from zeros as a log-depth doubling scan in
+  plain PyTorch (:func:`linear_recurrence`, where the JAX package takes
+  ``associative_scan``, also parallel), time-chunked at
+  ``cfg.mamba.scan_chunk``, with the reference's reverse-recurrence
+  backward.
 - RWKV6: chunked linear attention (per-chunk quadratic mixing, a loop over
   the chunk states), in f32 whatever the compute dtype.
 
@@ -27,7 +32,9 @@ The dtypes are the JAX package's: the scan workspace is the compute dtype
 and the whole wkv are f32.
 
 Under a mesh RWKV's wkv and decay LoRA run on each rank's rows and heads
-(:func:`_sharded_wkv`, :func:`repro_torch.kernels.ops.rowwise_local`).
+(:func:`_sharded_wkv`, :func:`repro_torch.kernels.ops.rowwise_local`), and
+Mamba's scans on each rank's rows and channels (:func:`_sharded_recurrence`,
+:func:`_sharded_selective_scan`).
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.ops import _from_local, _local, rowwise_local
+from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Builder, apply_linear, rms_norm
@@ -121,16 +129,31 @@ def _sharded_recurrence(a, b, h0):
                                  for i, p in enumerate(pa)], tuple(a.shape))
 
 
-def _stepped_recurrence(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
-    """:func:`linear_recurrence` token by token, in the reference's
-    sequential order (its ``lax.scan``): what the scan is held to, by the
-    checks that put it in :func:`linear_recurrence`'s place (it costs T
-    steps a layer)."""
-    h, hs = h0, []
-    for t in range(a.shape[1]):
-        h = torch.addcmul(b[:, t], a[:, t], h)
-        hs.append(h)
-    return torch.stack(hs, dim=1)
+def _sharded_selective_scan(delta, x, Bp, Cp, A, h0, scan_dt):
+    """:func:`selective_scan` on DTensors, each rank on its shards: the
+    batch split (every operand but ``A`` on its rows) and the channel split
+    (delta and x on their last dim, ``A`` and ``h0`` on their channels) are
+    kept, with ``Bp`` and ``Cp`` whole on a channel split; a split of T is
+    gathered (the recurrence runs along all of it)."""
+    mesh = delta.device_mesh
+    x, Bp, Cp, A, h0 = (meshctx.as_dtensor(t, mesh) for t in (x, Bp, Cp, A, h0))
+    rep = Replicate()
+    pd, pb, pa, ph = [], [], [], []
+    for i, p in enumerate(delta.placements):
+        if mesh.size(i) == 1:
+            pd.append(rep), pb.append(rep), pa.append(rep), ph.append(rep)
+        elif isinstance(p, Shard) and p.dim == 0:  # the batch
+            pd.append(p), pb.append(p), pa.append(rep), ph.append(Shard(0))
+        elif isinstance(p, Shard) and p.dim == 2:  # the channels
+            pd.append(p), pb.append(rep), pa.append(Shard(0)), ph.append(Shard(1))
+        else:
+            pd.append(rep), pb.append(rep), pa.append(rep), ph.append(rep)
+    none = [None] * mesh.ndim
+    y, hT = selective_scan(*(_local(t, mesh, pl, none).contiguous() for t, pl in
+                             ((delta, pd), (x, pd), (Bp, pb), (Cp, pb), (A, pa), (h0, ph))),
+                           scan_dt)
+    return (_from_local(y, mesh, pd, tuple(delta.shape)),
+            _from_local(hT, mesh, ph, tuple(h0.shape)))
 
 
 def mamba_dims(cfg: ModelConfig):
@@ -189,10 +212,12 @@ def mamba_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     ``F.softplus`` returns its input above 20, where ``jax.nn.softplus``
     computes ``log1p(exp(x))``: the two agree to f32 rounding there.
-    At T > 1 the scan runs in chunks of ``cfg.mamba.scan_chunk`` steps
-    (zero-padded at the end), carrying ``h`` from chunk to chunk, from
-    zeros or from ``state["h"]``, so its (B, chunk, d_inner, N) workspace
-    exists one chunk at a time; at T = 1 with a state it takes one step.
+    With a state the recurrence is one :func:`selective_scan` call from
+    ``state["h"]``, token by token as in the reference, at every T.
+    Without one (training) the doubling scan runs in chunks of
+    ``cfg.mamba.scan_chunk`` steps (zero-padded at the end) from zeros,
+    carrying ``h`` from chunk to chunk, so its (B, chunk, d_inner, N)
+    workspace exists one chunk at a time.
     """
     d_inner, dt_rank, d_state, _ = mamba_dims(cfg)
     dt = x.dtype
@@ -217,13 +242,13 @@ def mamba_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     scan_dt = dt  # the compute dtype: bf16 at full width, f32 reduced
     B, T = xc.shape[0], xc.shape[1]
 
-    if state is not None and T == 1:
-        # decode: one step from the given state
-        a = torch.exp(delta[..., None] * A).to(scan_dt)
-        b_in = ((delta * xc32)[..., None] * Bp[..., None, :]).to(scan_dt)
-        h = torch.addcmul(b_in[:, 0], a[:, 0], state["h"].to(scan_dt))
-        new_state = {"h": h.float(), "conv": new_tail}
-        y = torch.sum(h[:, None].float() * Cp[..., None, :], dim=-1)
+    if state is not None:
+        # the reference's sequential order from the given state, at any T:
+        # one selective-scan call (the decode step's T = 1 included)
+        scan = _sharded_selective_scan if isinstance(delta, DTensor) else selective_scan
+        y, h = scan(delta, xc32, Bp.contiguous(), Cp.contiguous(), A.contiguous(),
+                    state["h"].float(), scan_dt)
+        new_state = {"h": h, "conv": new_tail}
     else:
         Lc = min(cfg.mamba.scan_chunk, T)
         nc = -(-T // Lc)
@@ -234,10 +259,7 @@ def mamba_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 t = torch.cat([t, t.new_zeros((B, pad) + t.shape[2:])], dim=1)
             return t.split(Lc, dim=1)
 
-        if state is None:
-            h = torch.zeros((B, d_inner, d_state), dtype=scan_dt, device=x.device)
-        else:
-            h = state["h"].to(scan_dt)
+        h = torch.zeros((B, d_inner, d_state), dtype=scan_dt, device=x.device)
         ys = []
         for d_c, dx_c, B_c, C_c in zip(*map(chunks, (delta, delta * xc32, Bp, Cp))):
             a_c = torch.exp(d_c[..., None] * A).to(scan_dt)
@@ -246,9 +268,7 @@ def mamba_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             ys.append(torch.sum(h_c.float() * C_c[..., None, :], dim=-1))
             h = h_c[:, -1]
         y = torch.cat(ys, dim=1)[:, :T]
-        # h at the true last step, not past the last chunk's zero padding
-        new_state = None if state is None else {"h": h_c[:, Lc - 1 - pad].float(),
-                                                "conv": new_tail}
+        new_state = None
 
     y = y + p["D"].float() * xc32
     y = y.to(dt) * F.silu(z)

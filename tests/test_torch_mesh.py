@@ -18,6 +18,18 @@ tokens a client) give every basis-gradient block its full rank: the
 complement of a rank-deficient block is any basis of the missing
 directions (the JAX package's ``_ortho_complement_cholqr2``), so two
 summation orders may pick different ones.
+
+The wire under the mesh (Qwen2-7B only, in the same spawn): the round under
+the identity codec bit-identical to the round without a wire; under
+identity and ``int8_affine`` the measured ``wire_bytes_{down,up}_per_client``
+equal, exactly, to the port's unsharded round's and to the JAX package's
+unsharded ``fedlrt_round(..., wire=...)``; the int8 round against the
+port's unsharded int8 round with the round's tolerances above, and against
+the JAX package's int8 round with the same ranks and losses and each
+``U S Vᵀ`` within one int8 step of a client's payload averaged over the
+cohort (:data:`INT8_STEP_RTOL`): the two frameworks round an int8 code
+differently at a tie (``tests/test_torch_wire.py``), which the port's
+unsharded int8 round shows against the JAX package's as well.
 """
 import dataclasses
 import json
@@ -35,6 +47,7 @@ from repro.configs import get_config as jax_get_config
 from repro.core import FedConfig as JaxFedConfig
 from repro.core.factorization import is_factor as jax_is_factor
 from repro.core.fedlrt import fedlrt_round as jax_fedlrt_round
+from repro.fed import wire as jax_wire
 from repro.models import build_model as jax_build_model
 from repro.models.config import reduced as jax_reduced
 from torch_threads import one_intra_op_thread  # noqa: F401
@@ -42,6 +55,13 @@ from torch_threads import one_intra_op_thread  # noqa: F401
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CASES = {"qwen2-7b": {"num_kv_heads": 2}, "olmoe-1b-7b": {}}
 STEPS = 3
+#: the architecture whose round also runs under each wire codec
+WIRE_ARCH, WIRE_CODECS = "qwen2-7b", ("identity", "int8_affine")
+BYTES = ("wire_bytes_down_per_client", "wire_bytes_up_per_client")
+#: an int8 code ±1 moves a decoded entry by (hi − lo)/255 of its tensor, up
+#: to 2/255 of its largest entry, and the aggregate averages it over the 4
+#: clients
+INT8_STEP_RTOL = 2 / (255 * 4)
 
 
 def _inputs(arch: str, overrides: dict, d):
@@ -55,13 +75,21 @@ def _inputs(arch: str, overrides: dict, d):
                 prompt=rng.integers(1, V, (4, 12)).astype(np.int32),
                 round=rng.integers(1, V, (4, 4, 33)).astype(np.int32))
     arrays = {"p:" + k: np.asarray(v) for k, v in _flatten(jparams).items()}
-    meta = {"overrides": overrides, "cache_len": 16, "steps": STEPS}
+    meta = {"overrides": overrides, "cache_len": 16, "steps": STEPS,
+            "wire_codecs": list(WIRE_CODECS) if arch == WIRE_ARCH else []}
     np.savez(os.path.join(d, "in.npz"), __meta__=np.frombuffer(json.dumps(meta).encode(), np.uint8),
              **data, **arrays)
-    return jm, jparams, data
+    return jm, jparams, data, meta
 
 
-def _reference(jm, jparams, data):
+def _round_factors(new):
+    return {jax.tree_util.keystr(path): (np.asarray(f.U @ f.S @ jnp.swapaxes(f.V, -1, -2)),
+                                         np.asarray(f.rank))
+            for path, f in jax.tree_util.tree_flatten_with_path(new, is_leaf=jax_is_factor)[0]
+            if jax_is_factor(f)}
+
+
+def _reference(jm, jparams, data, meta):
     want = {"loss": float(jm.loss_fn(jparams, {"tokens": jnp.asarray(data["tokens"])}))}
     logits, cache = jax.jit(lambda p, b: jm.serve_prefill(p, b, cache_len=16))(
         jparams, {"tokens": jnp.asarray(data["prompt"])})
@@ -85,11 +113,13 @@ def _reference(jm, jparams, data):
         jparams, {"tokens": jnp.asarray(data["round"])})
     want["loss_before"] = float(metrics["loss_before"])
     want["loss_after"] = float(metrics["loss_after"])
-    want["factors"] = {}
-    for path, f in jax.tree_util.tree_flatten_with_path(new, is_leaf=jax_is_factor)[0]:
-        if jax_is_factor(f):
-            want["factors"][jax.tree_util.keystr(path)] = (
-                np.asarray(f.U @ f.S @ jnp.swapaxes(f.V, -1, -2)), np.asarray(f.rank))
+    want["factors"] = _round_factors(new)
+    for codec in meta["wire_codecs"]:
+        new, metrics = jax.jit(lambda p, b, c=codec: jax_fedlrt_round(
+            jm.loss_fn, p, b, fc, wire=jax_wire.Wire(c)))(
+            jparams, {"tokens": jnp.asarray(data["round"])})
+        want[codec] = {k: float(metrics[k]) for k in ("loss_before", "loss_after", *BYTES)}
+        want[codec]["factors"] = _round_factors(new)
     return want
 
 
@@ -97,14 +127,14 @@ def _reference(jm, jparams, data):
 def sharded(request, tmp_path_factory):
     arch = request.param
     d = str(tmp_path_factory.mktemp(arch))
-    jm, jparams, data = _inputs(arch, CASES[arch], d)
+    jm, jparams, data, meta = _inputs(arch, CASES[arch], d)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     # the port's four ranks run while the JAX package computes its side
     worker = subprocess.Popen([sys.executable, os.path.join(ROOT, "tests", "torch_mesh_worker.py"),
                                d, arch], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True, env=env)
     try:
-        want = _reference(jm, jparams, data)
+        want = _reference(jm, jparams, data, meta)
         _, err = worker.communicate(timeout=600)
     finally:
         if worker.poll() is None:
@@ -144,3 +174,48 @@ def test_sharded_fedlrt_round_matches(sharded):
         np.testing.assert_array_equal(got["rank" + path], rank)
         err = np.abs(got["usv" + path] - usv).max() / np.abs(usv).max()
         assert err <= 1e-4, (path, err)
+
+
+def _wire_bytes_match(want, got, codec):
+    for k in BYTES:
+        assert float(got[f"{codec}:{k}"]) == float(got[f"{codec}:unsharded:{k}"]) == \
+            want[codec][k], (codec, k)
+
+
+@pytest.mark.parametrize("sharded", [WIRE_ARCH], indirect=True)
+def test_sharded_round_under_the_identity_wire_is_the_round_without_one(sharded):
+    want, got = sharded
+    assert bool(got["identity:same_bits"])
+    _wire_bytes_match(want, got, "identity")
+
+
+def _round_close(got, want, usv_rtol):
+    """The int8 round's ranks equal to ``want``'s, losses within 1e-5 / 1e-4
+    relative and each factor's ``U S Vᵀ`` within ``usv_rtol`` of its
+    largest entry."""
+    for k, rtol in (("loss_before", 1e-5), ("loss_after", 1e-4)):
+        assert abs(float(got["int8_affine:" + k]) - want[k]) <= rtol * abs(want[k]), k
+    assert len(want["factors"]) > 0
+    for path, (usv, rank) in want["factors"].items():
+        np.testing.assert_array_equal(got["int8_affine:rank" + path], rank)
+        err = np.abs(got["int8_affine:usv" + path] - usv).max() / np.abs(usv).max()
+        assert err <= usv_rtol, (path, err)
+
+
+@pytest.mark.parametrize("sharded", [WIRE_ARCH], indirect=True)
+def test_sharded_round_under_int8_matches_the_unsharded_round(sharded):
+    """int8 on the wire under the mesh: each tensor's range taken over all
+    its shards, so the payloads decode as the port's unsharded round's do."""
+    _, got = sharded
+    pre = "int8_affine:unsharded:"
+    want = {k: float(got[pre + k]) for k in ("loss_before", "loss_after")}
+    want["factors"] = {k[len(pre) + 3:]: (got[k], got[pre + "rank" + k[len(pre) + 3:]])
+                       for k in got if k.startswith(pre + "usv")}
+    _round_close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("sharded", [WIRE_ARCH], indirect=True)
+def test_sharded_round_under_int8_matches_the_reference(sharded):
+    want, got = sharded
+    _wire_bytes_match(want, got, "int8_affine")
+    _round_close(got, want["int8_affine"], INT8_STEP_RTOL)

@@ -8,7 +8,11 @@ batches; the config overrides as JSON) and writes ``DIR/out.npz`` from rank
 0: the sharded loss, the prefill and greedy-decode logits (of 4 rows, and
 of one row: its cache split on the sequence), and a FeDLRT
 round with ``spec_tree`` / ``client_axes`` (each factor's ``U S Vᵀ`` and
-rank, the round's losses).
+rank, the round's losses). Where the meta names ``wire_codecs``, the same
+round again under each codec on the mesh (its losses, factors and measured
+bytes, and whether it is bit-identical to the round without a wire), and
+the port's unsharded round under each (its measured bytes, losses and
+factors).
 """
 import dataclasses
 import json
@@ -18,10 +22,39 @@ import sys
 import numpy as np
 
 
+#: the measured bytes of a round under a wire
+BYTES = ("wire_bytes_down_per_client", "wire_bytes_up_per_client")
+
+
 def _whole(t):
     from torch.distributed.tensor import DTensor
 
     return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _record(out: dict, prefix: str, new, metrics) -> None:
+    """A round's losses, measured bytes (under a wire) and each factor's
+    ``U S Vᵀ`` and rank, whole, into ``out`` under ``prefix``."""
+    from repro_torch.core.factorization import is_factor
+    from repro_torch.utils.tree import tree_map_with_path
+
+    for k in ("loss_before", "loss_after") + tuple(k for k in BYTES if k in metrics):
+        out[prefix + k] = np.asarray(_whole(metrics[k]))
+
+    def factor(path, f):
+        if is_factor(f):
+            U, S, V = _whole(f.U), _whole(f.S), _whole(f.V)
+            out[prefix + "usv" + path] = (U @ S @ V.transpose(-1, -2)).numpy()
+            out[prefix + "rank" + path] = _whole(f.rank).numpy()
+        return f
+
+    tree_map_with_path(factor, new, is_leaf=is_factor)
 
 
 def run(rank: int, world: int, d: str, arch: str) -> None:
@@ -44,12 +77,12 @@ def _work(rank: int, d: str, arch: str) -> None:
     from repro_torch.checkpoint import params_from_numpy
     from repro_torch.configs import get_config
     from repro_torch.core import FedConfig
-    from repro_torch.core.factorization import is_factor
     from repro_torch.core.fedlrt import fedlrt_round
+    from repro_torch.fed.wire import Wire
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import build_model, reduced, sharding
     from repro_torch.utils import meshctx
-    from repro_torch.utils.tree import tree_map_with_path
+    from repro_torch.utils.tree import tree_leaves
 
     data = np.load(os.path.join(d, "in.npz"))
     meta = json.loads(bytes(data["__meta__"]).decode())
@@ -92,22 +125,29 @@ def _work(rank: int, d: str, arch: str) -> None:
 
         sharding.set_client_mode(True)
         fc = FedConfig(num_clients=4, s_star=2, lr=1e-2, tau=0.01)
-        new, metrics = fedlrt_round(model.loss_fn, dp, {"tokens": torch.from_numpy(data["round"])},
-                                    fc, spec_tree=specs, client_axes=("data",))
-        for k in ("loss_before", "loss_after"):
-            out[k] = _whole(metrics[k]).numpy()
+        batch = {"tokens": torch.from_numpy(data["round"])}
+        new, metrics = fedlrt_round(model.loss_fn, dp, batch, fc, spec_tree=specs,
+                                    client_axes=("data",))
+        _record(out, "", new, metrics)
 
-        def factor(path, f):
-            if is_factor(f):
-                U, S, V = _whole(f.U), _whole(f.S), _whole(f.V)
-                out["usv" + path] = (U @ S @ V.transpose(-1, -2)).numpy()
-                out["rank" + path] = _whole(f.rank).numpy()
-            return f
+        def same_bits(a, b):
+            la, lb = tree_leaves(a), tree_leaves(b)
+            return len(la) == len(lb) and all(
+                torch.equal(_local(x), _local(y)) for x, y in zip(la, lb) if torch.is_tensor(x))
 
-        tree_map_with_path(factor, new, is_leaf=is_factor)
+        for codec in meta.get("wire_codecs", ()):
+            wnew, wm = fedlrt_round(model.loss_fn, dp, batch, fc, spec_tree=specs,
+                                    client_axes=("data",), wire=Wire(codec))
+            out[codec + ":same_bits"] = np.asarray(
+                same_bits(new, wnew) and all(torch.equal(_local(metrics[k]), _local(wm[k]))
+                                             for k in ("loss_before", "loss_after")))
+            _record(out, codec + ":", wnew, wm)
     finally:
         sharding.set_client_mode(False)
         sharding.enable(None)
+    for codec in meta.get("wire_codecs", ()):  # the port without a mesh
+        _record(out, codec + ":unsharded:", *fedlrt_round(model.loss_fn, params, batch, fc,
+                                                         wire=Wire(codec)))
     if rank == 0:
         np.savez(os.path.join(d, "out.npz"), **out)
 
