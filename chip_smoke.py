@@ -38,7 +38,8 @@ per source, all started together) and drives each of the port's paths:
   against the plan, tok/s, p50/p99, decode step host and device ms, a
   repeated step and prefill bit-identical, the MoE capacity drops per
   step; then their new ``xus`` / ``avt`` shapes (the experts' G = 64 and
-  G = 16 stacks included) against the plain versions; OLMoE-1B-7B in f32,
+  G = 16 stacks included) against the plain versions, timed at a decode
+  step's rows, untimed at the others; OLMoE-1B-7B in f32,
   kernel path against plain path: logits, and every layer's expert
   choices; RWKV6-7B in f32 the same: logits and greedy tokens; the
   recurrent models' 37-token prefill, host and device time; Jamba's
@@ -60,6 +61,21 @@ per source, all started together) and drives each of the port's paths:
   kernel run) and the kernel round again (held to be bit-identical), its
   truncations' coefficients held to an f64 SVD under both cuSOLVER
   drivers;
+- train-qwen2: the token stream's rows route held token-equal to the dense
+  route at vocabulary 8192 on this host's numpy; two FeDLRT rounds of
+  Qwen2-7B at full width and depth in bf16 (f32 bases, vocabulary
+  152,064, r_max 256) through ``build(spec).run()`` on 4 x 4,096 tokens,
+  with the launches, the losses, the inactive columns, the ranks and the
+  measured wire bytes held (``cost_model.wire_round_bytes``),
+  peak memory, host s a round and the data's host s; one more round under
+  ``torch.profiler`` (device busy share, kernels by device time); at full
+  width and 2 layers one round with kernels on, its every call held to the
+  per-shape counts by dtype, against one with kernels off (each factor's
+  ``U S Vᵀ`` within 2⁻⁷ of its largest entry and 1/8 of the round's own
+  change of it); every bf16 ``xus`` (S in bf16, or in f32 as the
+  backward gives it) / ``avt`` shape of the round against its plain
+  version, timed, and the
+  sums over one full-depth round (``atb``'s from the atb phase's records);
 - flash: ``repro_torch.kernels.flash_attention`` at four attention shapes
   (Qwen2-7B prefill and decode against a cache, Mistral-7B's sliding
   window, an f32 case), each held to ``flash_attention_ref``, with its time
@@ -80,8 +96,9 @@ per source, all started together) and drives each of the port's paths:
   checkpoint (the ``serve.tokens`` counter held to the tokens produced),
   and again rank-sliced and materialized, held token-identical (f32);
 - sim: the system simulator (``repro_torch.fed.sim``) at llm-100m's full
-  width and depth through ``build(spec).run()``: the sync engine priced
-  under a 10x straggler fleet, held bit-identical to the plain engine, its
+  width, cut to 4 of its 12 layers, through ``build(spec).run()``: the
+  sync engine priced under a 10x straggler fleet, held bit-identical to
+  the plain engine, its
   virtual seconds recomputed as the straggler barrier; the async engine
   with a uniform fleet and buffer 4, held bit-identical to the plain
   rounds with their launches; ``examples/configs/async_straggler.toml``'s
@@ -104,7 +121,7 @@ per source, all started together) and drives each of the port's paths:
   (train_4k, prefill_32k, decode_32k; long_500k the documented skip),
   RWKV6-7B (long_500k) and OLMoE-1B-7B (train_4k) on a fake 256-rank
   16 x 16 mesh, then every local ``xus`` / ``avt`` / ``atb`` shape those
-  traces record against its plain version on the card;
+  traces record against its plain version on the card (untimed);
 - examples (last): the example twins ``examples/torch_*.py`` through their
   ``main``: the quickstart (the planted rank 4 found), ``torch_train_llm.py
   --preset llm-100m --rounds 2`` (llm-100m at full width and depth on
@@ -156,8 +173,8 @@ SOURCES = {
     "selective_scan": "src/repro_torch/csrc/selective_scan.cu",
 }
 KERNELS = tuple(SOURCES)
-PATHS = ("serve", "serve-quant", "models", "encdec", "vlm", "mesh", "train", "flash", "spec",
-         "sim", "examples")
+PATHS = ("serve", "serve-quant", "models", "encdec", "vlm", "mesh", "train", "train-qwen2",
+         "flash", "spec", "sim", "examples")
 #: tolerance of a kernel against its plain version, with the reason
 TOL = {
     # both round once from f32 to bf16; f32 sums taken in different orders
@@ -450,27 +467,33 @@ def _case_inputs(torch, kernel, dtype, M, dim, R, n_sets, gen, G=1):
     return sets
 
 
-def _bound_ms(kernel, dtype_name, M, dim, R, has_s=True, G=1):
+def _bound_ms(kernel, dtype_name, M, dim, R, has_s=True, G=1, s_dtype=None):
+    """``xus`` / ``avt``'s bound; ``xus``'s S in ``s_dtype`` (default the
+    activations' dtype), its ``(x U) S`` product at S's dtype's peak (the
+    kernel's second pass takes x U in f32 where S is f32)."""
     es = 2 if dtype_name == "bfloat16" else 4
+    s_dtype = s_dtype or dtype_name
     if kernel == "xus":
         K = dim
-        nbytes = G * (M * K + K * R + (R * R if has_s else 0) + M * R) * es
-        flops = G * (2 * M * K * R + (2 * M * R * R if has_s else 0))
+        es_s = 2 if s_dtype == "bfloat16" else 4
+        nbytes = G * ((M * K + K * R + M * R) * es + (R * R * es_s if has_s else 0))
+        t_ops = G * (2 * M * K * R / PEAK_FLOPS[dtype_name]
+                     + (2 * M * R * R / PEAK_FLOPS[s_dtype] if has_s else 0)) * 1e3
     else:
         N = dim
         nbytes = G * (M * R + N * R + M * N) * es
-        flops = G * 2 * M * N * R
+        t_ops = G * 2 * M * N * R / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_case(torch, kernel, dtype_name, M, dim, R, gen, G=1, tag="[kernels]"):
+def kernel_case(torch, kernel, dtype_name, M, dim, R, gen, G=1, tag="[kernels]", timed=True):
     """One ``xus`` / ``avt`` shape (stacked over G where G > 1) against its
     plain version, timed (kernel, plain, library) in a CUDA graph over
     enough input sets to defeat L2, with its bound, host µs a call and its
     device launches held to its plan; logs one ``tag`` line, returns the
-    record."""
+    record. ``timed=False`` holds the shape to its plain version and its
+    plan without timing it (its times None)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.lowrank_matmul import avt, xus
 
@@ -487,19 +510,21 @@ def kernel_case(torch, kernel, dtype_name, M, dim, R, gen, G=1, tag="[kernels]")
     # of all of them at least 4x the L2
     set_bytes = G * max(dim * R, M * (dim if kernel == "xus" else R)) * dtype.itemsize
     n_sets = max(2, min(512, math.ceil(L2_DEFEAT_BYTES / set_bytes)))
-    sets = _case_inputs(torch, kernel, dtype, M, dim, R, n_sets, gen, G)
+    sets = _case_inputs(torch, kernel, dtype, M, dim, R, n_sets if timed else 1, gen, G)
     got, want = kfn(*sets[0]), pfn(*sets[0])
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     ok = torch.allclose(got.float(), want.float(), **TOL[dtype_name])
     reps = max(n_sets, 20)
-    rec = dict(
-        kernel=kernel, dtype=dtype_name, M=M, dim=dim, R=R, G=G, max_abs_err=err, ok=ok,
-        ms=graph_ms(torch, lambda i: kfn(*sets[i]), n_sets, reps),
-        plain_ms=graph_ms(torch, lambda i: pfn(*sets[i]), n_sets, reps),
-        library_ms=graph_ms(torch, lambda i: lfn(*sets[i]), n_sets, reps),
-        host_us=host_us(torch, lambda i: kfn(*sets[i])),
-    )
+    rec = dict(kernel=kernel, dtype=dtype_name, M=M, dim=dim, R=R, G=G, max_abs_err=err, ok=ok,
+               ms=None, plain_ms=None, library_ms=None, host_us=None)
+    if timed:
+        rec.update(
+            ms=graph_ms(torch, lambda i: kfn(*sets[i]), n_sets, reps),
+            plain_ms=graph_ms(torch, lambda i: pfn(*sets[i]), n_sets, reps),
+            library_ms=graph_ms(torch, lambda i: lfn(*sets[i]), n_sets, reps),
+            host_us=host_us(torch, lambda i: kfn(*sets[i])),
+        )
     rec["bound_ms"], rec["bound_by"] = _bound_ms(kernel, dtype_name, M, dim, R, G=G)
     route = ""
     if kernel == "avt":
@@ -518,11 +543,12 @@ def kernel_case(torch, kernel, dtype_name, M, dim, R, gen, G=1, tag="[kernels]")
                       f"splits={plan.splits} launches={n}]")
     dimname = "K" if kernel == "xus" else "N"
     stack = f"G={G:<3d}" if G > 1 else ""
+    times = (f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+             f"library_ms={rec['library_ms']:.4f} " if timed else "untimed ")
+    host = f" host_us={rec['host_us']:.1f}" if timed else ""
     log(f"{tag} {kernel} {dtype_name:8s} {stack}M={M:<3d} {dimname}={dim:<6d} R={R:<3d} "
-        f"max_abs_err={err:.3g} tol={TOL[dtype_name]} {'ok' if ok else 'MISMATCH'}  "
-        f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-        f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.6f} "
-        f"({rec['bound_by']}) host_us={rec['host_us']:.1f}{route}")
+        f"max_abs_err={err:.3g} tol={TOL[dtype_name]} {'ok' if ok else 'MISMATCH'}  {times}"
+        f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}){host}{route}")
     del sets
     return rec
 
@@ -1119,10 +1145,12 @@ def phase_models(torch, counters, records):
       bit-identical, and for the MoE models the assignments the capacity
       dropped per decode step (a reading);
     - each recorded shape the kernels phase did not cover, against its
-      plain version with its times and bound (K 4096 / 5120 / 8192, N
-      13440 / 25600 / 27392 / 8192, the experts' G = 64 stacks at R 128
-      and 176; Mamba's d_inner 16384 projections, its x_proj at R 72 and
-      dt_proj at K 512, Jamba's G = 16 expert stacks);
+      plain version (K 4096 / 5120 / 8192, N 13440 / 25600 / 27392 / 8192,
+      the experts' G = 64 stacks at R 128 and 176; Mamba's d_inner 16384
+      projections, its x_proj at R 72 and dt_proj at K 512, Jamba's G = 16
+      expert stacks), with its times and bound at a decode step's rows
+      (what ``by_model`` sums), untimed at the prefills' and the experts'
+      other rows;
     - OLMoE-1B-7B's and RWKV6-7B's f32 checks (:func:`olmoe_f32_check`,
       :func:`greedy_f32_check`).
 
@@ -1239,9 +1267,14 @@ def phase_models(torch, counters, records):
         stats[arch] = rec
         del session, eng, state, routings, decode_routings, step_a, step_b, pre_a, pre_b
         torch.cuda.empty_cache()
-        # each shape the path gave the kernels, against its plain version
-        for kernel, dtype, dim, R, G, M in sorted(shapes - have):
-            model_records.append(kernel_case(torch, kernel, dtype, M, dim, R, gen, G=G))
+        # each shape the path gave the kernels, against its plain version;
+        # timed at a decode step's rows
+        decode = {(kernel, dtype, dim, R, G, 1 if G > 1 else 4)
+                  for kernel, dtype, dim, R, G in decode_step_calls(cfg)}
+        for key in sorted(shapes - have):
+            kernel, dtype, dim, R, G, M = key
+            model_records.append(kernel_case(torch, kernel, dtype, M, dim, R, gen, G=G,
+                                             timed=key in decode))
         have |= shapes
         _check_records(model_records)
         torch.cuda.empty_cache()
@@ -1600,15 +1633,15 @@ def stub_batch(torch, cfg, rows, prompt, gen):
 
 def shape_sums(name, counts, records):
     """``name``'s measured numbers summed over ``counts`` ((kernel, dtype, K
-    or N, R, G, M) → calls), each call at its shape's record, with what
-    bounds them."""
+    or N, R, G, M) → calls), each call at its shape's timed record, with
+    what bounds them."""
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     bound_by = set()
     for key, n in counts.items():
         if key[0] != name:
             continue
-        [rec] = [r for r in records
-                 if (r["kernel"], r["dtype"], r["dim"], r["R"], r["G"], r["M"]) == key]
+        [rec] = [r for r in records if r["ms"] is not None
+                 and (r["kernel"], r["dtype"], r["dim"], r["R"], r["G"], r["M"]) == key]
         for k in tot:
             tot[k] += n * rec[k]
         bound_by.add(rec["bound_by"])
@@ -1665,7 +1698,10 @@ def phase_encdec_vlm(torch, counters, records):
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
-    have = {(r["kernel"], r["dtype"], r["dim"], r["R"], r["G"], r["M"]) for r in records}
+    # the shapes this phase sums over need their times: an untimed one is
+    # taken again
+    have = {(r["kernel"], r["dtype"], r["dim"], r["R"], r["G"], r["M"]) for r in records
+            if r["ms"] is not None}
     new_records, stats, shapes_of = [], {}, {}
     steps = ENCDEC_VLM_STEPS
     for path, arch, rows, prompt, cache_len in ENCDEC_VLM:
@@ -1951,69 +1987,102 @@ def phase_atb(torch, round_calls):
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} atb case(s) disagree with the plain version: {bad}")
+    return records, atb_round_total(records, round_calls, "llm-100m")
+
+
+def dominant_bound(parts) -> str:
+    """"bytes" or "operations": the larger share of a sum of bounds, from
+    its (bound ms, what bounds it) parts."""
+    by = {"bytes": 0.0, "operations": 0.0}
+    for ms, what in parts:
+        by[what] += ms
+    return max(by, key=by.get)
+
+
+def atb_round_total(records, round_calls, model):
+    """``atb``'s measured numbers summed over one ``model`` round's calls
+    (``round_calls["atb"]``: (Ka, Kb) → calls in f32, or (Ka, Kb, dtype) →
+    calls; at ``round_calls["M"]``), each call at its shape's record."""
     M = round_calls["M"]
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, calls=0, device_launches=0.0)
-    for (Ka, Kb), n in sorted(round_calls["atb"].items()):
+    parts = []
+    for key, n in sorted(round_calls["atb"].items()):
+        Ka, Kb, dt = (key + ("float32",))[:3]
         [rec] = [r for r in records if (r["model"], r["dtype"], r["M"], r["Ka"], r["Kb"])
-                 == ("llm-100m", "float32", M, Ka, Kb)]
+                 == (model, dt, M, Ka, Kb)]
+        parts.append((n * rec["bound_ms"], rec["bound_by"]))
         for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
             total[k] += n * rec[k]
         total["calls"] += n
         total["device_launches"] += n * rec["launches"]
-    log(f"[atb] round: per llm-100m round (f32, M={M}): {total['calls']} calls, "
+    log(f"[atb] round: per {model} round (M={M}): {total['calls']} calls, "
         f"{total['device_launches']:g} device launches; kernel {total['ms']:.3f} ms, plain "
         f"{total['plain_ms']:.3f} ms, library {total['library_ms']:.3f} ms, bound "
-        f"{total['bound_ms']:.3f} ms; by (Ka, Kb): "
-        + ", ".join(f"{ka}x{kb} x{n}" for (ka, kb), n in sorted(round_calls["atb"].items())))
-    return records, total
+        f"{total['bound_ms']:.3f} ms; by (Ka, Kb[, dtype]): "
+        + ", ".join(f"{'x'.join(map(str, key))} x{n}"
+                    for key, n in sorted(round_calls["atb"].items())))
+    total["bound_by"] = dominant_bound(parts)
+    return total
 
 
-def phase_xus_train(torch, round_calls):
-    """``xus`` at every shape of one llm-100m FeDLRT round (M = batch × seq
-    = 512, f32, with and without S), each held to its plain version, with
-    its device launches a call against the plan, its time, the plain
-    version's, the library call's (``torch.linalg.multi_dot``, or
-    ``torch.matmul`` without S) and the bound; then the sums over one
-    round's calls (``round_calls["xus"]``)."""
+def phase_xus_train(torch, round_calls, dtype_name="float32", tag="[xus-train]",
+                    model="llm-100m"):
+    """``xus`` at every shape of one ``model`` FeDLRT round (M = batch × seq
+    = 512, ``dtype_name``, with and without S; S in the dtype that ends a
+    key of ``round_calls["xus"]``, else in ``dtype_name``), each held to its
+    plain version, with its device launches a call against the plan, its
+    time, the plain version's, the library call's (``torch.linalg.multi_dot``,
+    or ``torch.matmul`` without S; none where S's dtype differs: no one call
+    takes mixed operands) and the bound; then the sums over one round's
+    calls (``round_calls["xus"]``; ``library_ms`` None if a shape has no
+    library call, ``library_ms_where_one`` over the shapes that have one)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.lowrank_matmul import xus
 
     torch.backends.cuda.matmul.allow_tf32 = False
     calls, M = round_calls["xus"], round_calls["M"]
+    dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     records = []
-    for (K, R, has_s), n in sorted(calls.items()):
-        set_bytes = (M * K + K * R + R * R) * 4
+    for key, n in sorted(calls.items()):
+        K, R, has_s, s_name = (key + (dtype_name,))[:4]
+        s_type = getattr(torch, s_name)
+        set_bytes = (M * K + K * R) * dtype.itemsize + R * R * s_type.itemsize
         n_sets = max(2, min(64, math.ceil(L2_DEFEAT_BYTES / set_bytes)))
-        sets = [(torch.randn(M, K, generator=gen, device="cuda"),
-                 torch.randn(K, R, generator=gen, device="cuda") / math.sqrt(K),
-                 torch.randn(R, R, generator=gen, device="cuda") / math.sqrt(R) if has_s else None)
+        sets = [(torch.randn(M, K, generator=gen, device="cuda").to(dtype),
+                 (torch.randn(K, R, generator=gen, device="cuda") / math.sqrt(K)).to(dtype),
+                 (torch.randn(R, R, generator=gen, device="cuda") / math.sqrt(R)).to(s_type)
+                 if has_s else None)
                 for _ in range(n_sets)]
         got, plain = xus(*sets[0]), ref.xus_ref(*sets[0])
         torch.cuda.synchronize()
-        err = (got - plain).abs().max().item()
-        ok = torch.allclose(got, plain, **TOL["float32"])
+        err = (got.float() - plain.float()).abs().max().item()
+        ok = torch.allclose(got.float(), plain.float(), **TOL[dtype_name])
         dev = device_launches(torch, lambda: xus(*sets[0]))
         plan = _xus_route(sets[0][0], sets[0][1], sets[0][2], dev)
-        if has_s:
+        if not has_s:
+            lib = lambda i: torch.matmul(sets[i][0], sets[i][1])  # noqa: E731
+        elif s_name == dtype_name:
             lib = lambda i: torch.linalg.multi_dot(list(sets[i]))  # noqa: E731
         else:
-            lib = lambda i: torch.matmul(sets[i][0], sets[i][1])  # noqa: E731
+            lib = None
         reps = max(n_sets, 20)
-        rec = dict(K=K, R=R, S=has_s, calls=n, max_abs_err=err, ok=ok, route=plan.route,
-                   splits=plan.splits, launches=dev,
+        rec = dict(K=K, R=R, S=s_name if has_s else None, calls=n, max_abs_err=err, ok=ok,
+                   route=plan.route, splits=plan.splits, launches=dev,
                    ms=graph_ms(torch, lambda i: xus(*sets[i]), n_sets, reps),
                    plain_ms=graph_ms(torch, lambda i: ref.xus_ref(*sets[i]), n_sets, reps),
-                   library_ms=graph_ms(torch, lib, n_sets, reps))
-        rec["bound_ms"], rec["bound_by"] = _bound_ms("xus", "float32", M, K, R, has_s)
+                   library_ms=graph_ms(torch, lib, n_sets, reps) if lib else None)
+        rec["bound_ms"], rec["bound_by"] = _bound_ms("xus", dtype_name, M, K, R, has_s,
+                                                     s_dtype=s_name)
         flops = 2 * M * K * R + (2 * M * R * R if has_s else 0)
         rec["tflops"] = flops / rec["ms"] / 1e9
         records.append(rec)
-        log(f"[xus-train] M={M} K={K:<5d} R={R:<3d} S={'yes' if has_s else 'no ':3s} x{n:<5d} "
-            f"max_abs_err={err:.3g} tol={TOL['float32']} {'ok' if ok else 'MISMATCH'}  "
+        lib_txt = "none" if lib is None else f"{rec['library_ms']:.4f}"
+        log(f"{tag} {dtype_name} M={M} K={K:<5d} R={R:<3d} S={s_name if has_s else 'no':8s} "
+            f"x{n:<5d} max_abs_err={err:.3g} tol={TOL[dtype_name]} {'ok' if ok else 'MISMATCH'}  "
             f"kernel_ms={rec['ms']:.4f} ({rec['tflops']:.1f} TF/s) plain_ms={rec['plain_ms']:.4f} "
-            f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.6f} "
+            f"library_ms={lib_txt} bound_ms={rec['bound_ms']:.6f} "
             f"({rec['bound_by']}) route={plan.route} splits={plan.splits} launches={dev}")
         del sets, got, plain
     torch.cuda.empty_cache()
@@ -2021,40 +2090,47 @@ def phase_xus_train(torch, round_calls):
     if bad:
         raise AssertionError(
             f"{len(bad)} xus training case(s) disagree with the plain version: {bad}")
-    total = {k: sum(r["calls"] * r[k] for r in records)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    total = {k: sum(r["calls"] * r[k] for r in records) for k in ("ms", "plain_ms", "bound_ms")}
+    with_lib = [r for r in records if r["library_ms"] is not None]
+    total["library_ms_where_one"] = sum(r["calls"] * r["library_ms"] for r in with_lib)
+    total["library_calls"] = sum(r["calls"] for r in with_lib)
+    total["library_ms"] = total["library_ms_where_one"] if len(with_lib) == len(records) else None
     total["calls"] = sum(r["calls"] for r in records)
     total["device_launches"] = sum(r["calls"] * r["launches"] for r in records)
-    log(f"[xus-train] per llm-100m round: {total['calls']} calls, {total['device_launches']:g} "
+    total["bound_by"] = dominant_bound((r["calls"] * r["bound_ms"], r["bound_by"]) for r in records)
+    log(f"{tag} per {model} round: {total['calls']} calls, {total['device_launches']:g} "
         f"device launches; kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
-        f"library {total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms")
+        f"library {total['library_ms_where_one']:.3f} ms over the {total['library_calls']} "
+        f"calls that have one, bound {total['bound_ms']:.3f} ms")
     return records, total
 
 
-def phase_avt_train(torch, round_calls):
-    """``avt`` at every shape of one llm-100m FeDLRT round (M = batch × seq
-    = 512, f32), each held to its plain version, with its device launches a
-    call against the plan, its time, the plain version's, the library
-    call's (``torch.matmul(A, V.t())``, TF32 off) and the bound; then the
-    sums over one round's calls (``round_calls["avt"]``)."""
+def phase_avt_train(torch, round_calls, dtype_name="float32", tag="[avt-train]",
+                    model="llm-100m"):
+    """``avt`` at every shape of one ``model`` FeDLRT round (M = batch × seq
+    = 512, ``dtype_name``), each held to its plain version, with its device
+    launches a call against the plan, its time, the plain version's, the
+    library call's (``torch.matmul(A, V.t())``, TF32 off) and the bound;
+    then the sums over one round's calls (``round_calls["avt"]``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.lowrank_matmul import avt
 
     torch.backends.cuda.matmul.allow_tf32 = False
     calls, M = round_calls["avt"], round_calls["M"]
+    dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
     records = []
     for (N, R), n in sorted(calls.items()):
-        set_bytes = (M * R + N * R) * 4
+        set_bytes = (M * R + N * R) * dtype.itemsize
         n_sets = max(2, min(64, math.ceil(L2_DEFEAT_BYTES / set_bytes)))
-        sets = [(torch.randn(M, R, generator=gen, device="cuda"),
-                 torch.randn(N, R, generator=gen, device="cuda") / math.sqrt(R))
+        sets = [(torch.randn(M, R, generator=gen, device="cuda").to(dtype),
+                 (torch.randn(N, R, generator=gen, device="cuda") / math.sqrt(R)).to(dtype))
                 for _ in range(n_sets)]
         got, plain = avt(*sets[0]), ref.avt_ref(*sets[0])
         torch.cuda.synchronize()
-        err = (got - plain).abs().max().item()
-        ok = torch.allclose(got, plain, **TOL["float32"])
+        err = (got.float() - plain.float()).abs().max().item()
+        ok = torch.allclose(got.float(), plain.float(), **TOL[dtype_name])
         dev = device_launches(torch, lambda: avt(*sets[0]))
         plan, desc = _avt_route(*sets[0], dev)
         reps = max(n_sets, 20)
@@ -2063,11 +2139,11 @@ def phase_avt_train(torch, round_calls):
                    plain_ms=graph_ms(torch, lambda i: ref.avt_ref(*sets[i]), n_sets, reps),
                    library_ms=graph_ms(torch, lambda i: torch.matmul(sets[i][0], sets[i][1].t()),
                                        n_sets, reps))
-        rec["bound_ms"], rec["bound_by"] = _bound_ms("avt", "float32", M, N, R)
+        rec["bound_ms"], rec["bound_by"] = _bound_ms("avt", dtype_name, M, N, R)
         rec["tflops"] = 2 * M * N * R / rec["ms"] / 1e9
         records.append(rec)
-        log(f"[avt-train] M={M} N={N:<5d} R={R:<3d} x{n:<5d} max_abs_err={err:.3g} "
-            f"tol={TOL['float32']} {'ok' if ok else 'MISMATCH'}  kernel_ms={rec['ms']:.4f} "
+        log(f"{tag} {dtype_name} M={M} N={N:<5d} R={R:<3d} x{n:<5d} max_abs_err={err:.3g} "
+            f"tol={TOL[dtype_name]} {'ok' if ok else 'MISMATCH'}  kernel_ms={rec['ms']:.4f} "
             f"({rec['tflops']:.1f} TF/s) plain_ms={rec['plain_ms']:.4f} "
             f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.6f} "
             f"({rec['bound_by']}) {desc}")
@@ -2081,7 +2157,8 @@ def phase_avt_train(torch, round_calls):
              for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     total["calls"] = sum(r["calls"] for r in records)
     total["device_launches"] = sum(r["calls"] * r["launches"] for r in records)
-    log(f"[avt-train] per llm-100m round: {total['calls']} calls, {total['device_launches']:g} "
+    total["bound_by"] = dominant_bound((r["calls"] * r["bound_ms"], r["bound_by"]) for r in records)
+    log(f"{tag} per {model} round: {total['calls']} calls, {total['device_launches']:g} "
         f"device launches; kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
         f"library {total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms")
     return records, total
@@ -2231,9 +2308,12 @@ def train_avt_calls(params, cfg):
     return calls
 
 
-def train_xus_calls(params, cfg):
+def train_xus_calls(params, cfg, dtype=None):
     """(K, R, with S) → ``xus`` launches of one FeDLRT round (as counted in
-    :func:`expected_launches`), all at M = batch × seq.
+    :func:`expected_launches`), all at M = batch × seq. With ``dtype`` (the
+    activations' dtype name) each key ends in S's dtype: f32 for the
+    backward's products with S (``dy V Sᵀ``, ``x U S``, ``u S I``, which
+    take S in f32), ``dtype`` for the others.
 
     A linear slice (n_in → n_out, rank r): the basis pass runs the forward
     ``x U S``, the backward ``dy V Sᵀ``, ``x U``, ``dy V`` and ``x U S``; a
@@ -2247,7 +2327,9 @@ def train_xus_calls(params, cfg):
 
     calls = {}
 
-    def add(key, n):
+    def add(key, n, wide=False):
+        if dtype is not None:
+            key += ("float32" if wide else dtype,)
         calls[key] = calls.get(key, 0) + n
 
     C, steps = cfg.num_clients, cfg.s_star + (1 if cfg.correction == "full" else 0)
@@ -2255,17 +2337,19 @@ def train_xus_calls(params, cfg):
     for path, f in _factors(params):
         n, r = math.prod(f.U.shape[:-2]), f.r_max
         if path == "['embed']":
-            add((r, r, True), C * n * (2 + evals))  # forward, u S I (and the evaluation)
-            add((f.n_out, r, True), C * n)  # dy V Iᵀ
+            add((r, r, True), C * n * (1 + evals))  # forward (and the evaluation)
+            add((r, r, True), C * n, wide=True)  # u S I
+            add((f.n_out, r, True), C * n, wide=True)  # dy V Iᵀ
             add((2 * r, 2 * r, True), C * steps * n)
-            add((f.n_out, 2 * r, True), C * steps * n)
+            add((f.n_out, 2 * r, True), C * steps * n, wide=True)
         else:
-            add((f.n_in, r, True), C * n * (2 + evals))  # forward, x U S (and the evaluation)
-            add((f.n_out, r, True), C * n)  # dy V Sᵀ
+            add((f.n_in, r, True), C * n * (1 + evals))  # forward (and the evaluation)
+            add((f.n_in, r, True), C * n, wide=True)  # x U S
+            add((f.n_out, r, True), C * n, wide=True)  # dy V Sᵀ
             add((f.n_in, r, False), C * n)  # x U
             add((f.n_out, r, False), C * n)  # dy V
             add((f.n_in, 2 * r, True), C * steps * n)
-            add((f.n_out, 2 * r, True), C * steps * n)
+            add((f.n_out, 2 * r, True), C * steps * n, wide=True)
             add((f.n_in, 2 * r, False), C * steps * n)
             add((f.n_out, 2 * r, False), C * steps * n)
     return calls
@@ -2520,6 +2604,335 @@ def truncation_svd_drivers(torch, coeffs, tau):
         raise AssertionError(f"the truncation's SVD driver gesvdj misses 1e-4 or changes a "
                              f"rank: {out['gesvdj']}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Qwen2-7B trained at full width and depth, bf16
+# ---------------------------------------------------------------------------
+
+QWEN2_ROUNDS = 2
+QWEN2_ROUND_UNIT = ("one Qwen2-7B FeDLRT round (bf16 activations, M=512; atb's embedding "
+                    "gather in f32)")
+QWEN2_TOKENS_PER_CLIENT = 4096
+#: depth of the kernels-off comparison round (full width)
+QWEN2_OFF_LAYERS = 2
+QWEN2_OFF_TOKENS_PER_CLIENT = 512
+#: the bf16 kernel round against the plain chain's (kernels="off"), from the
+#: same parameters: two bf16 roundings (2⁻⁷) relative, for the loss (every
+#: activation rounds to bf16 after f32 sums taken in another order; the
+#: mean over 2,048 tokens a client) and for each factor's U S Vᵀ against its
+#: largest entry (the bases are f32; S̃ takes each client's bf16 updates)
+QWEN2_LOSS_RTOL = 2.0**-7
+QWEN2_USVT_RTOL = 2.0**-7
+#: and for each factor within this share of the round's own change of its
+#: U S Vᵀ (kernels off against the start): Qwen2's k and v projections
+#: (r_max 64) move by only ~1e-3 of their largest entry, their bf16 S below
+#: its rounding, so 2⁻⁷ alone would pass a kernel round that left them
+#: unchanged (a share of 1) or moved them wrongly; the kernel round's
+#: bf16 activations shift the change by ~2 % of it
+QWEN2_USVT_OF_MOVE = 1 / 8
+#: tokens of the rows-against-dense check of the token stream at vocab 8192
+STREAM_CHECK_TOKENS = 8192
+
+
+def token_stream_check():
+    """The token stream's rows route (the one Qwen2's vocabulary takes)
+    against the dense route, the JAX package's code, at vocabulary 8192 on
+    this host's numpy and BLAS: token for token."""
+    import numpy as np
+
+    from repro_torch.data import synthetic
+
+    kw = dict(vocab_size=8192, num_tokens=STREAM_CHECK_TOKENS, rank=16, temperature=1.0, seed=0)
+    t0 = time.perf_counter()
+    dense = synthetic._token_stream_dense(**kw)
+    t1 = time.perf_counter()
+    rows = synthetic._token_stream_rows(**kw)
+    t2 = time.perf_counter()
+    same = int(np.sum(rows == dense))
+    log(f"[train-qwen2] token stream at vocab 8192 (numpy {np.__version__}): rows route "
+        f"{same} of {len(dense)} tokens equal to the dense route's; dense {t1 - t0:.2f} s, "
+        f"rows {t2 - t1:.2f} s ({1e3 * (t2 - t1) / len(dense):.3f} ms a token)")
+    if same != len(dense):
+        raise AssertionError(f"token stream: rows route differs from the dense route in "
+                             f"{len(dense) - same} of {len(dense)} tokens")
+    return dict(dense_s=t1 - t0, rows_s=t2 - t1, tokens=len(dense))
+
+
+@contextlib.contextmanager
+def kernel_calls(counts):
+    """For the body: every ``xus`` / ``avt`` / ``atb`` call of the model's
+    kernel path counted in ``counts`` by (kernel, the first operand's dtype,
+    K or N or Ka, R or Kb, S's dtype or None) — :func:`train_xus_calls`' /
+    :func:`train_avt_calls`' / :func:`train_atb_calls`' keys, with the
+    dtypes (``xus`` without S, ``avt`` and ``atb`` have None)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+
+    def name(t):
+        return None if t is None else str(t.dtype).removeprefix("torch.")
+
+    def key(kernel, a):
+        if kernel == "xus":
+            return ("xus", name(a[0]), a[1].shape[-2], a[1].shape[-1],
+                    name(a[2]) if len(a) > 2 else None)
+        return (kernel, name(a[0]), a[1].shape[-2] if kernel == "avt" else a[0].shape[-1],
+                a[1].shape[-1], None)
+
+    def add(kernel):
+        return lambda a, _: counts.__setitem__(key(kernel, a), counts.get(key(kernel, a), 0) + 1)
+
+    with calls_of(ops, "xus", add("xus")), calls_of(ops, "avt", add("avt")), \
+            calls_of(ops, "atb", add("atb")), calls_of(layers, "atb", add("atb")):
+        yield
+
+
+def round_calls_by_shape(calls):
+    """:func:`kernel_calls`' counts as ({kernel: shape key → calls}, the
+    keys of :func:`train_xus_calls` / :func:`train_avt_calls` /
+    :func:`train_atb_calls`; {"xus" / "atb": typed key → calls}, the keys of
+    :func:`qwen2_round_calls`). Raises if an ``xus`` activation is not bf16
+    (the typed keys carry S's dtype alone)."""
+    recorded = {"xus": {}, "avt": {}, "atb": {}}
+    typed = {"xus": {}, "atb": {}}
+
+    def add(d, k, n):
+        d[k] = d.get(k, 0) + n
+
+    for (kernel, dt, a, b, s), n in calls.items():
+        if kernel == "xus":
+            if dt != "bfloat16":
+                raise AssertionError(f"xus with a {dt} activation: {calls}")
+            add(recorded["xus"], (a, b, s is not None), n)
+            add(typed["xus"], (a, b, s is not None, s or dt), n)
+        else:
+            add(recorded[kernel], (a, b), n)
+            if kernel == "atb":
+                add(typed["atb"], (a, b, dt), n)
+    return recorded, typed
+
+
+def qwen2_round_calls(params, cfg, M):
+    """The calls of one bf16 FeDLRT round by shape at ``M`` rows: ``xus``'s
+    by (K, R, with S, S's dtype), ``avt``'s by (N, R), ``atb``'s by (Ka, Kb,
+    dtype): bf16 but for the embedding gather's backward into the f32 U,
+    ``onehotᵀ · g`` (f32: the gathered rows' cotangent takes U's dtype)."""
+    atb = {}
+    for (Ka, Kb), n in train_atb_calls(params, cfg).items():
+        atb[(Ka, Kb, "bfloat16")] = n
+    for path, f in _factors(params):
+        if path == "['embed']":
+            n = cfg.num_clients * math.prod(f.U.shape[:-2])
+            key = (f.n_in, f.r_max, "bfloat16")
+            atb[key] -= n
+            if not atb[key]:
+                del atb[key]
+            atb[(f.n_in, f.r_max, str(f.U.dtype).removeprefix("torch."))] = n
+    return dict(xus=train_xus_calls(params, cfg, "bfloat16"), avt=train_avt_calls(params, cfg),
+                atb=atb, M=M)
+
+
+def phase_train_qwen2(torch, counters):
+    """Qwen2-7B at full width and depth (28 layers, d 3584, d_ff 18944,
+    vocabulary 152,064, r_max 256) in bf16: ``QWEN2_ROUNDS`` FeDLRT rounds
+    through ``build(spec).run()`` with the spec defaults (fedlrt, simplified
+    correction, 4 clients, s* = 4, batch 4, seq 128, kernels auto) on
+    ``QWEN2_TOKENS_PER_CLIENT`` tokens a client, with the launches held to
+    :func:`expected_launches`, the losses finite, the inactive columns zero,
+    the ranks in [1, r_max] and the measured wire bytes equal to
+    ``cost_model.wire_round_bytes``; one more round under
+    ``torch.profiler`` (the card's trace alone); then at full width and
+    ``QWEN2_OFF_LAYERS`` layers one round with kernels on, its every kernel
+    call recorded and held to the per-shape counts (by dtype), against one
+    with kernels off from the same parameters (each factor's ``U S Vᵀ``
+    within ``QWEN2_USVT_RTOL`` of its largest entry and
+    ``QWEN2_USVT_OF_MOVE`` of the round's own change of it); and every
+    shape of the round's ``xus`` (bf16 x, S in bf16 or f32) / ``avt``
+    (bf16) against its plain version, timed, summed over one full-depth
+    round."""
+    import numpy as np
+
+    import repro_torch.data
+    from repro_torch.api import DataSpec, ExperimentSpec, ModelSpec, build
+    from repro_torch.api import tasks
+    from repro_torch.core import cost_model
+    from repro_torch.core.factorization import materialize
+    from repro_torch.utils.tree import tree_leaves
+
+    stream = token_stream_check()
+    spec = ExperimentSpec(name="chip-train-qwen2-7b", seed=0, rounds=QWEN2_ROUNDS, log_every=1,
+                          model=ModelSpec(arch="qwen2-7b"),
+                          data=DataSpec(tokens_per_client=QWEN2_TOKENS_PER_CLIENT))
+    make_stream, data_s = repro_torch.data.make_token_stream, []
+
+    def timed_stream(**kw):
+        t0 = time.perf_counter()
+        out = make_stream(**kw)
+        data_s.append(time.perf_counter() - t0)
+        return out
+
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(repro_torch.data, "make_token_stream", timed_stream):
+        exp = build(spec, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(exp.describe())
+    cfg = exp.engine.cfg
+    params0 = exp.params
+    factors = _factors(params0)
+    entries = sum(f.U.numel() + f.S.numel() + f.V.numel() for _, f in factors)
+    by_dtype = {}
+    for t in tree_leaves(params0):
+        name = str(t.dtype).removeprefix("torch.")
+        by_dtype[name] = by_dtype.get(name, 0) + t.numel() * t.element_size()
+    want, (n_lin, n_emb) = expected_launches(params0, cfg)
+    round_calls = qwen2_round_calls(params0, cfg, M=spec.data.batch * spec.data.seq)
+    wire = cost_model.wire_round_bytes(params0, correction=cfg.correction)
+    r_max = {p: f.r_max for p, f in factors}
+    log(f"[train-qwen2] built in {build_s:.1f} s, of it the token stream {data_s[0]:.1f} s on "
+        f"the host ({cfg.num_clients} x {QWEN2_TOKENS_PER_CLIENT} tokens, "
+        f"{1e3 * data_s[0] / (cfg.num_clients * QWEN2_TOKENS_PER_CLIENT):.3f} ms a token); "
+        f"{len(factors)} factor leaves ({n_lin} linear slices + {n_emb} embedding), "
+        f"{entries / 1e6:.1f} M factor entries; bytes by dtype "
+        f"{ {k: f'{v / 1e9:.3f} GB' for k, v in by_dtype.items()} }; r_max "
+        f"{sorted(set(r_max.values()))}; expected launches a round {want}; wire a client "
+        f"{wire['down'] / 1e6:.3f} MB down, {wire['up'] / 1e6:.3f} MB up")
+
+    rounds = []
+    # the main path: counts at 0 just before, read just after
+    _zero_counts()
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    for r in range(QWEN2_ROUNDS):
+        before = _launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = exp.run(rounds=1)[-1]
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in _launch_counts().items() if k in want}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ranks = {k: np.ravel(v) for k, v in res.ranks.items()}
+        flat = np.concatenate(list(ranks.values()))
+        inactive = _inactive_nonzeros(torch, exp.params)
+        if not (math.isfinite(res.loss_before) and math.isfinite(res.loss_after)):
+            raise AssertionError(f"round {r}: non-finite loss {res.loss_before} / {res.loss_after}")
+        if got != want:
+            raise AssertionError(f"round {r}: launches {got}, expected {want}")
+        if inactive:
+            raise AssertionError(f"round {r}: {inactive} nonzeros past the ranks")
+        bad = {k: v for k, v in ranks.items() if v.min() < 1 or v.max() > r_max[k]}
+        if bad:
+            raise AssertionError(f"round {r}: ranks outside [1, r_max]: {bad}")
+        measured = (res.wire_bytes_down_per_client, res.wire_bytes_up_per_client)
+        if measured != (wire["down"], wire["up"]):
+            raise AssertionError(f"round {r}: measured wire bytes {measured}, cost model "
+                                 f"{(wire['down'], wire['up'])}")
+        log(f"[train-qwen2] round {r}: loss_before {res.loss_before:.6f} loss_after "
+            f"{res.loss_after:.6f}; rank min/mean/max {flat.min():.0f}/{flat.mean():.2f}/"
+            f"{flat.max():.0f} over {flat.size} factor slices; host {res.seconds:.3f} s; wire "
+            f"a client {measured[0] / 1e6:.6f} MB down, {measured[1] / 1e6:.6f} MB up "
+            f"(= cost model); paper protocol {res.comm_bytes_per_client / 1e6:.3f} MB static, "
+            f"{res.comm_bytes_per_client_effective / 1e6:.3f} MB effective; peak {peak:.2f} "
+            f"GiB; nonzeros past the ranks 0; launches {got} = expected")
+        rounds.append(dict(loss_before=res.loss_before, loss_after=res.loss_after,
+                           rank_min=float(flat.min()), rank_mean=float(flat.mean()),
+                           rank_max=float(flat.max()), host_s=res.seconds, peak_gib=peak,
+                           wire_down_bytes=measured[0], wire_up_bytes=measured[1],
+                           launches=got))
+    path_s = time.perf_counter() - t_path
+    counters["train-qwen2"] = _launch_counts()
+    log(f"[train-qwen2] {QWEN2_ROUNDS} rounds in {path_s:.1f} s; launches "
+        f"{counters['train-qwen2']}")
+    n, busy_s, wall_prof = device_profile(
+        torch, lambda: exp.run(rounds=1, log_every=0), "[train-qwen2 profile]", 15, cpu=False)
+    wall = rounds[-1]["host_s"]
+    log(f"[train-qwen2 profile] one round: {n} kernels, device busy {busy_s:.3f} s = "
+        f"{100 * busy_s / wall:.1f} % of an unprofiled round's {wall:.3f} s host (idle "
+        f"{100 * (1 - busy_s / wall):.1f} %); {wall_prof:.3f} s under the profiler")
+    del exp, params0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # full width, QWEN2_OFF_LAYERS layers: the kernel round, every call
+    # recorded, against the plain chain's from the same parameters
+    resolve = tasks.lm_model_config
+
+    def cut(m):
+        return dataclasses.replace(resolve(m), num_layers=QWEN2_OFF_LAYERS)
+
+    small = dataclasses.replace(
+        spec, name="chip-train-qwen2-7b-cut", rounds=1, log_every=0,
+        data=DataSpec(tokens_per_client=QWEN2_OFF_TOKENS_PER_CLIENT))
+    calls = {}
+    with unittest.mock.patch.object(tasks, "lm_model_config", cut):
+        exp_k = build(small, device="cuda")
+        p0 = _clone(exp_k.params)
+        with kernel_calls(calls):
+            res_k = exp_k.run(rounds=1)[-1]
+        exp_off = build(dataclasses.replace(small, model=ModelSpec(arch="qwen2-7b", kernels="off")),
+                        params=_clone(p0), device="cuda")
+        res_off = exp_off.run(rounds=1)[-1]
+    torch.cuda.synchronize()
+    cfg_k = exp_k.engine.cfg
+    analytic = {"xus": train_xus_calls(p0, cfg_k), "avt": train_avt_calls(p0, cfg_k),
+                "atb": train_atb_calls(p0, cfg_k)}
+    recorded, typed = round_calls_by_shape(calls)
+    want_typed = qwen2_round_calls(p0, cfg_k, 0)
+    if recorded != analytic or any(typed[k] != want_typed[k] for k in typed):
+        raise AssertionError(f"the {QWEN2_OFF_LAYERS}-layer round's kernel calls {calls} "
+                             f"differ from the per-shape counts {analytic} / {want_typed}")
+    log(f"[train-qwen2] {QWEN2_OFF_LAYERS} layers: the kernel round's calls by shape equal "
+        f"train_xus_calls / train_avt_calls / train_atb_calls ("
+        + ", ".join(f"{k} {sum(v.values())}" for k, v in recorded.items())
+        + "), and by dtype qwen2_round_calls' (xus with S in f32 "
+        + f"{sum(n for k, n in typed['xus'].items() if k[2] and k[3] == 'float32')} calls)")
+    for name, rtol in (("loss_before", QWEN2_LOSS_RTOL), ("loss_after", QWEN2_LOSS_RTOL)):
+        a, b = getattr(res_k, name), getattr(res_off, name)
+        rel = abs(a - b) / abs(b)
+        log(f"[train-qwen2] kernels vs off, {name}: {a:.7f} vs {b:.7f} (rel {rel:.3g}, tol "
+            f"{rtol:.3g})")
+        if not rel <= rtol:
+            raise AssertionError(f"{name} differs between kernels and off by {rel} (> {rtol})")
+    for k, v in res_off.ranks.items():
+        if not np.array_equal(np.asarray(v), np.asarray(res_k.ranks[k])):
+            raise AssertionError(f"rank of {k} differs: kernels {res_k.ranks[k]} vs off {v}")
+    worst, moves, of_move = 0.0, [], 0.0
+    for (path, f), (_, g), (_, f0) in zip(_factors(exp_k.params), _factors(exp_off.params),
+                                          _factors(p0)):
+        W, W_off, W0 = materialize(f), materialize(g), materialize(f0)
+        scale = W_off.abs().max()
+        rel = ((W - W_off).abs().max() / scale).item()
+        move = ((W_off - W0).abs().max() / scale).item()
+        moves.append(move)
+        worst, of_move = max(worst, rel), max(of_move, rel / move)
+        log(f"[train-qwen2] kernels vs off, {path}: max|W - W_off| / max|W_off| = {rel:.3g}; "
+            f"the round's own change max|W_off - W_0| / max|W_off| = {move:.3g} "
+            f"({rel / move:.3g} of it)")
+        if not (rel <= QWEN2_USVT_RTOL and rel <= QWEN2_USVT_OF_MOVE * move):
+            raise AssertionError(f"{path}: U S V^T differs between kernels and off by {rel} of "
+                                 f"its largest entry, {rel / move} of the round's change")
+        del W, W_off, W0
+    log(f"[train-qwen2] kernels vs off: ranks identical; worst factor max|W - W_off| / "
+        f"max|W_off| = {worst:.3g} <= {QWEN2_USVT_RTOL:.3g}, and at most {of_move:.3g} <= "
+        f"{QWEN2_USVT_OF_MOVE:.3g} of the factor's own change in the round ({min(moves):.3g} to "
+        f"{max(moves):.3g} over {len(moves)} factor leaves)")
+    del exp_k, exp_off, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # every xus / avt shape of the bf16 round against its plain version,
+    # timed; the sums over one full-depth round's calls
+    _, xus_round = phase_xus_train(torch, round_calls, "bfloat16", "[train-qwen2 xus]",
+                                   "qwen2-7b")
+    _, avt_round = phase_avt_train(torch, round_calls, "bfloat16", "[train-qwen2 avt]",
+                                   "qwen2-7b")
+    return dict(stream=stream, build_s=build_s, data_s=data_s[0], factor_entries=entries,
+                bytes_by_dtype=by_dtype, wire=wire, rounds=rounds, path_s=path_s,
+                profile=dict(kernels=n, device_busy_s=busy_s, wall_s=wall,
+                             profiled_wall_s=wall_prof),
+                off=dict(loss_before=(res_k.loss_before, res_off.loss_before),
+                         loss_after=(res_k.loss_after, res_off.loss_after), worst_usvt=worst,
+                         round_move=(min(moves), max(moves)), worst_of_move=of_move),
+                round_calls=round_calls, xus_round=xus_round, avt_round=avt_round)
 
 
 # ---------------------------------------------------------------------------
@@ -2934,8 +3347,9 @@ def phase_spec(torch, counters, workdir):
 SIM_PROFILE = "straggler:0.25,10"
 #: FedBuff flushes of the async runs: with buffer 2 the three fast clients
 #: flush ~1.5 times a round trip, so the straggler's first round (priced
-#: 10x a fast one) lands at flush 24 on an H100 (PERF.md), and its track
-#: with it; 26 keeps one flush after it
+#: 10x a fast one) lands at flush 24 at llm-100m's 12 layers (PERF.md) and
+#: at flush 21 at the phase's ``SIM_LAYERS`` (the virtual clock's, the same
+#: on any device), and its track with it
 SIM_FLUSHES = 26
 #: rounds of the sync engine and flushes of the uniform async engine held to
 #: the plain engine (2 before the script passed 900 s; the async runs above
@@ -3020,9 +3434,15 @@ def _svd_drivers(torch, params):
     return out
 
 
+#: the sim phase's depth: llm-100m at full width, cut to this many of its
+#: 12 layers to keep the script inside its time limit
+SIM_LAYERS = 4
+
+
 def phase_sim(torch, counters, workdir):
     """The system simulator (``repro_torch.fed.sim``) through ``build(spec)``,
-    at llm-100m's full width and depth:
+    at llm-100m's full width cut to ``SIM_LAYERS`` layers (the preset
+    replaced for the phase):
 
     1. ``[sim sync]``: the sync engine priced under ``SIM_PROFILE``,
        ``SIM_SYNC_ROUNDS`` rounds, bit-identical to the plain engine's
@@ -3041,6 +3461,14 @@ def phase_sim(torch, counters, workdir):
        the cloud SVD's time; then a 1-edge cloud aggregate of the result
        held to keep every factor's U S Vᵀ.
     """
+    from repro_torch.api import tasks
+
+    cut = dataclasses.replace(tasks.PRESETS["llm-100m"], num_layers=SIM_LAYERS)
+    with unittest.mock.patch.dict(tasks.PRESETS, {"llm-100m": cut}):
+        return _phase_sim(torch, counters, workdir)
+
+
+def _phase_sim(torch, counters, workdir):
     import numpy as np
 
     from repro_torch.api import ExperimentSpec, build, load_spec
@@ -3552,8 +3980,9 @@ def phase_dryrun(torch, records):
     per-device argument / temp bytes, compute / memory / collective ms,
     dominant term) and the documented ``SKIP``. Then every local shape at
     which those traces call ``xus`` / ``avt`` / ``atb`` that the kernels
-    phases lack, against its plain version on the card. Returns the new
-    kernel records and the dry runs' results."""
+    phases lack, against its plain version on the card and its plan
+    (untimed: nothing sums these shapes). Returns the new kernel records
+    and the dry runs' results."""
     out = os.path.join(ROOT, "results", "dryrun_torch")
     os.makedirs(out, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -3591,10 +4020,11 @@ def phase_dryrun(torch, records):
     new = []
     for kernel, dtype, dim, R, G, M in sorted(shapes - have):
         if kernel == "atb":
-            new.append(atb_case(torch, dtype, M, dim, R, gen, G=G, tag="[kernels dryrun]"))
+            new.append(atb_case(torch, dtype, M, dim, R, gen, G=G, tag="[kernels dryrun]",
+                                timed=False))
         else:
             new.append(kernel_case(torch, kernel, dtype, M, dim, R, gen, G=G,
-                                   tag="[kernels dryrun]"))
+                                   tag="[kernels dryrun]", timed=False))
         torch.cuda.empty_cache()
     _check_records(new)
     log(f"[dryrun] {len(shapes)} local kernel shapes recorded, {len(new)} new ones held to "
@@ -3607,17 +4037,18 @@ def phase_dryrun(torch, records):
     return new, summary
 
 
-def atb_case(torch, dtype_name, M, Ka, Kb, gen, G=1, tag="[kernels]"):
+def atb_case(torch, dtype_name, M, Ka, Kb, gen, G=1, tag="[kernels]", timed=True):
     """One ``atb`` shape (stacked over G where G > 1) against its plain
     version, timed (kernel, plain, ``matmul(A.T, B)``) in a CUDA graph, with
-    its bound and device launches held to ``atb_plan``; logs one line."""
+    its bound and device launches held to ``atb_plan``; logs one line.
+    ``timed=False`` leaves the times None."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.coeff_grad import atb, atb_plan
 
     dtype = getattr(torch, dtype_name)
     lead = (G,) if G > 1 else ()
     set_bytes = G * M * (Ka + Kb) * dtype.itemsize
-    n_sets = max(2, min(64, math.ceil(L2_DEFEAT_BYTES / set_bytes)))
+    n_sets = max(2, min(64, math.ceil(L2_DEFEAT_BYTES / set_bytes))) if timed else 1
     sets = [(torch.randn(lead + (M, Ka), generator=gen, device="cuda").to(dtype),
              torch.randn(lead + (M, Kb), generator=gen, device="cuda").to(dtype))
             for _ in range(n_sets)]
@@ -3636,17 +4067,20 @@ def atb_case(torch, dtype_name, M, Ka, Kb, gen, G=1, tag="[kernels]"):
     reps = max(n_sets, 8)
     rec = dict(kernel="atb", model="dryrun", dtype=dtype_name, M=M, Ka=Ka, Kb=Kb, G=G,
                max_abs_err=err, ok=ok, splits=plan.splits, launches=dev,
-               ms=graph_ms(torch, lambda i: atb(*sets[i]), n_sets, reps),
-               plain_ms=graph_ms(torch, lambda i: ref.atb_ref(*sets[i]), n_sets, reps),
-               library_ms=graph_ms(torch, lambda i: torch.matmul(
-                   sets[i][0].transpose(-1, -2), sets[i][1]), n_sets, reps))
+               ms=None, plain_ms=None, library_ms=None)
+    if timed:
+        rec.update(ms=graph_ms(torch, lambda i: atb(*sets[i]), n_sets, reps),
+                   plain_ms=graph_ms(torch, lambda i: ref.atb_ref(*sets[i]), n_sets, reps),
+                   library_ms=graph_ms(torch, lambda i: torch.matmul(
+                       sets[i][0].transpose(-1, -2), sets[i][1]), n_sets, reps))
     b_ms, rec["bound_by"] = _atb_bound_ms(dtype_name, M, Ka, Kb)
     rec["bound_ms"] = G * b_ms
+    times = (f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+             f"library_ms={rec['library_ms']:.4f} " if timed else "untimed ")
     log(f"{tag} atb {dtype_name:8s} {f'G={G:<3d}' if G > 1 else ''}M={M:<5d} Ka={Ka:<6d} "
-        f"Kb={Kb:<4d} max_abs_err={err:.3g} {'ok' if ok else 'MISMATCH'}  "
-        f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-        f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.6f} "
-        f"({rec['bound_by']}) splits={plan.splits} launches={dev}")
+        f"Kb={Kb:<4d} max_abs_err={err:.3g} {'ok' if ok else 'MISMATCH'}  {times}"
+        f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}) splits={plan.splits} "
+        f"launches={dev}")
     del sets
     return rec
 
@@ -3793,13 +4227,15 @@ def decode_step_sums(name, cfg, records):
 
 
 def kernel_summary(records, model_records, atb_records, flash_records, counters, cfg, atb_round,
-                   xus_round, avt_round, encdec_sums, scan):
+                   xus_round, avt_round, encdec_sums, scan, qwen2):
     """Per kernel: ``xus``/``avt`` as the sum over one Qwen2-7B decode
     step's launches (M = 4) of each measured number, with the sum over one
     decode step of each of the models phase's architectures under
     ``by_model`` (Whisper-large-v3 and LLaVA-NeXT-Mistral-7B: their paths'
     recorded calls, a decode step's with a prefill's under ``prefill``)
     and over one llm-100m round's calls under ``round``;
+    ``xus``, ``avt`` and ``atb`` also summed over one bf16 Qwen2-7B round's
+    calls under ``train_qwen2``;
     ``atb`` as the sum over
     one llm-100m FeDLRT round's calls (M = 512, f32: ``phase_atb``'s
     ``[atb] round``); ``flash_attention``
@@ -3837,20 +4273,19 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
                      f"the stub frontend's)")
         # the training path's calls, summed over one round
         out[-1]["round"] = {**(xus_round if name == "xus" else avt_round),
-                            "bound_by": "operations",
                             "unit": "one llm-100m FeDLRT round (f32, M=512)"}
-    bound_by = {r["bound_by"] for r in atb_records
-                if r["model"] == "llm-100m" and r["dtype"] == "float32" and r["M"] == 512}
+        out[-1]["train_qwen2"] = {**qwen2[f"{name}_round"], "unit": QWEN2_ROUND_UNIT}
     out.append({
         "name": "atb", "route": "cuda", "source": SOURCES["atb"], "replaces": REPLACES["atb"],
         **launches("atb"),
         "max_abs_err": max(r["max_abs_err"] for r in atb_records),
         "ms": atb_round["ms"], "plain_ms": atb_round["plain_ms"],
         "bound_ms": atb_round["bound_ms"],
-        "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
+        "bound_by": atb_round["bound_by"],
         "library_ms": atb_round["library_ms"], "calls": atb_round["calls"],
         "device_launches": atb_round["device_launches"],
         "unit": "one llm-100m FeDLRT round (f32, M=512)",
+        "train_qwen2": {**qwen2["atb_round"], "unit": QWEN2_ROUND_UNIT},
     })
     [pre] = [r for r in flash_records if r["case"] == "qwen2-7b prefill"]
     out.append({
@@ -3924,6 +4359,9 @@ def main() -> int:
     done("dryrun")
     train = phase_train(torch, counters)
     done("train")
+    train_qwen2 = phase_train_qwen2(torch, counters)
+    train_qwen2["atb_round"] = atb_round_total(atb_records, train_qwen2["round_calls"], "qwen2-7b")
+    done("train-qwen2")
     flash_records = phase_flash(torch, counters)
     done("flash")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spec_") as workdir:
@@ -3939,13 +4377,15 @@ def main() -> int:
                                    "encdec_vlm": ev_stats, "mesh": mesh_stats,
                                    "dryrun": dry_stats,
                                    "train": train,
+                                   "train_qwen2": {k: v for k, v in train_qwen2.items()
+                                                   if k != "round_calls"},
                                    "flash": flash_records, "spec": spec_stats,
                                    "sim": sim_stats, "examples": examples_stats,
                                    "xus_train": xus_train,
                                    "avt_train": avt_train}))
     print(json.dumps({"kernels": kernel_summary(
         records, model_records, atb_records, flash_records, counters, cfg, atb_round, xus_round,
-        avt_round, ev_sums, model_stats["jamba mamba scan"]["kernel"])}))
+        avt_round, ev_sums, model_stats["jamba mamba scan"]["kernel"], train_qwen2)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

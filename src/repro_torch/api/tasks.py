@@ -138,6 +138,7 @@ def lm_model_config(m) -> ModelConfig:
 
 
 def _build_lm(spec, device) -> Task:
+    from repro_torch.core.factorization import training_dtypes
     from repro_torch.data import FederatedBatcher, make_token_stream, partition_sizes
     from repro_torch.models import build_model
 
@@ -145,7 +146,7 @@ def _build_lm(spec, device) -> Task:
     cfg = lm_model_config(m)
     model = build_model(cfg)
     with torch.no_grad():
-        params, _ = model.init(_generator(spec.seed, device))
+        params = training_dtypes(model.init(_generator(spec.seed, device))[0])
     n_params = sum(x.numel() for x in tree_leaves(params))
     # Markov stream with planted low-rank transitions: a real loss floor
     tokens = make_token_stream(

@@ -10,7 +10,9 @@ the JAX package's ``repro.core.cost_model`` in PyTorch.
   token, and factor storage.
 
 Counts are *per client per round*; bytes are f32 on the wire (``BYTES``), as
-in the paper's accounting; ``b`` = local batch size, ``s*`` = local steps.
+in the paper's accounting, but for :func:`wire_round_bytes`, which counts
+each tensor at its own element size; ``b`` = local batch size, ``s*`` =
+local steps.
 """
 from __future__ import annotations
 
@@ -137,7 +139,7 @@ def fedlrt_round_comm_bytes_effective(params, correction: str = "simplified") ->
 def wire_round_bytes(params, method: str = "fedlrt", *, correction: str = "simplified") -> dict:
     """Analytic per-client bytes of the round's *wire-layer data plane*:
     exactly what :func:`repro_torch.core.round.run_round` transmits under
-    the identity codec, per direction (f32 accounting).
+    the identity codec, per direction, each tensor at its own element size.
 
     - ``down``: the shared broadcast plus the client's per-client slice: for
       FeDLRT the augmented factors ``Ū, S̃, V̄`` (+ their rank counters) and,
@@ -147,34 +149,38 @@ def wire_round_bytes(params, method: str = "fedlrt", *, correction: str = "simpl
       scalar), a dense baseline's full weights.
 
     The measured ``wire_bytes_{down,up}_per_client`` of the identity codec
-    equal these exactly. :func:`fedlrt_round_comm_bytes` prices the paper's
-    multi-message protocol instead.
+    equal these exactly: for an f32 tree the paper's f32 accounting, for a
+    tree of mixed dtypes (a bf16 round: f32 bases, a bf16 S̃ and bf16
+    dense leaves; a correction block and a client's update take their S's
+    and their leaf's dtype) the bytes the identity codec sends.
+    :func:`fedlrt_round_comm_bytes` prices the paper's multi-message
+    protocol instead.
     """
     fbytes = [
-        (math.prod(f.U.shape[:-2]), f.n_in, f.n_out, f.r_max, f.rank.numel())
+        (math.prod(f.U.shape[:-2]), f.n_in, f.n_out, f.r_max, f.rank.numel() * f.rank.element_size(),
+         f.U.element_size(), f.S.element_size())
         for f in _factor_leaves(params)
     ]
-    dense = sum(x.numel() for x in _dense_leaves(params))
+    dense = sum(x.numel() * x.element_size() for x in _dense_leaves(params))
     if method.startswith("fedlrt_naive") or method == "naive":
-        (stack, n_in, n_out, r, rank_sz), = fbytes  # single-factor setting
-        down = (n_in + n_out) * r + r * r + rank_sz
-        up = (n_in + n_out) * 2 * r + 4 * r * r
-        return {"down": down * BYTES, "up": up * BYTES}
+        (stack, n_in, n_out, r, rank_b, ub, sb), = fbytes  # single-factor setting
+        down = (n_in + n_out) * r * ub + r * r * sb + rank_b
+        up = (n_in + n_out) * 2 * r * ub + 4 * r * r * sb
+        return {"down": down, "up": up}
     if method.startswith("fedlrt"):
         aug = sum(
-            stack * ((n_in + n_out) * 2 * r + 4 * r * r) + rank_sz
-            for stack, n_in, n_out, r, rank_sz in fbytes
+            stack * ((n_in + n_out) * 2 * r * ub + 4 * r * r * sb) + rank_b
+            for stack, n_in, n_out, r, rank_b, ub, sb in fbytes
         )
-        coeff = sum(stack * 4 * r * r for stack, _, _, r, _ in fbytes)
+        coeff = sum(stack * 4 * r * r * sb for stack, _, _, r, _, _, sb in fbytes)
         down = aug + dense
         if correction in ("simplified", "full"):
             down += coeff + dense  # per-client correction slice
-        up = coeff + dense + 1  # + the drift diagnostic scalar
-        return {"down": down * BYTES, "up": up * BYTES}
+        up = coeff + dense + BYTES  # + the drift diagnostic scalar (f32)
+        return {"down": down, "up": up}
     if method in ("fedavg", "fedlin"):
-        size = sum(x.numel() for x in tree_leaves(params))
-        down = size * (2 if method == "fedlin" else 1)
-        return {"down": down * BYTES, "up": size * BYTES}
+        total = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+        return {"down": total * (2 if method == "fedlin" else 1), "up": total}
     raise ValueError(f"unknown method {method!r}")
 
 

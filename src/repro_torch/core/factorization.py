@@ -24,6 +24,8 @@ from typing import Optional
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch.utils.tree import tree_map
+
 
 @dataclasses.dataclass
 class LowRankFactor:
@@ -123,8 +125,15 @@ def mask_coeff(S: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def materialize(f) -> torch.Tensor:
-    """The full ``n_in × n_out`` matrix (tests / tiny layers only)."""
-    return torch.einsum("...ir,...rs,...js->...ij", f.U, f.S, f.V)
+    """The full ``n_in × n_out`` matrix (tests / tiny layers only), in the
+    promoted dtype of U, S and V (a training factor's f32 bases with a bf16
+    S give f32, as ``jnp.einsum`` does)."""
+    dt = _promoted(f)
+    return torch.einsum("...ir,...rs,...js->...ij", f.U.to(dt), f.S.to(dt), f.V.to(dt))
+
+
+def _promoted(f) -> torch.dtype:
+    return torch.promote_types(torch.promote_types(f.U.dtype, f.S.dtype), f.V.dtype)
 
 
 def lr_matmul(x: torch.Tensor, f, *, kernels: str = "off") -> torch.Tensor:
@@ -194,11 +203,27 @@ def init_factor(
     return LowRankFactor(U=U * m.to(dtype), S=S, V=V * m.to(dtype), rank=rank)
 
 
+def training_dtypes(params):
+    """A model's parameters in the JAX package's initial dtypes for
+    training: its ``init_factor`` multiplies the bases (in ``param_dtype``)
+    by an f32 rank mask, so U and V start in f32 beside an S in
+    ``param_dtype``, and the round keeps each factor's dtypes
+    (``augment_basis``, ``truncate``): a bf16 round carries f32 bases,
+    orthonormal to f32 precision. The values are the ``param_dtype`` ones.
+    Every training caller (the ``lm`` task, the dry run's train shapes)
+    starts from these; serving keeps its bases in ``param_dtype``."""
+    return tree_map(
+        lambda x: dataclasses.replace(x, U=x.U.float(), V=x.V.float()) if is_factor(x) else x,
+        params, is_leaf=is_factor,
+    )
+
+
 def lr_rowlookup(idx: torch.Tensor, f: LowRankFactor, *, out_dtype=None) -> torch.Tensor:
     """Row lookup ``W[idx, :]`` of a factorized table: a gather of the
     ``r``-wide rows of U and two small products; the ``vocab × d`` table is
     never formed."""
-    out = (f.U[idx] @ f.S) @ f.V.transpose(-1, -2)
+    dt = _promoted(f)
+    out = (f.U[idx].to(dt) @ f.S.to(dt)) @ f.V.to(dt).transpose(-1, -2)
     return out.to(out_dtype) if out_dtype is not None else out
 
 

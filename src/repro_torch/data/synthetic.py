@@ -175,6 +175,12 @@ def make_classification_data(
     return x, labels
 
 
+#: bytes the dense route's three float64 vocab x vocab tables may take each
+#: (logits, probabilities, cumulative sums); a larger vocabulary takes the
+#: rows route, which forms one row of each per token
+DENSE_TABLE_BUDGET = 1 << 30
+
+
 def make_token_stream(
     *,
     vocab_size: int = 512,
@@ -188,7 +194,21 @@ def make_token_stream(
     Transition logits ``T = A Bᵀ`` (rank ``rank``): a model with enough
     effective rank can drive cross-entropy towards the chain's conditional
     entropy, so LM training on this stream shows genuine loss descent.
+
+    The JAX package forms ``T`` and its softmax and cumulative sums as
+    ``vocab × vocab`` tables (float64 under numpy's promotion rules: 185 GB
+    each at Qwen2's 152,064 tokens). Up to :data:`DENSE_TABLE_BUDGET` bytes
+    a table this does the same; above it, it builds the row of the current
+    token only, with the same operations in the same order, so the two
+    routes give the same tokens.
     """
+    route = _token_stream_dense if vocab_size**2 * 8 <= DENSE_TABLE_BUDGET else _token_stream_rows
+    return route(vocab_size=vocab_size, num_tokens=num_tokens, rank=rank,
+                 temperature=temperature, seed=seed)
+
+
+def _token_stream_dense(*, vocab_size, num_tokens, rank, temperature, seed) -> np.ndarray:
+    """The JAX package's code: every row of the chain's tables at once."""
     rng = np.random.default_rng(seed)
     A = rng.standard_normal((vocab_size, rank)).astype(np.float32)
     B = rng.standard_normal((vocab_size, rank)).astype(np.float32)
@@ -202,5 +222,30 @@ def make_token_stream(
     u = rng.random(num_tokens)
     for i in range(num_tokens):
         tok = int(np.searchsorted(cdf[tok], u[i]))
+        tokens[i] = min(tok, vocab_size - 1)
+    return tokens
+
+
+def _token_stream_rows(*, vocab_size, num_tokens, rank, temperature, seed) -> np.ndarray:
+    """The dense route one row at a time: the same draws in the same order,
+    and each row by the same operations. The row's product takes two copies
+    of ``A[tok]`` so that it runs through the same matrix-matrix product as
+    ``A @ Bᵀ`` (a one-row product is a matrix-vector product, which sums in
+    another order); each entry of a product of two or more rows then matches
+    the dense table's bit for bit, as the tests hold it."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((vocab_size, rank)).astype(np.float32)
+    B = rng.standard_normal((vocab_size, rank)).astype(np.float32)
+    Bt = B.T
+    tokens = np.empty(num_tokens, dtype=np.int32)
+    tok = int(rng.integers(vocab_size))
+    u = rng.random(num_tokens)
+    for i in range(num_tokens):
+        logits = (A[[tok, tok]] @ Bt)[0] / (np.sqrt(rank) * temperature)
+        logits -= logits.max(axis=-1, keepdims=True)
+        probs = np.exp(logits)
+        probs /= probs.sum(axis=-1, keepdims=True)
+        cdf = np.cumsum(probs, axis=-1)
+        tok = int(np.searchsorted(cdf, u[i]))
         tokens[i] = min(tok, vocab_size - 1)
     return tokens

@@ -89,6 +89,7 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool, s_star: int = 4,
                 correction: str = "simplified", method: str = "fedlrt", device: str = "cuda"):
     from repro_torch.configs import get_config
     from repro_torch.core import FedConfig
+    from repro_torch.core.factorization import training_dtypes
     from repro_torch.kernels.lowrank_matmul import record_shapes
     from repro_torch.launch import roofline as rl
     from repro_torch.launch.mesh import data_axis_size, make_production_mesh
@@ -121,6 +122,8 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool, s_star: int = 4,
     with counter:
         gen = torch.Generator(device=device)
         params, specs = model.init(gen)
+        if shape.kind == "train":  # the trainer's f32 bases beside a bf16 S
+            params = training_dtypes(params)
         specs = sanitize_specs(mesh, params, specs)
         dparams = sharding.distribute(params, specs, mesh)
         del params
