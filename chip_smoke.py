@@ -68,14 +68,24 @@ per source, all started together) and drives each of the port's paths:
   with the launches, the losses, the inactive columns, the ranks and the
   measured wire bytes held (``cost_model.wire_round_bytes``),
   peak memory, host s a round and the data's host s; one more round under
-  ``torch.profiler`` (device busy share, kernels by device time); at full
-  width and 2 layers one round with kernels on, its every call held to the
-  per-shape counts by dtype, against one with kernels off (each factor's
-  ``U S Vᵀ`` within 2⁻⁷ of its largest entry and 1/8 of the round's own
-  change of it); every bf16 ``xus`` (S in bf16, or in f32 as the
-  backward gives it) / ``avt`` shape of the round against its plain
-  version, timed, and the
-  sums over one full-depth round (``atb``'s from the atb phase's records);
+  ``torch.profiler`` (device busy share, kernels by device time, the
+  truncation SVD's share); at full width and 2 layers one round with
+  kernels on, its every call held to ``round_calls`` (one per launch, by
+  kernel, dtypes, K or N, R, the stack G and the rows M), against one
+  with kernels off (each factor's ``U S Vᵀ`` within 2⁻⁷ of its largest
+  entry and 1/8 of the round's own change of it); every bf16 ``xus`` (S
+  in bf16, or in f32 as the backward gives it) / ``avt`` / ``atb`` shape
+  of the round against its plain version, timed, and the sums over one
+  full-depth round;
+- train-olmoe: the same for OLMoE-1B-7B (16 layers, d 2048, 64 experts
+  top-8 of hidden 1024, vocabulary 50,304): one round and the profiled
+  one (the expert stacks' truncations timed by CUDA events outside the
+  trace), each MoE projection one launch a layer with its 64 experts on
+  the kernels' grid axis at the capacity's 80 rows; the 2-layer pair with
+  the tokens whose expert choices differ counted, held only where none
+  does, else again in f32, where the first differing choices must be
+  near-ties (an expert stack within 1/4 of its own change); the
+  truncation SVD drivers on 8 expert members;
 - flash: ``repro_torch.kernels.flash_attention`` at four attention shapes
   (Qwen2-7B prefill and decode against a cache, Mistral-7B's sliding
   window, an f32 case), each held to ``flash_attention_ref``, with its time
@@ -120,8 +130,10 @@ per source, all started together) and drives each of the port's paths:
 - dryrun: ``python -m repro_torch.launch.dryrun`` on the host for Qwen2-7B
   (train_4k, prefill_32k, decode_32k; long_500k the documented skip),
   RWKV6-7B (long_500k) and OLMoE-1B-7B (train_4k) on a fake 256-rank
-  16 x 16 mesh, then every local ``xus`` / ``avt`` / ``atb`` shape those
-  traces record against its plain version on the card (untimed);
+  16 x 16 mesh, started after the build and tracing beside the phases
+  before it, then every local ``xus`` / ``avt`` / ``atb`` shape those
+  traces record (``xus`` by S's dtype too) against its plain version on
+  the card (untimed);
 - examples (last): the example twins ``examples/torch_*.py`` through their
   ``main``: the quickstart (the planted rank 4 found), ``torch_train_llm.py
   --preset llm-100m --rounds 2`` (llm-100m at full width and depth on
@@ -139,6 +151,7 @@ Imports nothing of JAX. Needs one CUDA card.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -174,7 +187,7 @@ SOURCES = {
 }
 KERNELS = tuple(SOURCES)
 PATHS = ("serve", "serve-quant", "models", "encdec", "vlm", "mesh", "train", "train-qwen2",
-         "flash", "spec", "sim", "examples")
+         "train-olmoe", "flash", "spec", "sim", "examples")
 #: tolerance of a kernel against its plain version, with the reason
 TOL = {
     # both round once from f32 to bf16; f32 sums taken in different orders
@@ -446,9 +459,9 @@ def _ptxas_by_kernel(ptxas: str):
     return [(short.get(n, n), line) for n, line in pairs]
 
 
-def _case_inputs(torch, kernel, dtype, M, dim, R, n_sets, gen, G=1):
+def _case_inputs(torch, kernel, dtype, M, dim, R, n_sets, gen, G=1, s_dtype=None):
     """``n_sets`` input sets of one call; a stack of ``G`` (G > 1) leads
-    every operand with G."""
+    every operand with G; ``xus``'s S in ``s_dtype`` (default ``dtype``)."""
     dev = "cuda"
     lead = (G,) if G > 1 else ()
     sets = []
@@ -457,7 +470,8 @@ def _case_inputs(torch, kernel, dtype, M, dim, R, n_sets, gen, G=1):
             K = dim
             x = torch.randn(lead + (M, K), generator=gen, device=dev).to(dtype)
             U = (torch.randn(lead + (K, R), generator=gen, device=dev) / math.sqrt(K)).to(dtype)
-            S = (torch.randn(lead + (R, R), generator=gen, device=dev) / math.sqrt(R)).to(dtype)
+            S = (torch.randn(lead + (R, R), generator=gen, device=dev) / math.sqrt(R)).to(
+                s_dtype or dtype)
             sets.append((x, U, S))
         else:
             N = dim
@@ -487,13 +501,16 @@ def _bound_ms(kernel, dtype_name, M, dim, R, has_s=True, G=1, s_dtype=None):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_case(torch, kernel, dtype_name, M, dim, R, gen, G=1, tag="[kernels]", timed=True):
+def kernel_case(torch, kernel, dtype_name, M, dim, R, gen, G=1, tag="[kernels]", timed=True,
+                s_dtype=None):
     """One ``xus`` / ``avt`` shape (stacked over G where G > 1) against its
     plain version, timed (kernel, plain, library) in a CUDA graph over
     enough input sets to defeat L2, with its bound, host µs a call and its
     device launches held to its plan; logs one ``tag`` line, returns the
     record. ``timed=False`` holds the shape to its plain version and its
-    plan without timing it (its times None)."""
+    plan without timing it (its times None); ``xus`` is held with S and
+    without. ``s_dtype``: ``xus``'s S in another dtype than x's, untimed
+    only (no one library call takes mixed operands)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.lowrank_matmul import avt, xus
 
@@ -510,14 +527,19 @@ def kernel_case(torch, kernel, dtype_name, M, dim, R, gen, G=1, tag="[kernels]",
     # of all of them at least 4x the L2
     set_bytes = G * max(dim * R, M * (dim if kernel == "xus" else R)) * dtype.itemsize
     n_sets = max(2, min(512, math.ceil(L2_DEFEAT_BYTES / set_bytes)))
-    sets = _case_inputs(torch, kernel, dtype, M, dim, R, n_sets if timed else 1, gen, G)
-    got, want = kfn(*sets[0]), pfn(*sets[0])
+    sets = _case_inputs(torch, kernel, dtype, M, dim, R, n_sets if timed else 1, gen, G,
+                        getattr(torch, s_dtype) if s_dtype else None)
+    pairs = [(kfn(*sets[0]), pfn(*sets[0]))]
+    if kernel == "xus":  # and without S
+        pairs.append((xus(*sets[0][:2]), ref.xus_ref(*sets[0][:2])))
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    ok = torch.allclose(got.float(), want.float(), **TOL[dtype_name])
+    err = max((got.float() - want.float()).abs().max().item() for got, want in pairs)
+    ok = all(torch.allclose(got.float(), want.float(), **TOL[dtype_name]) for got, want in pairs)
+    del pairs
     reps = max(n_sets, 20)
     rec = dict(kernel=kernel, dtype=dtype_name, M=M, dim=dim, R=R, G=G, max_abs_err=err, ok=ok,
-               ms=None, plain_ms=None, library_ms=None, host_us=None)
+               ms=None, plain_ms=None, library_ms=None, host_us=None,
+               S=(s_dtype or dtype_name) if kernel == "xus" else None)
     if timed:
         rec.update(
             ms=graph_ms(torch, lambda i: kfn(*sets[i]), n_sets, reps),
@@ -546,7 +568,8 @@ def kernel_case(torch, kernel, dtype_name, M, dim, R, gen, G=1, tag="[kernels]",
     times = (f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
              f"library_ms={rec['library_ms']:.4f} " if timed else "untimed ")
     host = f" host_us={rec['host_us']:.1f}" if timed else ""
-    log(f"{tag} {kernel} {dtype_name:8s} {stack}M={M:<3d} {dimname}={dim:<6d} R={R:<3d} "
+    s_txt = f"S={s_dtype} " if s_dtype else ""
+    log(f"{tag} {kernel} {dtype_name:8s} {stack}M={M:<3d} {dimname}={dim:<6d} R={R:<3d} {s_txt}"
         f"max_abs_err={err:.3g} tol={TOL[dtype_name]} {'ok' if ok else 'MISMATCH'}  {times}"
         f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}){host}{route}")
     del sets
@@ -1071,19 +1094,20 @@ def capacity_drops(torch, decode, n_tokens, top_k, n_layers):
     return (n_tokens * top_k - kept).sum(dim=1).tolist()
 
 
-def routing_flips(torch, routed, ref_routed, top_k, n_layers):
+def routing_flips(torch, routed, ref_routed, top_k, n_layers, forwards=False):
     """The tokens whose chosen expert set differs between two runs' MoE
     calls (a prefill's ``n_layers`` calls, then a decode step's), as
     (prefill or decode, layer, token, the reference's top-k margin), and
-    the smallest margin of the reference's calls."""
+    the smallest margin of the reference's calls. ``forwards``: the calls
+    are forwards of ``n_layers`` calls each, named by their index."""
     smallest, flips = float("inf"), []
     for i, (r, ref) in enumerate(zip(routed, ref_routed, strict=True)):
         margin = topk_margin(torch, ref.probs, top_k)
         smallest = min(smallest, margin.min().item())
         differ = (torch.sort(r.topi, -1).values != torch.sort(ref.topi, -1).values).any(-1)
         for t in torch.nonzero(differ).flatten().tolist():
-            flips.append(("prefill" if i < n_layers else "decode", i % n_layers, t,
-                          margin[t].item()))
+            what = i // n_layers if forwards else "prefill" if i < n_layers else "decode"
+            flips.append((what, i % n_layers, t, margin[t].item()))
     return flips, smallest
 
 
@@ -1172,7 +1196,7 @@ def phase_models(torch, counters, records):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
+        t0 = t_arch = time.perf_counter()
         session = serve(spec, device="cuda")
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
@@ -1278,8 +1302,11 @@ def phase_models(torch, counters, records):
         have |= shapes
         _check_records(model_records)
         torch.cuda.empty_cache()
+        log(f"{tag} {time.perf_counter() - t_arch:.1f} s with its kernel shapes")
+    t0 = time.perf_counter()
     stats["olmoe-1b-7b f32"] = olmoe_f32_check(torch)
     stats["rwkv6-7b f32"] = greedy_f32_check(torch, "rwkv6-7b", 3)
+    log(f"[models f32] both checks took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     stats["jamba mamba scan"] = mamba_scan_check(torch)
     log(f"[models jamba mamba scan] the check took {time.perf_counter() - t0:.1f} s")
@@ -1904,33 +1931,29 @@ def _atb_bound_ms(dtype_name, M, Ka, Kb):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def llm100m_round_calls(torch):
+def llm100m_round_calls():
     """The ``xus``, ``avt`` and ``atb`` calls of one llm-100m FeDLRT round
-    with the spec defaults (:func:`train_xus_calls`, :func:`train_avt_calls`,
-    :func:`train_atb_calls`), held to :func:`expected_launches`, and their M
-    (batch × seq)."""
-    from repro_torch.api import ExperimentSpec, ModelSpec, build
+    with the spec defaults, f32 (:func:`round_calls`), from the model's
+    factors (built on the host: no data, no engine)."""
+    import torch
 
-    spec = ExperimentSpec(name="chip-calls-llm-100m", seed=0, model=ModelSpec(preset="llm-100m"))
-    exp = build(spec, device="cuda")
-    cfg = exp.engine.cfg
-    calls = dict(xus=train_xus_calls(exp.params, cfg), avt=train_avt_calls(exp.params, cfg),
-                 atb=train_atb_calls(exp.params, cfg))
-    want, _ = expected_launches(exp.params, cfg)
-    del exp
-    torch.cuda.empty_cache()
-    for name, c in calls.items():
-        if sum(c.values()) != want[name]:
-            raise AssertionError(f"train_{name}_calls counts {sum(c.values())} {name} calls a "
-                                 f"round, expected_launches {want[name]}")
-    return dict(calls, M=spec.data.batch * spec.data.seq)
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.api.tasks import PRESETS
+    from repro_torch.core.factorization import training_dtypes
+    from repro_torch.models.model import build_params
+
+    spec = ExperimentSpec(name="chip-calls-llm-100m", seed=0)
+    with torch.no_grad():
+        params, _ = build_params(PRESETS["llm-100m"], torch.Generator().manual_seed(0))
+    return round_calls(training_dtypes(params), spec.fed.to_fed_config(),
+                       spec.data.batch * spec.data.seq)
 
 
-def phase_atb(torch, round_calls):
+def phase_atb(torch, calls):
     """``atb`` against its plain version at every training-path shape, f32
     and bf16, with its device launches a call (held to ``atb_plan``), its
     time, bound, plain time and ``torch.matmul(A.T, B)``'s; then the sums
-    over one llm-100m round's calls (``round_calls["atb"]``, f32)."""
+    over one llm-100m round's calls (``calls``, :func:`round_calls`, f32)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.coeff_grad import atb, atb_plan
 
@@ -1965,7 +1988,7 @@ def phase_atb(torch, round_calls):
                     tol = str(TOL[dtype_name])
                 reps = max(n_sets, 8)
                 rec = dict(
-                    kernel="atb", model=model, dtype=dtype_name, M=M, Ka=Ka, Kb=Kb,
+                    kernel="atb", model=model, dtype=dtype_name, M=M, Ka=Ka, Kb=Kb, G=1,
                     max_abs_err=err, ok=ok, splits=plan.splits, launches=dev,
                     ms=graph_ms(torch, lambda i: atb(*sets[i]), n_sets, reps),
                     plain_ms=graph_ms(torch, lambda i: ref.atb_ref(*sets[i]), n_sets, reps),
@@ -1987,7 +2010,7 @@ def phase_atb(torch, round_calls):
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} atb case(s) disagree with the plain version: {bad}")
-    return records, atb_round_total(records, round_calls, "llm-100m")
+    return records, atb_round_total(torch, records, calls, "llm-100m")
 
 
 def dominant_bound(parts) -> str:
@@ -1999,97 +2022,42 @@ def dominant_bound(parts) -> str:
     return max(by, key=by.get)
 
 
-def atb_round_total(records, round_calls, model):
+def atb_round_total(torch, records, calls, model, tag="[atb]"):
     """``atb``'s measured numbers summed over one ``model`` round's calls
-    (``round_calls["atb"]``: (Ka, Kb) → calls in f32, or (Ka, Kb, dtype) →
-    calls; at ``round_calls["M"]``), each call at its shape's record."""
-    M = round_calls["M"]
+    (``calls``, :func:`round_calls`), each call at its shape's record in
+    ``records``; a shape none has is held to its plain version and timed
+    (:func:`atb_case`) first, its record added to ``records``."""
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, calls=0, device_launches=0.0)
     parts = []
-    for key, n in sorted(round_calls["atb"].items()):
-        Ka, Kb, dt = (key + ("float32",))[:3]
-        [rec] = [r for r in records if (r["model"], r["dtype"], r["M"], r["Ka"], r["Kb"])
-                 == (model, dt, M, Ka, Kb)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    for (_, dt, Ka, Kb, _, G, M), n in of_kernel(calls, "atb").items():
+        found = [r for r in records if r["ms"] is not None and (
+            r["dtype"], r["Ka"], r["Kb"], r["G"], r["M"]) == (dt, Ka, Kb, G, M)]
+        if not found:
+            found = [atb_case(torch, dt, M, Ka, Kb, gen, G=G, tag=tag, model=model)]
+            _check_records(found)
+            records += found
+        rec = found[0]
         parts.append((n * rec["bound_ms"], rec["bound_by"]))
         for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
             total[k] += n * rec[k]
         total["calls"] += n
         total["device_launches"] += n * rec["launches"]
-    log(f"[atb] round: per {model} round (M={M}): {total['calls']} calls, "
+    log(f"{tag} round: per {model} round: {total['calls']} calls, "
         f"{total['device_launches']:g} device launches; kernel {total['ms']:.3f} ms, plain "
         f"{total['plain_ms']:.3f} ms, library {total['library_ms']:.3f} ms, bound "
-        f"{total['bound_ms']:.3f} ms; by (Ka, Kb[, dtype]): "
-        + ", ".join(f"{'x'.join(map(str, key))} x{n}"
-                    for key, n in sorted(round_calls["atb"].items())))
+        f"{total['bound_ms']:.3f} ms; by (dtype, Ka, Kb, G, M): "
+        + ", ".join(f"{dt} {Ka}x{Kb} G{G} M{M} x{n}"
+                    for (_, dt, Ka, Kb, _, G, M), n in of_kernel(calls, "atb").items()))
     total["bound_by"] = dominant_bound(parts)
     return total
 
 
-def phase_xus_train(torch, round_calls, dtype_name="float32", tag="[xus-train]",
-                    model="llm-100m"):
-    """``xus`` at every shape of one ``model`` FeDLRT round (M = batch × seq
-    = 512, ``dtype_name``, with and without S; S in the dtype that ends a
-    key of ``round_calls["xus"]``, else in ``dtype_name``), each held to its
-    plain version, with its device launches a call against the plan, its
-    time, the plain version's, the library call's (``torch.linalg.multi_dot``,
-    or ``torch.matmul`` without S; none where S's dtype differs: no one call
-    takes mixed operands) and the bound; then the sums over one round's
-    calls (``round_calls["xus"]``; ``library_ms`` None if a shape has no
-    library call, ``library_ms_where_one`` over the shapes that have one)."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.lowrank_matmul import xus
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    calls, M = round_calls["xus"], round_calls["M"]
-    dtype = getattr(torch, dtype_name)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(5)
-    records = []
-    for key, n in sorted(calls.items()):
-        K, R, has_s, s_name = (key + (dtype_name,))[:4]
-        s_type = getattr(torch, s_name)
-        set_bytes = (M * K + K * R) * dtype.itemsize + R * R * s_type.itemsize
-        n_sets = max(2, min(64, math.ceil(L2_DEFEAT_BYTES / set_bytes)))
-        sets = [(torch.randn(M, K, generator=gen, device="cuda").to(dtype),
-                 (torch.randn(K, R, generator=gen, device="cuda") / math.sqrt(K)).to(dtype),
-                 (torch.randn(R, R, generator=gen, device="cuda") / math.sqrt(R)).to(s_type)
-                 if has_s else None)
-                for _ in range(n_sets)]
-        got, plain = xus(*sets[0]), ref.xus_ref(*sets[0])
-        torch.cuda.synchronize()
-        err = (got.float() - plain.float()).abs().max().item()
-        ok = torch.allclose(got.float(), plain.float(), **TOL[dtype_name])
-        dev = device_launches(torch, lambda: xus(*sets[0]))
-        plan = _xus_route(sets[0][0], sets[0][1], sets[0][2], dev)
-        if not has_s:
-            lib = lambda i: torch.matmul(sets[i][0], sets[i][1])  # noqa: E731
-        elif s_name == dtype_name:
-            lib = lambda i: torch.linalg.multi_dot(list(sets[i]))  # noqa: E731
-        else:
-            lib = None
-        reps = max(n_sets, 20)
-        rec = dict(K=K, R=R, S=s_name if has_s else None, calls=n, max_abs_err=err, ok=ok,
-                   route=plan.route, splits=plan.splits, launches=dev,
-                   ms=graph_ms(torch, lambda i: xus(*sets[i]), n_sets, reps),
-                   plain_ms=graph_ms(torch, lambda i: ref.xus_ref(*sets[i]), n_sets, reps),
-                   library_ms=graph_ms(torch, lib, n_sets, reps) if lib else None)
-        rec["bound_ms"], rec["bound_by"] = _bound_ms("xus", dtype_name, M, K, R, has_s,
-                                                     s_dtype=s_name)
-        flops = 2 * M * K * R + (2 * M * R * R if has_s else 0)
-        rec["tflops"] = flops / rec["ms"] / 1e9
-        records.append(rec)
-        lib_txt = "none" if lib is None else f"{rec['library_ms']:.4f}"
-        log(f"{tag} {dtype_name} M={M} K={K:<5d} R={R:<3d} S={s_name if has_s else 'no':8s} "
-            f"x{n:<5d} max_abs_err={err:.3g} tol={TOL[dtype_name]} {'ok' if ok else 'MISMATCH'}  "
-            f"kernel_ms={rec['ms']:.4f} ({rec['tflops']:.1f} TF/s) plain_ms={rec['plain_ms']:.4f} "
-            f"library_ms={lib_txt} bound_ms={rec['bound_ms']:.6f} "
-            f"({rec['bound_by']}) route={plan.route} splits={plan.splits} launches={dev}")
-        del sets, got, plain
-    torch.cuda.empty_cache()
-    bad = [r for r in records if not r["ok"]]
-    if bad:
-        raise AssertionError(
-            f"{len(bad)} xus training case(s) disagree with the plain version: {bad}")
+def _round_total(records, tag, model):
+    """A round's sums over its shapes' ``records`` (each weighed by its
+    ``calls``): kernel, plain, bound and, where every shape has one, library
+    ms (``library_ms_where_one`` over the shapes that have one); logged."""
     total = {k: sum(r["calls"] * r[k] for r in records) for k in ("ms", "plain_ms", "bound_ms")}
     with_lib = [r for r in records if r["library_ms"] is not None]
     total["library_ms_where_one"] = sum(r["calls"] * r["library_ms"] for r in with_lib)
@@ -2102,49 +2070,122 @@ def phase_xus_train(torch, round_calls, dtype_name="float32", tag="[xus-train]",
         f"device launches; kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
         f"library {total['library_ms_where_one']:.3f} ms over the {total['library_calls']} "
         f"calls that have one, bound {total['bound_ms']:.3f} ms")
-    return records, total
+    return total
 
 
-def phase_avt_train(torch, round_calls, dtype_name="float32", tag="[avt-train]",
-                    model="llm-100m"):
-    """``avt`` at every shape of one ``model`` FeDLRT round (M = batch × seq
-    = 512, ``dtype_name``), each held to its plain version, with its device
-    launches a call against the plan, its time, the plain version's, the
-    library call's (``torch.matmul(A, V.t())``, TF32 off) and the bound;
-    then the sums over one round's calls (``round_calls["avt"]``)."""
+def _n_sets(set_bytes):
+    """Input sets cycled in a timing: all of them at least 4x the L2."""
+    return max(2, min(64, math.ceil(L2_DEFEAT_BYTES / set_bytes)))
+
+
+def phase_xus_train(torch, calls, tag="[xus-train]", model="llm-100m"):
+    """``xus`` at every shape of one ``model`` FeDLRT round (``calls``,
+    :func:`round_calls`: x's dtype, K, R, S's dtype or no S, the stack G and
+    the rows M of each key), each held to its plain version, with its
+    device launches a call against the plan, its time, the plain version's,
+    the library call's (``torch.linalg.multi_dot``, or ``torch.matmul``
+    without S or over a stack; none where S's dtype differs: no one call
+    takes mixed operands) and the bound; then the sums over one round's
+    calls (``library_ms`` None if a shape has no library call,
+    ``library_ms_where_one`` over the shapes that have one)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lowrank_matmul import xus
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    records = []
+    for (_, dt, K, R, s_name, G, M), n in of_kernel(calls, "xus").items():
+        dtype, has_s = getattr(torch, dt), s_name is not None
+        s_type = getattr(torch, s_name or dt)
+        lead = (G,) if G > 1 else ()
+        n_sets = _n_sets(G * ((M * K + K * R) * dtype.itemsize + R * R * s_type.itemsize))
+        def draw(*shape, scale=1.0, dtype=dtype):
+            return (torch.randn(lead + shape, generator=gen, device="cuda") * scale).to(dtype)
+
+        sets = [(draw(M, K), draw(K, R, scale=K**-0.5),
+                 draw(R, R, scale=R**-0.5, dtype=s_type) if has_s else None)
+                for _ in range(n_sets)]
+        got, plain = xus(*sets[0]), ref.xus_ref(*sets[0])
+        torch.cuda.synchronize()
+        err = (got.float() - plain.float()).abs().max().item()
+        ok = torch.allclose(got.float(), plain.float(), **TOL[dt])
+        dev = device_launches(torch, lambda: xus(*sets[0]))
+        plan = _xus_route(sets[0][0], sets[0][1], sets[0][2], dev)
+        if not has_s:
+            lib = lambda i: torch.matmul(sets[i][0], sets[i][1])  # noqa: E731
+        elif s_name != dt:
+            lib = None
+        elif G > 1:
+            lib = lambda i: sets[i][0] @ sets[i][1] @ sets[i][2]  # noqa: E731
+        else:
+            lib = lambda i: torch.linalg.multi_dot(list(sets[i]))  # noqa: E731
+        reps = max(n_sets, 20)
+        rec = dict(dtype=dt, K=K, R=R, S=s_name, G=G, M=M, calls=n, max_abs_err=err, ok=ok,
+                   route=plan.route, splits=plan.splits, launches=dev,
+                   ms=graph_ms(torch, lambda i: xus(*sets[i]), n_sets, reps),
+                   plain_ms=graph_ms(torch, lambda i: ref.xus_ref(*sets[i]), n_sets, reps),
+                   library_ms=graph_ms(torch, lib, n_sets, reps) if lib else None)
+        rec["bound_ms"], rec["bound_by"] = _bound_ms("xus", dt, M, K, R, has_s, G=G,
+                                                     s_dtype=s_name)
+        flops = G * (2 * M * K * R + (2 * M * R * R if has_s else 0))
+        rec["tflops"] = flops / rec["ms"] / 1e9
+        records.append(rec)
+        lib_txt = "none" if lib is None else f"{rec['library_ms']:.4f}"
+        log(f"{tag} {dt} {f'G={G} ' if G > 1 else ''}M={M} K={K:<5d} R={R:<3d} "
+            f"S={s_name or 'no':8s} x{n:<5d} max_abs_err={err:.3g} tol={TOL[dt]} "
+            f"{'ok' if ok else 'MISMATCH'}  kernel_ms={rec['ms']:.4f} ({rec['tflops']:.1f} TF/s) "
+            f"plain_ms={rec['plain_ms']:.4f} library_ms={lib_txt} bound_ms={rec['bound_ms']:.6f} "
+            f"({rec['bound_by']}) route={plan.route} splits={plan.splits} launches={dev}")
+        del sets, got, plain
+    torch.cuda.empty_cache()
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(
+            f"{len(bad)} xus training case(s) disagree with the plain version: {bad}")
+    return records, _round_total(records, tag, model)
+
+
+def phase_avt_train(torch, calls, tag="[avt-train]", model="llm-100m"):
+    """``avt`` at every shape of one ``model`` FeDLRT round (``calls``,
+    :func:`round_calls`: dtype, N, R, the stack G and the rows M of each
+    key), each held to its plain version, with its device launches a call
+    against the plan, its time, the plain version's, the library call's
+    (``torch.matmul(A, Vᵀ)``, TF32 off) and the bound; then the sums over
+    one round's calls."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.lowrank_matmul import avt
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    calls, M = round_calls["avt"], round_calls["M"]
-    dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
     records = []
-    for (N, R), n in sorted(calls.items()):
-        set_bytes = (M * R + N * R) * dtype.itemsize
-        n_sets = max(2, min(64, math.ceil(L2_DEFEAT_BYTES / set_bytes)))
-        sets = [(torch.randn(M, R, generator=gen, device="cuda").to(dtype),
-                 (torch.randn(N, R, generator=gen, device="cuda") / math.sqrt(R)).to(dtype))
+    for (_, dt, N, R, _, G, M), n in of_kernel(calls, "avt").items():
+        dtype = getattr(torch, dt)
+        lead = (G,) if G > 1 else ()
+        n_sets = _n_sets(G * (M * R + N * R) * dtype.itemsize)
+        sets = [(torch.randn(lead + (M, R), generator=gen, device="cuda").to(dtype),
+                 (torch.randn(lead + (N, R), generator=gen, device="cuda") * R**-0.5).to(dtype))
                 for _ in range(n_sets)]
         got, plain = avt(*sets[0]), ref.avt_ref(*sets[0])
         torch.cuda.synchronize()
         err = (got.float() - plain.float()).abs().max().item()
-        ok = torch.allclose(got.float(), plain.float(), **TOL[dtype_name])
+        ok = torch.allclose(got.float(), plain.float(), **TOL[dt])
         dev = device_launches(torch, lambda: avt(*sets[0]))
         plan, desc = _avt_route(*sets[0], dev)
         reps = max(n_sets, 20)
-        rec = dict(N=N, R=R, calls=n, max_abs_err=err, ok=ok, route=plan.route, launches=dev,
+        rec = dict(dtype=dt, N=N, R=R, G=G, M=M, calls=n, max_abs_err=err, ok=ok,
+                   route=plan.route, launches=dev,
                    ms=graph_ms(torch, lambda i: avt(*sets[i]), n_sets, reps),
                    plain_ms=graph_ms(torch, lambda i: ref.avt_ref(*sets[i]), n_sets, reps),
-                   library_ms=graph_ms(torch, lambda i: torch.matmul(sets[i][0], sets[i][1].t()),
-                                       n_sets, reps))
-        rec["bound_ms"], rec["bound_by"] = _bound_ms("avt", dtype_name, M, N, R)
-        rec["tflops"] = 2 * M * N * R / rec["ms"] / 1e9
+                   library_ms=graph_ms(torch, lambda i: torch.matmul(
+                       sets[i][0], sets[i][1].transpose(-1, -2)), n_sets, reps))
+        rec["bound_ms"], rec["bound_by"] = _bound_ms("avt", dt, M, N, R, G=G)
+        rec["tflops"] = G * 2 * M * N * R / rec["ms"] / 1e9
         records.append(rec)
-        log(f"{tag} {dtype_name} M={M} N={N:<5d} R={R:<3d} x{n:<5d} max_abs_err={err:.3g} "
-            f"tol={TOL[dtype_name]} {'ok' if ok else 'MISMATCH'}  kernel_ms={rec['ms']:.4f} "
-            f"({rec['tflops']:.1f} TF/s) plain_ms={rec['plain_ms']:.4f} "
+        log(f"{tag} {dt} {f'G={G} ' if G > 1 else ''}M={M} N={N:<5d} R={R:<3d} x{n:<5d} "
+            f"max_abs_err={err:.3g} tol={TOL[dt]} {'ok' if ok else 'MISMATCH'}  "
+            f"kernel_ms={rec['ms']:.4f} ({rec['tflops']:.1f} TF/s) plain_ms={rec['plain_ms']:.4f} "
             f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.6f} "
             f"({rec['bound_by']}) {desc}")
         del sets, got, plain
@@ -2153,15 +2194,7 @@ def phase_avt_train(torch, round_calls, dtype_name="float32", tag="[avt-train]",
     if bad:
         raise AssertionError(
             f"{len(bad)} avt training case(s) disagree with the plain version: {bad}")
-    total = {k: sum(r["calls"] * r[k] for r in records)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    total["calls"] = sum(r["calls"] for r in records)
-    total["device_launches"] = sum(r["calls"] * r["launches"] for r in records)
-    total["bound_by"] = dominant_bound((r["calls"] * r["bound_ms"], r["bound_by"]) for r in records)
-    log(f"{tag} per {model} round: {total['calls']} calls, {total['device_launches']:g} "
-        f"device launches; kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
-        f"library {total['library_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms")
-    return records, total
+    return records, _round_total(records, tag, model)
 
 
 def phase_backward(torch):
@@ -2224,135 +2257,98 @@ def _factors(params):
     return out
 
 
-def expected_launches(params, cfg):
-    """Kernel launches one FeDLRT round makes, from the model's factors.
+def expert_rows(moe, M) -> int:
+    """Rows each expert of a MoE block takes from ``M`` tokens: its capacity
+    ``cap = min(max(int(cf·k·M/E), 1), M)`` (``models/moe.py`` ``route``)."""
+    return min(max(int(moe.capacity_factor * moe.top_k * M / moe.num_experts), 1), M)
 
-    Per factor slice, a forward is 1 ``xus`` + 1 ``avt``. The backward of a
-    linear layer in the basis-gradient pass (x, U, S, V all differentiated)
-    is 4 ``xus``, 1 ``avt``, 3 ``atb``; in the client loop (x and S̃) 3
-    ``xus``, 1 ``avt``, 1 ``atb``. The embedding runs the chain on
-    ``U[tok]`` with its S in the U slot: 2 ``xus``, 1 ``avt``, 2 ``atb`` in
-    the basis pass, plus 1 ``atb`` for the gather's backward into U
-    (``onehotᵀ · g``); 1 ``xus`` + 1 ``atb`` in the client loop. Each client
-    runs the basis pass once, s* client steps (one more with the full
-    correction) and, with ``eval_after``, one forward.
+
+def round_calls(params, cfg, M, dtype="float32", moe=None):
+    """The kernel calls of one FeDLRT round, one per launch: (kernel, the
+    first operand's dtype, K or N or Ka, R or Kb, S's dtype or None, G, M)
+    → calls, the keys :func:`kernel_calls` records.
+
+    A factor leaf launches once a layer of its stack: G is the product of
+    its further stack dims (a MoE block's E experts, the kernels' grid
+    axis), M the rows of each member: batch × seq (``M``), or for the
+    experts their capacity (:func:`expert_rows` of ``moe``). ``dtype`` is
+    the activations' dtype; the backward's products with S (``dy V Sᵀ``,
+    ``x U S``, ``u S I``) take S in f32, and the embedding gather's
+    backward into U runs ``atb`` at U's dtype.
+
+    Per launch, a forward is 1 ``xus`` (``x U S``) + 1 ``avt``. The
+    backward of a linear layer in the basis-gradient pass (x, U, S, V all
+    differentiated) is 4 ``xus`` (``dy V Sᵀ``, ``x U``, ``dy V``, ``x U
+    S``), 1 ``avt`` (dx), 3 ``atb`` (dU, dS, dV); in the client loop (x and
+    S̃, at the augmented rank 2r) 3 ``xus``, 1 ``avt``, 1 ``atb``. The
+    embedding runs the chain on ``U[tok]`` (K = r) with its S in the U
+    slot and an identity in the S slot: the basis pass's forward, ``dy V
+    Iᵀ`` (K = d) and ``u S I`` on ``xus``, dx into ``U[tok]`` (N = r) on
+    ``avt``, its coefficient and dV on ``atb``, plus 1 ``atb`` for the
+    gather's backward into U (``onehotᵀ · g``); a client step the forward
+    and ``dy V Iᵀ`` at 2r, and dS̃. Each client runs the basis pass once,
+    s* client steps (one more with the full correction) and, with
+    ``eval_after``, one forward.
     """
-    import math
-
-    n_emb = sum(math.prod(f.U.shape[:-2]) for p, f in _factors(params) if p == "['embed']")
-    n_lin = sum(math.prod(f.U.shape[:-2]) for p, f in _factors(params)) - n_emb
-    fwd = n_lin + n_emb
-    basis = dict(xus=fwd + 4 * n_lin + 2 * n_emb, avt=fwd + n_lin + n_emb,
-                 atb=3 * n_lin + 3 * n_emb)
-    step = dict(xus=fwd + 3 * n_lin + n_emb, avt=fwd + n_lin, atb=n_lin + n_emb)
-    steps = cfg.s_star + (1 if cfg.correction == "full" else 0)
-    C = cfg.num_clients
-    return {k: C * (basis[k] + steps * step[k] + (fwd if cfg.eval_after and k != "atb" else 0))
-            for k in basis}, (n_lin, n_emb)
-
-
-def train_atb_calls(params, cfg):
-    """(Ka, Kb) → ``atb`` launches of one FeDLRT round (as counted in
-    :func:`expected_launches`)."""
-    import math
-
     calls = {}
-
-    def add(key, n):
-        calls[key] = calls.get(key, 0) + n
-
     C, steps = cfg.num_clients, cfg.s_star + (1 if cfg.correction == "full" else 0)
+    runs = 1 + (1 if cfg.eval_after else 0)  # the forward, and the evaluation's
+    wide = "float32"
     for path, f in _factors(params):
-        n, r = math.prod(f.U.shape[:-2]), f.r_max
+        stack = tuple(f.U.shape[:-2])
+        n, G = math.prod(stack[:1]), math.prod(stack[1:])
+        rows = M if G == 1 else expert_rows(moe, M)
+        r, r2 = f.r_max, 2 * f.r_max
+
+        def add(kernel, a, b, times, s=None, dt=dtype):
+            key = (kernel, dt, a, b, s, G, rows)
+            calls[key] = calls.get(key, 0) + C * n * times
+
         if path == "['embed']":
-            add((r, r), C * n)  # dU slot (the coefficient)
-            add((f.n_out, r), C * n)  # dV
-            add((f.n_in, r), C * n)  # the gather's backward into U: onehotᵀ g
-        else:
-            add((r, r), C * n)  # dS
-            add((f.n_in, r), C * n)  # dU
-            add((f.n_out, r), C * n)  # dV
-        add((2 * r, 2 * r), C * steps * n)  # dS̃ (embedding: its dU slot)
+            add("xus", r, r, runs, dtype)
+            add("xus", r, r, 1, wide)  # u S I
+            add("xus", f.n_out, r, 1, wide)  # dy V Iᵀ
+            add("xus", r2, r2, steps, dtype)
+            add("xus", f.n_out, r2, steps, wide)
+            add("avt", f.n_out, r, runs)
+            add("avt", r, r, 1)  # dx into U[tok]: N is the U slot's rows, S's r
+            add("avt", f.n_out, r2, steps)
+            add("atb", r, r, 1)  # the U slot (the coefficient)
+            add("atb", f.n_out, r, 1)  # dV
+            add("atb", f.n_in, r, 1, dt=str(f.U.dtype).removeprefix("torch."))  # onehotᵀ g
+            add("atb", r2, r2, steps)  # dS̃ (its U slot)
+            continue
+        add("xus", f.n_in, r, runs, dtype)  # x U S
+        add("xus", f.n_in, r, 1, wide)  # x U S, for dV
+        add("xus", f.n_out, r, 1, wide)  # dy V Sᵀ
+        add("xus", f.n_in, r, 1)  # x U
+        add("xus", f.n_out, r, 1)  # dy V
+        add("xus", f.n_in, r2, steps, dtype)
+        add("xus", f.n_out, r2, steps, wide)
+        add("xus", f.n_in, r2, steps)
+        add("xus", f.n_out, r2, steps)
+        add("avt", f.n_out, r, runs)
+        add("avt", f.n_in, r, 1)  # dx
+        add("avt", f.n_out, r2, steps)
+        add("avt", f.n_in, r2, steps)
+        add("atb", r, r, 1)  # dS
+        add("atb", f.n_in, r, 1)  # dU
+        add("atb", f.n_out, r, 1)  # dV
+        add("atb", r2, r2, steps)  # dS̃
     return calls
 
 
-def train_avt_calls(params, cfg):
-    """(N, R) → ``avt`` launches of one FeDLRT round (as counted in
-    :func:`expected_launches`), all at M = batch × seq.
-
-    A linear slice (n_in → n_out, rank r): the basis pass runs the forward
-    (N = n_out) and the backward's ``dx`` (N = n_in); a client step the same
-    at the augmented rank 2r; the evaluation one forward at r. The
-    embedding runs the chain on ``U[tok]`` with its S in the U slot: the
-    basis pass forward (N = d) and ``dx`` into ``U[tok]`` (N = r); a client
-    step the forward at 2r.
-    """
-    import math
-
-    calls = {}
-
-    def add(key, n):
-        calls[key] = calls.get(key, 0) + n
-
-    C, steps = cfg.num_clients, cfg.s_star + (1 if cfg.correction == "full" else 0)
-    evals = 1 if cfg.eval_after else 0
-    for path, f in _factors(params):
-        n, r = math.prod(f.U.shape[:-2]), f.r_max
-        add((f.n_out, r), C * n * (1 + evals))  # forward (and the evaluation)
-        add((f.n_out, 2 * r), C * steps * n)
-        if path == "['embed']":
-            add((r, r), C * n)  # dx into U[tok]: N is the U slot's rows, S's r
-        else:
-            add((f.n_in, r), C * n)  # dx
-            add((f.n_in, 2 * r), C * steps * n)
-    return calls
+def launches_of(calls) -> dict:
+    """``xus`` / ``avt`` / ``atb`` launches of :func:`round_calls`' calls."""
+    out = {"xus": 0, "avt": 0, "atb": 0}
+    for key, n in calls.items():
+        out[key[0]] += n
+    return out
 
 
-def train_xus_calls(params, cfg, dtype=None):
-    """(K, R, with S) → ``xus`` launches of one FeDLRT round (as counted in
-    :func:`expected_launches`), all at M = batch × seq. With ``dtype`` (the
-    activations' dtype name) each key ends in S's dtype: f32 for the
-    backward's products with S (``dy V Sᵀ``, ``x U S``, ``u S I``, which
-    take S in f32), ``dtype`` for the others.
-
-    A linear slice (n_in → n_out, rank r): the basis pass runs the forward
-    ``x U S``, the backward ``dy V Sᵀ``, ``x U``, ``dy V`` and ``x U S``; a
-    client step the same at the augmented rank 2r without the last one; the
-    evaluation one forward at r. The embedding runs the chain on ``U[tok]``
-    (K = r) with its S in the U slot and an identity in the S slot: the
-    basis pass forward, ``dy V Iᵀ`` (K = d) and ``u S I``; a client step the
-    forward and ``dy V Iᵀ`` at 2r.
-    """
-    import math
-
-    calls = {}
-
-    def add(key, n, wide=False):
-        if dtype is not None:
-            key += ("float32" if wide else dtype,)
-        calls[key] = calls.get(key, 0) + n
-
-    C, steps = cfg.num_clients, cfg.s_star + (1 if cfg.correction == "full" else 0)
-    evals = 1 if cfg.eval_after else 0
-    for path, f in _factors(params):
-        n, r = math.prod(f.U.shape[:-2]), f.r_max
-        if path == "['embed']":
-            add((r, r, True), C * n * (1 + evals))  # forward (and the evaluation)
-            add((r, r, True), C * n, wide=True)  # u S I
-            add((f.n_out, r, True), C * n, wide=True)  # dy V Iᵀ
-            add((2 * r, 2 * r, True), C * steps * n)
-            add((f.n_out, 2 * r, True), C * steps * n, wide=True)
-        else:
-            add((f.n_in, r, True), C * n * (1 + evals))  # forward (and the evaluation)
-            add((f.n_in, r, True), C * n, wide=True)  # x U S
-            add((f.n_out, r, True), C * n, wide=True)  # dy V Sᵀ
-            add((f.n_in, r, False), C * n)  # x U
-            add((f.n_out, r, False), C * n)  # dy V
-            add((f.n_in, 2 * r, True), C * steps * n)
-            add((f.n_out, 2 * r, True), C * steps * n, wide=True)
-            add((f.n_in, 2 * r, False), C * steps * n)
-            add((f.n_out, 2 * r, False), C * steps * n)
-    return calls
+def of_kernel(calls, kernel) -> dict:
+    """The calls of ``kernel`` among :func:`round_calls`' (a sorted dict)."""
+    return {k: n for k, n in sorted(calls.items(), key=str) if k[0] == kernel}
 
 
 def _wrappers():
@@ -2374,7 +2370,7 @@ def _zero_counts():
         fn.launches = 0
 
 
-def device_profile(torch, fn, tag: str, top: int, cpu: bool = True):
+def device_profile(torch, fn, tag: str, top: int, cpu: bool = True, by_name=None, hold=None):
     """One call of ``fn`` under ``torch.profiler``: its kernels, the union
     of their intervals on the card (device busy seconds) and the host
     seconds of the call; logs the ``top`` kernel names by device time,
@@ -2382,28 +2378,34 @@ def device_profile(torch, fn, tag: str, top: int, cpu: bool = True):
     alone: for a call of ~10^5 small operators, whose host events take the
     profiler tens of seconds to collect (the host seconds then lack the
     profiler's per-operator cost; a trace without device events is taken
-    again with both)."""
+    again with both). The trace's raw events are read, not the profiler's
+    parsed ``events()``, whose Python objects cost minutes for a round of
+    10^6 kernels. ``by_name``, a dict, receives each kernel
+    name's device µs; ``hold``, a dict, the profiler while ``fn`` runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
+        if hold is not None:
+            hold["prof"] = prof
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            start, end = e.time_range.start, e.time_range.end
+    spans = []
+    by_name = {} if by_name is None else by_name
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            start, end, name = e.start_ns() / 1e3, e.end_ns() / 1e3, e.name()
             spans.append((start, end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + (end - start)
+            by_name[name] = by_name.get(name, 0.0) + (end - start)
     busy, reach = 0.0, float("-inf")  # length of the union of the intervals (µs)
     for start, end in sorted(spans):
         busy += max(0.0, end - max(start, reach))
         reach = max(reach, end)
     if not spans and not cpu:
-        return device_profile(torch, fn, tag, top)
+        return device_profile(torch, fn, tag, top, by_name=by_name, hold=hold)
     total = sum(by_name.values()) or 1.0
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"{tag} {us / 1e3:9.3f} ms  {100 * us / total:5.1f} %  {name[:110]}")
@@ -2445,14 +2447,14 @@ def phase_train(torch, counters):
     log(exp.describe())
     cfg = exp.engine.cfg
     params0 = _clone(exp.params)
-    want, (n_lin, n_emb) = expected_launches(params0, cfg)
+    want = launches_of(round_calls(params0, cfg, spec.data.batch * spec.data.seq))
     dense_elems = sum(
         f.n_in * f.n_out * math.prod(f.U.shape[:-2]) for _, f in _factors(params0)
     ) + sum(
         t.numel() for t in tree_leaves(params0)
     ) - sum(sum(t.numel() for t in (f.U, f.S, f.V, f.rank)) for _, f in _factors(params0))
     fedavg_bytes = 2 * dense_elems * 4  # cost_model.dense_round_comm_bytes of the dense model
-    log(f"[train] {n_lin} linear factor slices + {n_emb} embedding; expected launches per "
+    log(f"[train] {len(_factors(params0))} factor leaves; expected launches per "
         f"round: {want} (C={cfg.num_clients}, s*={cfg.s_star}, correction={cfg.correction}, "
         f"eval_after={cfg.eval_after})")
 
@@ -2557,7 +2559,7 @@ def phase_train(torch, counters):
     return dict(rounds=rounds, path_s=path_s, profile=profile, svd_drivers=drivers)
 
 
-def truncation_svd_drivers(torch, coeffs, tau):
+def truncation_svd_drivers(torch, coeffs, tau, tag="[train]"):
     """The round's truncation SVD under cuSOLVER's Jacobi ``gesvdj`` and
     its QR-based ``gesvd``, on the aggregated 2r × 2r coefficients S̃ that
     one llm-100m round's truncations received (one stack per factor leaf,
@@ -2594,7 +2596,7 @@ def truncation_svd_drivers(torch, coeffs, tau):
             rebuild = max(rebuild, ((W - S).abs().max() / S.abs().max()).item())
         out[driver] = dict(ms=ms, sigma_rel_err=sigma_err, ranks_same=bool(ranks_same),
                            worst_rebuild=rebuild)
-        log(f"[train] truncation SVD driver {driver}: {len(coeffs)} stacks "
+        log(f"{tag} truncation SVD driver {driver}: {len(coeffs)} stacks "
             f"({sum(math.prod(S.shape[:-2]) for S in coeffs)} matrices of "
             f"{coeffs[0].shape[-1]} x {coeffs[0].shape[-1]}) in {ms:.1f} ms; worst sigma error "
             f"{sigma_err:.3g} of the largest (f64 reference); ranks "
@@ -2607,7 +2609,7 @@ def truncation_svd_drivers(torch, coeffs, tau):
 
 
 # ---------------------------------------------------------------------------
-# Qwen2-7B trained at full width and depth, bf16
+# Qwen2-7B and OLMoE-1B-7B trained at full width and depth, bf16
 # ---------------------------------------------------------------------------
 
 QWEN2_ROUNDS = 2
@@ -2631,6 +2633,23 @@ QWEN2_USVT_RTOL = 2.0**-7
 #: unchanged (a share of 1) or moved them wrongly; the kernel round's
 #: bf16 activations shift the change by ~2 % of it
 QWEN2_USVT_OF_MOVE = 1 / 8
+#: the same share for an expert stack (a MoE block's E members in one
+#: leaf): each member moves by ~1e-3 of the stack's largest entry in a
+#: round, and one bf16 rounding apart reads 0.14-0.16 of that change on the
+#: CPU (tests/test_torch_train_arch.py); a no-op round reads 1
+EXPERT_USVT_OF_MOVE = 1 / 4
+#: OLMoE-1B-7B (16 layers, d 2048, 64 experts top-8 of hidden 1024,
+#: vocabulary 50,304): one round and the profiled one (the phase's seconds
+#: are the script's to spare), on 4 x 4,096 tokens (the rows route)
+OLMOE_ROUNDS = 1
+OLMOE_ROUND_UNIT = ("one OLMoE-1B-7B FeDLRT round (bf16 activations; M=512, the experts' "
+                    "G=64 stacks at M=80; atb's embedding gather in f32)")
+OLMOE_TOKENS_PER_CLIENT = 4096
+OLMOE_OFF_LAYERS = 2
+OLMOE_OFF_TOKENS_PER_CLIENT = 512
+#: expert members whose truncation SVD both cuSOLVER drivers take (f64
+#: reference on the host)
+OLMOE_SVD_MEMBERS = 8
 #: tokens of the rows-against-dense check of the token stream at vocab 8192
 STREAM_CHECK_TOKENS = 8192
 
@@ -2663,9 +2682,8 @@ def token_stream_check():
 def kernel_calls(counts):
     """For the body: every ``xus`` / ``avt`` / ``atb`` call of the model's
     kernel path counted in ``counts`` by (kernel, the first operand's dtype,
-    K or N or Ka, R or Kb, S's dtype or None) — :func:`train_xus_calls`' /
-    :func:`train_avt_calls`' / :func:`train_atb_calls`' keys, with the
-    dtypes (``xus`` without S, ``avt`` and ``atb`` have None)."""
+    K or N or Ka, R or Kb, S's dtype or None, G, M): :func:`round_calls`'
+    keys (G 1 for 2-D operands; ``atb``'s M is the rows it sums over)."""
     from repro_torch.kernels import ops
     from repro_torch.models import layers
 
@@ -2673,11 +2691,12 @@ def kernel_calls(counts):
         return None if t is None else str(t.dtype).removeprefix("torch.")
 
     def key(kernel, a):
+        G = a[0].shape[0] if a[0].dim() == 3 else 1
         if kernel == "xus":
             return ("xus", name(a[0]), a[1].shape[-2], a[1].shape[-1],
-                    name(a[2]) if len(a) > 2 else None)
+                    name(a[2]) if len(a) > 2 else None, G, a[0].shape[-2])
         return (kernel, name(a[0]), a[1].shape[-2] if kernel == "avt" else a[0].shape[-1],
-                a[1].shape[-1], None)
+                a[1].shape[-1], None, G, a[0].shape[-2])
 
     def add(kernel):
         return lambda a, _: counts.__setitem__(key(kernel, a), counts.get(key(kernel, a), 0) + 1)
@@ -2687,82 +2706,203 @@ def kernel_calls(counts):
         yield
 
 
-def round_calls_by_shape(calls):
-    """:func:`kernel_calls`' counts as ({kernel: shape key → calls}, the
-    keys of :func:`train_xus_calls` / :func:`train_avt_calls` /
-    :func:`train_atb_calls`; {"xus" / "atb": typed key → calls}, the keys of
-    :func:`qwen2_round_calls`). Raises if an ``xus`` activation is not bf16
-    (the typed keys carry S's dtype alone)."""
-    recorded = {"xus": {}, "avt": {}, "atb": {}}
-    typed = {"xus": {}, "atb": {}}
+def profile_train_round(torch, exp, tag, wall):
+    """One more FeDLRT round of ``exp`` under ``torch.profiler`` (the card's
+    trace alone): kernels by device time, the device busy share of an
+    unprofiled round's host ``wall`` and the truncation SVD's share of the
+    busy time. The truncations of expert stacks (leaves of G > 1 members,
+    each member's ``gesvdj`` ~800 kernels: 2.4 M a round at OLMoE's 3,072,
+    a trace the profiler takes minutes to read) run with the trace's card
+    collection off, after a sync, timed by CUDA events: their time counts
+    as busy and as SVD, an upper bound (it holds their few other kernels
+    and the gaps between their launches)."""
+    import repro_torch.core.fedlrt as fedlrt_module
+    from torch.profiler import ProfilerActivity
 
-    def add(d, k, n):
-        d[k] = d.get(k, 0) + n
+    truncate, hold, apart, names = fedlrt_module.truncate, {}, [], {}
 
-    for (kernel, dt, a, b, s), n in calls.items():
-        if kernel == "xus":
-            if dt != "bfloat16":
-                raise AssertionError(f"xus with a {dt} activation: {calls}")
-            add(recorded["xus"], (a, b, s is not None), n)
-            add(typed["xus"], (a, b, s is not None, s or dt), n)
-        else:
-            add(recorded[kernel], (a, b), n)
-            if kernel == "atb":
-                add(typed["atb"], (a, b, dt), n)
-    return recorded, typed
+    def untraced(f, **kw):
+        if f.S.dim() <= 3:
+            return truncate(f, **kw)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        hold["prof"].toggle_collection_dynamic(False, [ProfilerActivity.CUDA])
+        start.record()
+        out = truncate(f, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        hold["prof"].toggle_collection_dynamic(True, [ProfilerActivity.CUDA])
+        apart.append(start.elapsed_time(end) / 1e3)
+        return out
+
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(fedlrt_module, "truncate", untraced):
+        n, traced_s, wall_prof = device_profile(
+            torch, lambda: exp.run(rounds=1, log_every=0), f"{tag[:-1]} profile]", 15,
+            cpu=False, by_name=names, hold=hold)
+    read_s = time.perf_counter() - t0 - wall_prof
+    busy_s = traced_s + sum(apart)
+    svd_s = sum(us for name, us in names.items() if "svd" in name.lower()) / 1e6 + sum(apart)
+    log(f"{tag[:-1]} profile] one round: {n} kernels traced, device busy {busy_s:.3f} s = "
+        f"{100 * busy_s / wall:.1f} % of an unprofiled round's {wall:.3f} s host (idle "
+        f"{100 * (1 - busy_s / wall):.1f} %); {wall_prof:.3f} s under the profiler, "
+        f"{read_s:.1f} s to read the trace; the truncation's SVDs {svd_s:.3f} s = "
+        f"{100 * svd_s / busy_s:.1f} % of the busy time"
+        + (f" (of it the {len(apart)} expert stacks' truncations untraced, by CUDA events: "
+           f"{sum(apart):.3f} s)" if apart else ""))
+    return dict(kernels_traced=n, device_busy_s=busy_s, traced_busy_s=traced_s,
+                untraced_truncation_s=sum(apart), svd_s=svd_s, wall_s=wall,
+                profiled_wall_s=wall_prof, read_s=read_s)
 
 
-def qwen2_round_calls(params, cfg, M):
-    """The calls of one bf16 FeDLRT round by shape at ``M`` rows: ``xus``'s
-    by (K, R, with S, S's dtype), ``avt``'s by (N, R), ``atb``'s by (Ka, Kb,
-    dtype): bf16 but for the embedding gather's backward into the f32 U,
-    ``onehotᵀ · g`` (f32: the gathered rows' cotangent takes U's dtype)."""
-    atb = {}
-    for (Ka, Kb), n in train_atb_calls(params, cfg).items():
-        atb[(Ka, Kb, "bfloat16")] = n
-    for path, f in _factors(params):
-        if path == "['embed']":
-            n = cfg.num_clients * math.prod(f.U.shape[:-2])
-            key = (f.n_in, f.r_max, "bfloat16")
-            atb[key] -= n
-            if not atb[key]:
-                del atb[key]
-            atb[(f.n_in, f.r_max, str(f.U.dtype).removeprefix("torch."))] = n
-    return dict(xus=train_xus_calls(params, cfg, "bfloat16"), avt=train_avt_calls(params, cfg),
-                atb=atb, M=M)
+def _cut_round(torch, spec, arch, layers, tokens, dtype, calls=None):
+    """One FeDLRT round of ``arch`` at full width and ``layers`` layers in
+    ``dtype`` (parameters and compute; f32 bases as every training caller)
+    with kernels, and one with kernels off from the same parameters; every
+    kernel call of the first counted in ``calls``, every MoE block's
+    routing of both recorded. Returns (the start, each run's experiment,
+    round result and routings)."""
+    from repro_torch.api import DataSpec, ModelSpec, build
+    from repro_torch.api import tasks
+    from repro_torch.models import moe
+
+    resolve = tasks.lm_model_config
+
+    def cut(m):
+        return dataclasses.replace(resolve(m), num_layers=layers, param_dtype=dtype,
+                                   compute_dtype=dtype)
+
+    small = dataclasses.replace(spec, name=f"{spec.name}-cut", rounds=1, log_every=0,
+                                data=DataSpec(tokens_per_client=tokens))
+    runs = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with unittest.mock.patch.object(tasks, "lm_model_config", cut):
+        for kernels in ("auto", "off"):
+            routed = []
+            p = None if kernels == "auto" else _clone(runs["auto"][3])
+            exp = build(dataclasses.replace(small, model=ModelSpec(arch=arch, kernels=kernels)),
+                        params=p, device="cuda")
+            start = _clone(exp.params)
+            count = kernel_calls(calls) if calls is not None and kernels == "auto" else (
+                contextlib.nullcontext())
+            with count, calls_of(moe, "route", lambda _, r: routed.append(r)):
+                res = exp.run(rounds=1)[-1]
+            runs[kernels] = (exp, res, routed, start)
+    torch.cuda.synchronize()
+    return runs["auto"][3], runs["auto"][:3], runs["off"][:3]
 
 
-def phase_train_qwen2(torch, counters):
-    """Qwen2-7B at full width and depth (28 layers, d 3584, d_ff 18944,
-    vocabulary 152,064, r_max 256) in bf16: ``QWEN2_ROUNDS`` FeDLRT rounds
-    through ``build(spec).run()`` with the spec defaults (fedlrt, simplified
-    correction, 4 clients, s* = 4, batch 4, seq 128, kernels auto) on
-    ``QWEN2_TOKENS_PER_CLIENT`` tokens a client, with the launches held to
-    :func:`expected_launches`, the losses finite, the inactive columns zero,
-    the ranks in [1, r_max] and the measured wire bytes equal to
-    ``cost_model.wire_round_bytes``; one more round under
-    ``torch.profiler`` (the card's trace alone); then at full width and
-    ``QWEN2_OFF_LAYERS`` layers one round with kernels on, its every kernel
-    call recorded and held to the per-shape counts (by dtype), against one
-    with kernels off from the same parameters (each factor's ``U S Vᵀ``
-    within ``QWEN2_USVT_RTOL`` of its largest entry and
-    ``QWEN2_USVT_OF_MOVE`` of the round's own change of it); and every
-    shape of the round's ``xus`` (bf16 x, S in bf16 or f32) / ``avt``
-    (bf16) against its plain version, timed, summed over one full-depth
-    round."""
+def _kernels_against_off(torch, tag, p0, on, off, moe_cfg, near_ties=False):
+    """The kernel round ``on`` against the plain chain's ``off`` from ``p0``:
+    the losses, the ranks, each factor's ``U S Vᵀ`` against its largest
+    entry and against the round's own change of it (an expert stack within
+    ``EXPERT_USVT_OF_MOVE``, the others ``QWEN2_USVT_OF_MOVE``), and with
+    MoE blocks the tokens whose expert choices differ. Held to the limits
+    unless an expert choice differs; with ``near_ties`` the first MoE call
+    in which a choice differs may hold only near-ties (the plain round's
+    top-k margin under ``FLIP_MARGIN``): a near-tie sends one client's
+    steps apart, after which its later choices may differ at any margin;
+    and the limits are held all the same. Returns the readings."""
     import numpy as np
 
+    from repro_torch.core.factorization import materialize
+
+    (exp_k, res_k, routed_k), (exp_off, res_off, routed_off) = on, off
+    out = dict(loss_before=(res_k.loss_before, res_off.loss_before),
+               loss_after=(res_k.loss_after, res_off.loss_after))
+    failed, gate = [], True
+    if moe_cfg is not None:
+        flips, smallest = routing_flips(torch, routed_k, routed_off, moe_cfg.top_k, 1,
+                                        forwards=True)
+        tokens = sum(r.probs.shape[0] for r in routed_off)
+        out.update(flips=len(flips), smallest_margin=smallest, moe_calls=len(routed_off))
+        log(f"{tag} kernels vs off: expert choices differ for {len(flips)} of {tokens} "
+            f"(token, MoE call) over {len(routed_off)} MoE calls; smallest top-k margin "
+            f"{smallest:.3g}" + "".join(f"; call {i} token {t} margin {m:.3g}"
+                                        for i, _, t, m in flips[:5]))
+        if near_ties and flips:
+            first = [f for f in flips if f[0] == flips[0][0]]
+            far = [f for f in first if f[-1] >= FLIP_MARGIN]
+            log(f"{tag} kernels vs off: the first MoE call with a differing choice, call "
+                f"{first[0][0]}: {len(first)} token(s), top-k margins "
+                f"{', '.join(f'{f[-1]:.3g}' for f in first[:8])} (each under {FLIP_MARGIN} "
+                f"held); {len(flips) - len(first)} more after it")
+            if far:
+                raise AssertionError(f"{tag} the first differing expert choices are not "
+                                     f"near-ties (margin >= {FLIP_MARGIN}): {far[:10]}")
+        elif not near_ties:
+            gate = not flips
+    for name in ("loss_before", "loss_after"):
+        a, b = getattr(res_k, name), getattr(res_off, name)
+        rel = abs(a - b) / abs(b)
+        log(f"{tag} kernels vs off, {name}: {a:.7f} vs {b:.7f} (rel {rel:.3g}, tol "
+            f"{QWEN2_LOSS_RTOL:.3g})")
+        if not rel <= QWEN2_LOSS_RTOL:
+            failed.append(f"{name} differs between kernels and off by {rel}")
+    ranks_same = all(np.array_equal(np.asarray(v), np.asarray(res_k.ranks[k]))
+                     for k, v in res_off.ranks.items())
+    if not ranks_same:
+        failed.append(f"ranks differ: kernels {res_k.ranks} vs off {res_off.ranks}")
+    worst, moves, of_move = 0.0, [], 0.0
+    for (path, f), (_, g), (_, f0) in zip(_factors(exp_k.params), _factors(exp_off.params),
+                                          _factors(p0)):
+        limit = EXPERT_USVT_OF_MOVE if f.U.dim() > 3 else QWEN2_USVT_OF_MOVE
+        W, W_off, W0 = materialize(f), materialize(g), materialize(f0)
+        scale = W_off.abs().max()
+        rel = ((W - W_off).abs().max() / scale).item()
+        move = ((W_off - W0).abs().max() / scale).item()
+        moves.append(move)
+        worst, of_move = max(worst, rel), max(of_move, rel / move)
+        log(f"{tag} kernels vs off, {path}: max|W - W_off| / max|W_off| = {rel:.3g}; "
+            f"the round's own change max|W_off - W_0| / max|W_off| = {move:.3g} "
+            f"({rel / move:.3g} of it, limit {limit:g})")
+        if not (rel <= QWEN2_USVT_RTOL and rel <= limit * move):
+            failed.append(f"{path}: U S V^T differs between kernels and off by {rel} of its "
+                          f"largest entry, {rel / move} of the round's change")
+        del W, W_off, W0
+    log(f"{tag} kernels vs off: ranks {'identical' if ranks_same else 'DIFFER'}; worst factor "
+        f"max|W - W_off| / max|W_off| = {worst:.3g} (tol {QWEN2_USVT_RTOL:.3g}), at most "
+        f"{of_move:.3g} of the factor's own change in the round ({min(moves):.3g} to "
+        f"{max(moves):.3g} over {len(moves)} factor leaves)"
+        + ("" if gate else "; not held: expert choices differ"))
+    if gate and failed:
+        raise AssertionError(f"{tag} kernels vs off: " + "; ".join(failed))
+    out.update(worst_usvt=worst, round_move=(min(moves), max(moves)), worst_of_move=of_move,
+               ranks_same=ranks_same, held=gate)
+    return out
+
+
+def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, off_tokens):
+    """``arch`` at full width and depth in bf16 (f32 bases): ``rounds``
+    FeDLRT rounds through ``build(spec).run()`` with the spec defaults
+    (fedlrt, simplified correction, 4 clients, s* = 4, batch 4, seq 128,
+    kernels auto) on ``tokens`` tokens a client, counted as the ``path``
+    path, with the launches held to :func:`round_calls`' per-launch count,
+    the losses finite, the inactive columns zero, the ranks in [1, r_max]
+    and the measured wire bytes equal to ``cost_model.wire_round_bytes``;
+    one more round under ``torch.profiler`` (the card's trace alone: busy
+    share, kernels by device time, the truncation SVD's share); then at
+    full width and ``off_layers`` layers one bf16 round with kernels on,
+    its every kernel call held to :func:`round_calls`, against one with
+    kernels off from the same parameters (:func:`_kernels_against_off`;
+    with MoE blocks held only if no expert choice differs, else the pair
+    again in f32, where the 3xTF32 route must keep the choices but for
+    near-ties under ``FLIP_MARGIN``, held); and every shape of the round's
+    ``xus`` / ``avt`` / ``atb`` against its plain version, timed, summed
+    over one full-depth round."""
+    import numpy as np
+
+    import repro_torch.core.fedlrt as fedlrt_module
     import repro_torch.data
     from repro_torch.api import DataSpec, ExperimentSpec, ModelSpec, build
     from repro_torch.api import tasks
     from repro_torch.core import cost_model
-    from repro_torch.core.factorization import materialize
     from repro_torch.utils.tree import tree_leaves
 
-    stream = token_stream_check()
-    spec = ExperimentSpec(name="chip-train-qwen2-7b", seed=0, rounds=QWEN2_ROUNDS, log_every=1,
-                          model=ModelSpec(arch="qwen2-7b"),
-                          data=DataSpec(tokens_per_client=QWEN2_TOKENS_PER_CLIENT))
+    tag = f"[{path}]"
+    spec = ExperimentSpec(name=f"chip-{path}", seed=0, rounds=rounds, log_every=1,
+                          model=ModelSpec(arch=arch), data=DataSpec(tokens_per_client=tokens))
+    moe_cfg = tasks.lm_model_config(spec.model).moe
     make_stream, data_s = repro_torch.data.make_token_stream, []
 
     def timed_stream(**kw):
@@ -2778,6 +2918,7 @@ def phase_train_qwen2(torch, counters):
     build_s = time.perf_counter() - t0
     log(exp.describe())
     cfg = exp.engine.cfg
+    M = spec.data.batch * spec.data.seq
     params0 = exp.params
     factors = _factors(params0)
     entries = sum(f.U.numel() + f.S.numel() + f.V.numel() for _, f in factors)
@@ -2785,25 +2926,25 @@ def phase_train_qwen2(torch, counters):
     for t in tree_leaves(params0):
         name = str(t.dtype).removeprefix("torch.")
         by_dtype[name] = by_dtype.get(name, 0) + t.numel() * t.element_size()
-    want, (n_lin, n_emb) = expected_launches(params0, cfg)
-    round_calls = qwen2_round_calls(params0, cfg, M=spec.data.batch * spec.data.seq)
+    calls_round = round_calls(params0, cfg, M, "bfloat16", moe_cfg)
+    want = launches_of(calls_round)
     wire = cost_model.wire_round_bytes(params0, correction=cfg.correction)
     r_max = {p: f.r_max for p, f in factors}
-    log(f"[train-qwen2] built in {build_s:.1f} s, of it the token stream {data_s[0]:.1f} s on "
-        f"the host ({cfg.num_clients} x {QWEN2_TOKENS_PER_CLIENT} tokens, "
-        f"{1e3 * data_s[0] / (cfg.num_clients * QWEN2_TOKENS_PER_CLIENT):.3f} ms a token); "
-        f"{len(factors)} factor leaves ({n_lin} linear slices + {n_emb} embedding), "
-        f"{entries / 1e6:.1f} M factor entries; bytes by dtype "
+    members = sum(math.prod(f.U.shape[:-2]) for _, f in factors)
+    log(f"{tag} built in {build_s:.1f} s, of it the token stream {data_s[0]:.1f} s on the host "
+        f"({cfg.num_clients} x {tokens} tokens, "
+        f"{1e3 * data_s[0] / (cfg.num_clients * tokens):.3f} ms a token); {len(factors)} factor "
+        f"leaves ({members} members), {entries / 1e6:.1f} M factor entries; bytes by dtype "
         f"{ {k: f'{v / 1e9:.3f} GB' for k, v in by_dtype.items()} }; r_max "
         f"{sorted(set(r_max.values()))}; expected launches a round {want}; wire a client "
         f"{wire['down'] / 1e6:.3f} MB down, {wire['up'] / 1e6:.3f} MB up")
 
-    rounds = []
+    history = []
     # the main path: counts at 0 just before, read just after
     _zero_counts()
     torch.cuda.synchronize()
     t_path = time.perf_counter()
-    for r in range(QWEN2_ROUNDS):
+    for r in range(rounds):
         before = _launch_counts()
         torch.cuda.reset_peak_memory_stats()
         res = exp.run(rounds=1)[-1]
@@ -2826,113 +2967,108 @@ def phase_train_qwen2(torch, counters):
         if measured != (wire["down"], wire["up"]):
             raise AssertionError(f"round {r}: measured wire bytes {measured}, cost model "
                                  f"{(wire['down'], wire['up'])}")
-        log(f"[train-qwen2] round {r}: loss_before {res.loss_before:.6f} loss_after "
+        below = {k: int((v < r_max[k]).sum()) for k, v in ranks.items() if (v < r_max[k]).any()}
+        log(f"{tag} round {r}: loss_before {res.loss_before:.6f} loss_after "
             f"{res.loss_after:.6f}; rank min/mean/max {flat.min():.0f}/{flat.mean():.2f}/"
-            f"{flat.max():.0f} over {flat.size} factor slices; host {res.seconds:.3f} s; wire "
-            f"a client {measured[0] / 1e6:.6f} MB down, {measured[1] / 1e6:.6f} MB up "
-            f"(= cost model); paper protocol {res.comm_bytes_per_client / 1e6:.3f} MB static, "
+            f"{flat.max():.0f} over {flat.size} factor members, {sum(below.values())} below "
+            f"r_max; host {res.seconds:.3f} s; wire a client {measured[0] / 1e6:.6f} MB down, "
+            f"{measured[1] / 1e6:.6f} MB up (= cost model); paper protocol "
+            f"{res.comm_bytes_per_client / 1e6:.3f} MB static, "
             f"{res.comm_bytes_per_client_effective / 1e6:.3f} MB effective; peak {peak:.2f} "
             f"GiB; nonzeros past the ranks 0; launches {got} = expected")
-        rounds.append(dict(loss_before=res.loss_before, loss_after=res.loss_after,
-                           rank_min=float(flat.min()), rank_mean=float(flat.mean()),
-                           rank_max=float(flat.max()), host_s=res.seconds, peak_gib=peak,
-                           wire_down_bytes=measured[0], wire_up_bytes=measured[1],
-                           launches=got))
+        history.append(dict(loss_before=res.loss_before, loss_after=res.loss_after,
+                            rank_min=float(flat.min()), rank_mean=float(flat.mean()),
+                            rank_max=float(flat.max()), below_r_max=sum(below.values()),
+                            host_s=res.seconds, peak_gib=peak, wire_down_bytes=measured[0],
+                            wire_up_bytes=measured[1], launches=got))
     path_s = time.perf_counter() - t_path
-    counters["train-qwen2"] = _launch_counts()
-    log(f"[train-qwen2] {QWEN2_ROUNDS} rounds in {path_s:.1f} s; launches "
-        f"{counters['train-qwen2']}")
-    n, busy_s, wall_prof = device_profile(
-        torch, lambda: exp.run(rounds=1, log_every=0), "[train-qwen2 profile]", 15, cpu=False)
-    wall = rounds[-1]["host_s"]
-    log(f"[train-qwen2 profile] one round: {n} kernels, device busy {busy_s:.3f} s = "
-        f"{100 * busy_s / wall:.1f} % of an unprofiled round's {wall:.3f} s host (idle "
-        f"{100 * (1 - busy_s / wall):.1f} %); {wall_prof:.3f} s under the profiler")
+    counters[path] = _launch_counts()
+    log(f"{tag} {rounds} round(s) in {path_s:.1f} s; launches {counters[path]}")
+    profile = profile_train_round(torch, exp, tag, history[-1]["host_s"])
     del exp, params0
     gc.collect()
     torch.cuda.empty_cache()
 
-    # full width, QWEN2_OFF_LAYERS layers: the kernel round, every call
-    # recorded, against the plain chain's from the same parameters
-    resolve = tasks.lm_model_config
+    # full width, off_layers layers: the kernel round, every call counted,
+    # against the plain chain's from the same parameters
+    calls, coeffs = {}, []
+    truncate = fedlrt_module.truncate
 
-    def cut(m):
-        return dataclasses.replace(resolve(m), num_layers=QWEN2_OFF_LAYERS)
+    def keep_coeff(f, **kw):
+        if f.S.dim() > 3 and len(coeffs) < 1:  # an expert stack: its first layer's members
+            coeffs.append(f.S[0, :OLMOE_SVD_MEMBERS].detach().float().clone())
+        return truncate(f, **kw)
 
-    small = dataclasses.replace(
-        spec, name="chip-train-qwen2-7b-cut", rounds=1, log_every=0,
-        data=DataSpec(tokens_per_client=QWEN2_OFF_TOKENS_PER_CLIENT))
-    calls = {}
-    with unittest.mock.patch.object(tasks, "lm_model_config", cut):
-        exp_k = build(small, device="cuda")
-        p0 = _clone(exp_k.params)
-        with kernel_calls(calls):
-            res_k = exp_k.run(rounds=1)[-1]
-        exp_off = build(dataclasses.replace(small, model=ModelSpec(arch="qwen2-7b", kernels="off")),
-                        params=_clone(p0), device="cuda")
-        res_off = exp_off.run(rounds=1)[-1]
-    torch.cuda.synchronize()
-    cfg_k = exp_k.engine.cfg
-    analytic = {"xus": train_xus_calls(p0, cfg_k), "avt": train_avt_calls(p0, cfg_k),
-                "atb": train_atb_calls(p0, cfg_k)}
-    recorded, typed = round_calls_by_shape(calls)
-    want_typed = qwen2_round_calls(p0, cfg_k, 0)
-    if recorded != analytic or any(typed[k] != want_typed[k] for k in typed):
-        raise AssertionError(f"the {QWEN2_OFF_LAYERS}-layer round's kernel calls {calls} "
-                             f"differ from the per-shape counts {analytic} / {want_typed}")
-    log(f"[train-qwen2] {QWEN2_OFF_LAYERS} layers: the kernel round's calls by shape equal "
-        f"train_xus_calls / train_avt_calls / train_atb_calls ("
-        + ", ".join(f"{k} {sum(v.values())}" for k, v in recorded.items())
-        + "), and by dtype qwen2_round_calls' (xus with S in f32 "
-        + f"{sum(n for k, n in typed['xus'].items() if k[2] and k[3] == 'float32')} calls)")
-    for name, rtol in (("loss_before", QWEN2_LOSS_RTOL), ("loss_after", QWEN2_LOSS_RTOL)):
-        a, b = getattr(res_k, name), getattr(res_off, name)
-        rel = abs(a - b) / abs(b)
-        log(f"[train-qwen2] kernels vs off, {name}: {a:.7f} vs {b:.7f} (rel {rel:.3g}, tol "
-            f"{rtol:.3g})")
-        if not rel <= rtol:
-            raise AssertionError(f"{name} differs between kernels and off by {rel} (> {rtol})")
-    for k, v in res_off.ranks.items():
-        if not np.array_equal(np.asarray(v), np.asarray(res_k.ranks[k])):
-            raise AssertionError(f"rank of {k} differs: kernels {res_k.ranks[k]} vs off {v}")
-    worst, moves, of_move = 0.0, [], 0.0
-    for (path, f), (_, g), (_, f0) in zip(_factors(exp_k.params), _factors(exp_off.params),
-                                          _factors(p0)):
-        W, W_off, W0 = materialize(f), materialize(g), materialize(f0)
-        scale = W_off.abs().max()
-        rel = ((W - W_off).abs().max() / scale).item()
-        move = ((W_off - W0).abs().max() / scale).item()
-        moves.append(move)
-        worst, of_move = max(worst, rel), max(of_move, rel / move)
-        log(f"[train-qwen2] kernels vs off, {path}: max|W - W_off| / max|W_off| = {rel:.3g}; "
-            f"the round's own change max|W_off - W_0| / max|W_off| = {move:.3g} "
-            f"({rel / move:.3g} of it)")
-        if not (rel <= QWEN2_USVT_RTOL and rel <= QWEN2_USVT_OF_MOVE * move):
-            raise AssertionError(f"{path}: U S V^T differs between kernels and off by {rel} of "
-                                 f"its largest entry, {rel / move} of the round's change")
-        del W, W_off, W0
-    log(f"[train-qwen2] kernels vs off: ranks identical; worst factor max|W - W_off| / "
-        f"max|W_off| = {worst:.3g} <= {QWEN2_USVT_RTOL:.3g}, and at most {of_move:.3g} <= "
-        f"{QWEN2_USVT_OF_MOVE:.3g} of the factor's own change in the round ({min(moves):.3g} to "
-        f"{max(moves):.3g} over {len(moves)} factor leaves)")
-    del exp_k, exp_off, p0
+    t0 = time.perf_counter()
+    with unittest.mock.patch.object(fedlrt_module, "truncate", keep_coeff):
+        p0, on, off = _cut_round(torch, spec, arch, off_layers, off_tokens, "bfloat16", calls)
+    log(f"{tag} {off_layers} layers: the pair of rounds in {time.perf_counter() - t0:.1f} s")
+    want_calls = round_calls(p0, on[0].engine.cfg, M, "bfloat16", moe_cfg)
+    if calls != want_calls:
+        raise AssertionError(f"the {off_layers}-layer round's kernel calls {calls} differ from "
+                             f"round_calls' {want_calls}")
+    log(f"{tag} {off_layers} layers: the kernel round's calls by (kernel, dtype, K or N, R, "
+        f"S's dtype, G, M) equal round_calls' ("
+        + ", ".join(f"{k} {v}" for k, v in launches_of(calls).items())
+        + f"; xus with S in f32 {sum(n for k, n in calls.items() if k[4] == 'float32')}, "
+          f"on G > 1 stacks {sum(n for k, n in calls.items() if k[5] > 1)})")
+    off_stats = _kernels_against_off(torch, tag, p0, on, off, moe_cfg)
+    del on, off, p0
     gc.collect()
     torch.cuda.empty_cache()
+    off_f32 = None
+    if not off_stats["held"]:
+        log(f"{tag} expert choices differ in bf16: the pair again in f32")
+        t0 = time.perf_counter()
+        p0, on, off = _cut_round(torch, spec, arch, off_layers, off_tokens, "float32")
+        log(f"{tag} {off_layers} layers, f32: the pair of rounds in "
+            f"{time.perf_counter() - t0:.1f} s")
+        off_f32 = _kernels_against_off(torch, f"{tag[:-1]} f32]", p0, on, off, moe_cfg,
+                                       near_ties=True)
+        del on, off, p0
+        gc.collect()
+        torch.cuda.empty_cache()
+    drivers = truncation_svd_drivers(torch, coeffs, cfg.tau, tag) if coeffs else None
+    t0 = time.perf_counter()
 
     # every xus / avt shape of the bf16 round against its plain version,
-    # timed; the sums over one full-depth round's calls
-    _, xus_round = phase_xus_train(torch, round_calls, "bfloat16", "[train-qwen2 xus]",
-                                   "qwen2-7b")
-    _, avt_round = phase_avt_train(torch, round_calls, "bfloat16", "[train-qwen2 avt]",
-                                   "qwen2-7b")
-    return dict(stream=stream, build_s=build_s, data_s=data_s[0], factor_entries=entries,
-                bytes_by_dtype=by_dtype, wire=wire, rounds=rounds, path_s=path_s,
-                profile=dict(kernels=n, device_busy_s=busy_s, wall_s=wall,
-                             profiled_wall_s=wall_prof),
-                off=dict(loss_before=(res_k.loss_before, res_off.loss_before),
-                         loss_after=(res_k.loss_after, res_off.loss_after), worst_usvt=worst,
-                         round_move=(min(moves), max(moves)), worst_of_move=of_move),
-                round_calls=round_calls, xus_round=xus_round, avt_round=avt_round)
+    # timed; the sums over one full-depth round's calls (atb's: main, from
+    # the atb phase's records)
+    _, xus_round = phase_xus_train(torch, calls_round, f"{tag[:-1]} xus]", arch)
+    _, avt_round = phase_avt_train(torch, calls_round, f"{tag[:-1]} avt]", arch)
+    log(f"{tag} the round's xus / avt shapes timed in {time.perf_counter() - t0:.1f} s")
+    return dict(stream_s=data_s[0], build_s=build_s, factor_entries=entries, members=members,
+                bytes_by_dtype=by_dtype, wire=wire, rounds=history, path_s=path_s,
+                profile=profile,
+                off=off_stats, off_f32=off_f32, svd_drivers=drivers,
+                round_calls=calls_round, xus_round=xus_round, avt_round=avt_round)
+
+
+def phase_train_qwen2(torch, counters):
+    """The token stream's rows route held to the dense route
+    (:func:`token_stream_check`), then Qwen2-7B (28 layers, d 3584, d_ff
+    18944, vocabulary 152,064, r_max 256) through :func:`phase_train_arch`:
+    ``QWEN2_ROUNDS`` rounds on ``QWEN2_TOKENS_PER_CLIENT`` tokens a client,
+    the kernels-off comparison at ``QWEN2_OFF_LAYERS`` layers."""
+    stream = token_stream_check()
+    out = phase_train_arch(torch, counters, "train-qwen2", "qwen2-7b", QWEN2_ROUNDS,
+                           QWEN2_TOKENS_PER_CLIENT, QWEN2_OFF_LAYERS,
+                           QWEN2_OFF_TOKENS_PER_CLIENT)
+    return dict(out, stream=stream)
+
+
+def phase_train_olmoe(torch, counters):
+    """OLMoE-1B-7B (16 layers, d 2048, 16 heads x 128 with qk-norm, 64
+    experts top-8 of hidden 1024, vocabulary 50,304; r_max 256, the
+    experts' 128) through :func:`phase_train_arch`: ``OLMOE_ROUNDS``
+    round(s) on ``OLMOE_TOKENS_PER_CLIENT`` tokens a client, each MoE
+    projection one launch a layer with its 64 experts on the kernels' grid
+    axis at the capacity's 80 rows, the kernels-off comparison at
+    ``OLMOE_OFF_LAYERS`` layers with the expert choices counted, and the
+    truncation SVD drivers on ``OLMOE_SVD_MEMBERS`` expert members."""
+    return phase_train_arch(torch, counters, "train-olmoe", "olmoe-1b-7b", OLMOE_ROUNDS,
+                            OLMOE_TOKENS_PER_CLIENT, OLMOE_OFF_LAYERS,
+                            OLMOE_OFF_TOKENS_PER_CLIENT)
 
 
 # ---------------------------------------------------------------------------
@@ -3972,27 +4108,37 @@ def phase_mesh(torch, counters, serve_stats):
                 decode_xus_avt_per_forward=per)
 
 
-def phase_dryrun(torch, records):
+def start_dryruns():
     """``python -m repro_torch.launch.dryrun`` on the card machine's host
     (fake tensors on the card's device; nothing runs on it): the combos of
-    :data:`DRYRUNS` at once, one process each, each writing its JSON under
-    ``results/dryrun_torch``; their ``OK`` lines (mesh, devices,
-    per-device argument / temp bytes, compute / memory / collective ms,
-    dominant term) and the documented ``SKIP``. Then every local shape at
-    which those traces call ``xus`` / ``avt`` / ``atb`` that the kernels
-    phases lack, against its plain version on the card and its plan
-    (untimed: nothing sums these shapes). Returns the new kernel records
-    and the dry runs' results."""
+    :data:`DRYRUNS` at once, one process each (one intra-op thread, at a
+    lower priority than this process: they trace while the kernels build),
+    each writing its JSON under ``results/dryrun_torch``; any still running
+    when the script exits are killed. Returns the processes and their
+    start."""
     out = os.path.join(ROOT, "results", "dryrun_torch")
     os.makedirs(out, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
     procs = []
-    t0 = time.perf_counter()
     for arch, shape, _ in DRYRUNS:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
                "--shape", shape, "--out", out]
         procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                      text=True, env=env, cwd=ROOT))
+                                      text=True, env=env, cwd=ROOT,
+                                      preexec_fn=lambda: os.nice(10)))
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return procs, time.perf_counter()
+
+
+def finish_dryruns(started):
+    """The dry runs :func:`start_dryruns` started (``started``), waited for
+    before the first timed phase, so that no host time of the script's
+    reads their tracing: their ``OK`` lines (mesh, devices, per-device
+    argument / temp bytes, compute / memory / collective ms, dominant term)
+    and the documented ``SKIP``. Returns their results."""
+    out = os.path.join(ROOT, "results", "dryrun_torch")
+    procs, t0 = started
+    t_wait = time.perf_counter()
     results = {}
     for (arch, shape, skip), p in zip(DRYRUNS, procs):
         stdout, stderr = p.communicate(timeout=600)
@@ -4005,26 +4151,40 @@ def phase_dryrun(torch, records):
         name = f"{'skip' if skip else '16x16'}__{arch}__{shape}.json"
         with open(os.path.join(out, name)) as f:
             results[(arch, shape)] = json.load(f)
-    log(f"[dryrun] {len(DRYRUNS)} combos in {time.perf_counter() - t0:.1f} s (in parallel)")
+    log(f"[dryrun] {len(DRYRUNS)} combos traced in parallel beside the build in "
+        f"{time.perf_counter() - t0:.1f} s; waited {time.perf_counter() - t_wait:.1f} s for "
+        f"them after it")
+    return results
 
-    have = {(r["kernel"], r["dtype"], r.get("dim"), r.get("R"), r.get("G", 1), r["M"])
-            for r in records if r["kernel"] in ("xus", "avt")}
-    have |= {("atb", r["dtype"], r["Ka"], r["Kb"], 1, r["M"]) for r in records
+
+def phase_dryrun(torch, records, results):
+    """Every local shape at which the dry runs' traces (``results``,
+    :func:`finish_dryruns`) call ``xus`` / ``avt`` / ``atb`` that the
+    kernels phases lack, against its plain version on the card and its
+    plan (untimed: nothing sums these shapes). Returns the new kernel
+    records and the dry runs' results."""
+    # a record covers its shape with S in its dtype (xus: each record also
+    # counts its launches without S); the dry run's keys carry S's dtype
+    have = {(r["kernel"], r["dtype"], r.get("dim"), r.get("R"), r.get("G", 1), r["M"], s)
+            for r in records if r["kernel"] in ("xus", "avt")
+            for s in ((r.get("S") or r["dtype"], None) if r["kernel"] == "xus" else (None,))}
+    have |= {("atb", r["dtype"], r["Ka"], r["Kb"], r.get("G", 1), r["M"], None) for r in records
              if r["kernel"] == "atb"}
     shapes = set()
     for res in results.values():
-        for kernel, dtype, M, dim, R, G, _ in res.get("kernel_shapes", []):
-            shapes.add((kernel, dtype, dim, R, G, M))
+        for kernel, dtype, M, dim, R, G, s, _ in res.get("kernel_shapes", []):
+            shapes.add((kernel, dtype, dim, R, G, M, s))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
     new = []
-    for kernel, dtype, dim, R, G, M in sorted(shapes - have):
+    for kernel, dtype, dim, R, G, M, s in sorted(shapes - have, key=str):
         if kernel == "atb":
             new.append(atb_case(torch, dtype, M, dim, R, gen, G=G, tag="[kernels dryrun]",
                                 timed=False))
         else:
             new.append(kernel_case(torch, kernel, dtype, M, dim, R, gen, G=G,
-                                   tag="[kernels dryrun]", timed=False))
+                                   tag="[kernels dryrun]", timed=False,
+                                   s_dtype=s if s and s != dtype else None))
         torch.cuda.empty_cache()
     _check_records(new)
     log(f"[dryrun] {len(shapes)} local kernel shapes recorded, {len(new)} new ones held to "
@@ -4037,7 +4197,8 @@ def phase_dryrun(torch, records):
     return new, summary
 
 
-def atb_case(torch, dtype_name, M, Ka, Kb, gen, G=1, tag="[kernels]", timed=True):
+def atb_case(torch, dtype_name, M, Ka, Kb, gen, G=1, tag="[kernels]", timed=True,
+             model="dryrun"):
     """One ``atb`` shape (stacked over G where G > 1) against its plain
     version, timed (kernel, plain, ``matmul(A.T, B)``) in a CUDA graph, with
     its bound and device launches held to ``atb_plan``; logs one line.
@@ -4065,7 +4226,7 @@ def atb_case(torch, dtype_name, M, Ka, Kb, gen, G=1, tag="[kernels]", timed=True
         raise AssertionError(f"atb G={G} M={M} Ka={Ka} Kb={Kb}: {dev} device launches, plan "
                              f"{plan.launches}")
     reps = max(n_sets, 8)
-    rec = dict(kernel="atb", model="dryrun", dtype=dtype_name, M=M, Ka=Ka, Kb=Kb, G=G,
+    rec = dict(kernel="atb", model=model, dtype=dtype_name, M=M, Ka=Ka, Kb=Kb, G=G,
                max_abs_err=err, ok=ok, splits=plan.splits, launches=dev,
                ms=None, plain_ms=None, library_ms=None)
     if timed:
@@ -4227,7 +4388,7 @@ def decode_step_sums(name, cfg, records):
 
 
 def kernel_summary(records, model_records, atb_records, flash_records, counters, cfg, atb_round,
-                   xus_round, avt_round, encdec_sums, scan, qwen2):
+                   xus_round, avt_round, encdec_sums, scan, qwen2, olmoe):
     """Per kernel: ``xus``/``avt`` as the sum over one Qwen2-7B decode
     step's launches (M = 4) of each measured number, with the sum over one
     decode step of each of the models phase's architectures under
@@ -4235,7 +4396,8 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
     recorded calls, a decode step's with a prefill's under ``prefill``)
     and over one llm-100m round's calls under ``round``;
     ``xus``, ``avt`` and ``atb`` also summed over one bf16 Qwen2-7B round's
-    calls under ``train_qwen2``;
+    calls under ``train_qwen2`` and one OLMoE-1B-7B round's under
+    ``train_olmoe``;
     ``atb`` as the sum over
     one llm-100m FeDLRT round's calls (M = 512, f32: ``phase_atb``'s
     ``[atb] round``); ``flash_attention``
@@ -4275,6 +4437,7 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
         out[-1]["round"] = {**(xus_round if name == "xus" else avt_round),
                             "unit": "one llm-100m FeDLRT round (f32, M=512)"}
         out[-1]["train_qwen2"] = {**qwen2[f"{name}_round"], "unit": QWEN2_ROUND_UNIT}
+        out[-1]["train_olmoe"] = {**olmoe[f"{name}_round"], "unit": OLMOE_ROUND_UNIT}
     out.append({
         "name": "atb", "route": "cuda", "source": SOURCES["atb"], "replaces": REPLACES["atb"],
         **launches("atb"),
@@ -4286,6 +4449,7 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
         "device_launches": atb_round["device_launches"],
         "unit": "one llm-100m FeDLRT round (f32, M=512)",
         "train_qwen2": {**qwen2["atb_round"], "unit": QWEN2_ROUND_UNIT},
+        "train_olmoe": {**olmoe["atb_round"], "unit": OLMOE_ROUND_UNIT},
     })
     [pre] = [r for r in flash_records if r["case"] == "qwen2-7b prefill"]
     out.append({
@@ -4308,6 +4472,28 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
     return out
 
 
+def memo_token_streams():
+    """From here on, each token stream is built once per argument set and
+    every later build with the same arguments takes a copy: llm-100m's 4 x
+    200,000 tokens at vocabulary 8,192 (~5 s on the host) are asked for by
+    some twenty builds across the phases, each on the same seed. The first
+    build of each stream runs the port's own code, timed where a phase
+    times it."""
+    import numpy as np
+
+    import repro_torch.data
+
+    make, built = repro_torch.data.make_token_stream, {}
+
+    def once(**kw):
+        key = tuple(sorted(kw.items()))
+        if key not in built:
+            built[key] = make(**kw)
+        return np.array(built[key], copy=True)
+
+    repro_torch.data.make_token_stream = once
+
+
 def main() -> int:
     import torch
 
@@ -4324,16 +4510,20 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"[time] {phase} phase done at {time.perf_counter() - t_start:.1f} s")
 
+    dryruns = start_dryruns()
     smi = phase_environment(torch)
     done("build")
+    dryruns = finish_dryruns(dryruns)
+    done("dryrun traces")
+    memo_token_streams()
     records = phase_kernels(torch, cfg)
     done("kernels")
-    round_calls = llm100m_round_calls(torch)
-    atb_records, atb_round = phase_atb(torch, round_calls)
+    llm_calls = llm100m_round_calls()
+    atb_records, atb_round = phase_atb(torch, llm_calls)
     done("atb")
-    xus_train, xus_round = phase_xus_train(torch, round_calls)
+    xus_train, xus_round = phase_xus_train(torch, llm_calls)
     done("xus-train")
-    avt_train, avt_round = phase_avt_train(torch, round_calls)
+    avt_train, avt_round = phase_avt_train(torch, llm_calls)
     done("avt-train")
     phase_backward(torch)
     done("backward")
@@ -4353,15 +4543,20 @@ def main() -> int:
     done("encdec-vlm")
     mesh_stats = phase_mesh(torch, counters, serve_stats)
     done("mesh")
-    dry_records, dry_stats = phase_dryrun(torch, records + model_records + atb_records)
+    dry_records, dry_stats = phase_dryrun(torch, records + model_records + atb_records, dryruns)
     model_records += [r for r in dry_records if r["kernel"] != "atb"]
     atb_records += [r for r in dry_records if r["kernel"] == "atb"]
     done("dryrun")
     train = phase_train(torch, counters)
     done("train")
     train_qwen2 = phase_train_qwen2(torch, counters)
-    train_qwen2["atb_round"] = atb_round_total(atb_records, train_qwen2["round_calls"], "qwen2-7b")
+    train_qwen2["atb_round"] = atb_round_total(torch, atb_records, train_qwen2["round_calls"],
+                                               "qwen2-7b", "[train-qwen2 atb]")
     done("train-qwen2")
+    train_olmoe = phase_train_olmoe(torch, counters)
+    train_olmoe["atb_round"] = atb_round_total(torch, atb_records, train_olmoe["round_calls"],
+                                               "olmoe-1b-7b", "[train-olmoe atb]")
+    done("train-olmoe")
     flash_records = phase_flash(torch, counters)
     done("flash")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spec_") as workdir:
@@ -4379,13 +4574,16 @@ def main() -> int:
                                    "train": train,
                                    "train_qwen2": {k: v for k, v in train_qwen2.items()
                                                    if k != "round_calls"},
+                                   "train_olmoe": {k: v for k, v in train_olmoe.items()
+                                                   if k != "round_calls"},
                                    "flash": flash_records, "spec": spec_stats,
                                    "sim": sim_stats, "examples": examples_stats,
                                    "xus_train": xus_train,
                                    "avt_train": avt_train}))
     print(json.dumps({"kernels": kernel_summary(
         records, model_records, atb_records, flash_records, counters, cfg, atb_round, xus_round,
-        avt_round, ev_sums, model_stats["jamba mamba scan"]["kernel"], train_qwen2)}))
+        avt_round, ev_sums, model_stats["jamba mamba scan"]["kernel"], train_qwen2,
+        train_olmoe)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -229,7 +229,7 @@ def xus(x: torch.Tensor, U: torch.Tensor, S: Optional[torch.Tensor] = None) -> t
     """A = (x @ U) @ S.  x: ([G,] M, K), U: ([G,] K, R), S: ([G,] R, R) or
     None for A = x @ U."""
     if isinstance(x, FakeTensor):
-        _record("xus", x, U.shape[-2], U.shape[-1])
+        _record("xus", x, U.shape[-2], U.shape[-1], S)
         return torch.ops.repro_torch.xus(x, U, S)
     return _xus(x, U, S)
 
@@ -374,9 +374,10 @@ _SHAPES: Optional[list] = None
 
 @contextlib.contextmanager
 def record_shapes():
-    """Collect ``(kernel, dtype, M, K or N, R, G)`` for every traced call of
-    ``xus`` / ``avt`` / ``atb`` (``atb``: ``(atb, dtype, M, Ka, Kb, G)``)
-    made inside the block; yields the list."""
+    """Collect ``(kernel, dtype, M, K or N, R, G, S's dtype)`` for every
+    traced call of ``xus`` / ``avt`` / ``atb`` (``atb``: ``(atb, dtype, M,
+    Ka, Kb, G, None)``; S's dtype None also for ``xus`` without S) made
+    inside the block; yields the list."""
     global _SHAPES
     prev, _SHAPES = _SHAPES, []
     try:
@@ -385,10 +386,11 @@ def record_shapes():
         _SHAPES = prev
 
 
-def _record(kernel: str, a: torch.Tensor, k: int, r: int) -> None:
+def _record(kernel: str, a: torch.Tensor, k: int, r: int, s=None) -> None:
     if _SHAPES is not None:
         G = a.shape[0] if a.dim() == 3 else 1
-        _SHAPES.append((kernel, str(a.dtype).replace("torch.", ""), a.shape[-2], k, r, G))
+        _SHAPES.append((kernel, str(a.dtype).replace("torch.", ""), a.shape[-2], k, r, G,
+                        None if s is None else str(s.dtype).replace("torch.", "")))
 
 
 @torch.library.custom_op("repro_torch::xus", mutates_args=())

@@ -199,7 +199,8 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool, s_star: int = 4,
         "useful_flops_ratio": (
             (mflops / n_dev) / roof.flops_per_device if roof.flops_per_device else None
         ),
-        "kernel_shapes": [list(k) + [n] for k, n in sorted(collections.Counter(calls).items())],
+        "kernel_shapes": [list(k) + [n] for k, n in
+                          sorted(collections.Counter(calls).items(), key=str)],
     }
 
 

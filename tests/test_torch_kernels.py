@@ -661,17 +661,20 @@ def _chip_smoke():
 
 
 def test_train_avt_calls_sum_to_the_round_launches():
-    """``chip_smoke.train_avt_calls`` (the avt calls of a FeDLRT round by
-    shape, which the card's round sum weighs) counts what
-    ``expected_launches`` counts, on an llm-tiny experiment built here."""
+    """``chip_smoke.round_calls`` (a FeDLRT round's calls by shape, one per
+    launch, which the card's round sums weigh) counts the calls an f32
+    llm-tiny round makes here, avt among them, shape by shape."""
     from repro_torch.api import ExperimentSpec, ModelSpec, build
 
     smoke = _chip_smoke()
-    exp = build(ExperimentSpec(name="avt-calls", model=ModelSpec(preset="llm-tiny")),
-                device="cpu")
-    calls = smoke.train_avt_calls(exp.params, exp.engine.cfg)
-    want, _ = smoke.expected_launches(exp.params, exp.engine.cfg)
-    assert sum(calls.values()) == want["avt"]
+    spec = ExperimentSpec(name="avt-calls", model=ModelSpec(preset="llm-tiny"))
+    exp = build(spec, device="cpu")
+    want = smoke.round_calls(exp.params, exp.engine.cfg, spec.data.batch * spec.data.seq)
+    calls = {}
+    with smoke.kernel_calls(calls):
+        exp.run(1)
+    assert calls == want
+    assert smoke.launches_of(calls)["avt"] == sum(smoke.of_kernel(want, "avt").values()) > 0
 
 
 def test_train_avt_calls_llm_100m_round():
@@ -684,10 +687,11 @@ def test_train_avt_calls_llm_100m_round():
     smoke = _chip_smoke()
     params, _ = build_params(PRESETS["llm-100m"], torch.Generator().manual_seed(0))
     cfg = ExperimentSpec().fed.to_fed_config()
-    calls = smoke.train_avt_calls(params, cfg)
+    calls = {(k[2], k[3]): n for k, n in smoke.of_kernel(smoke.round_calls(params, cfg, 512),
+                                                         "avt").items()}
     assert calls == {(640, 320): 2144, (640, 160): 780, (2560, 320): 576, (2560, 160): 240,
                      (8192, 320): 16, (8192, 160): 8, (160, 160): 4}
-    assert sum(calls.values()) == smoke.expected_launches(params, cfg)[0]["avt"] == 3768
+    assert sum(calls.values()) == smoke.launches_of(smoke.llm100m_round_calls())["avt"] == 3768
     assert sorted(calls) == sorted(ROUND_AVT)
 
 

@@ -1,5 +1,5 @@
-"""The ``lm`` task at a registered architecture (Qwen2-7B, reduced) in both
-packages, through ``build(spec).run()``.
+"""The ``lm`` task at a registered architecture (Qwen2-7B and OLMoE-1B-7B,
+reduced) in both packages, through ``build(spec).run()``.
 
 The JAX package's ``init_factor`` multiplies its bases by an f32 rank mask,
 so its ``lm`` task starts a bf16 model from f32 U and V beside a bf16 S,
@@ -7,9 +7,11 @@ and its round keeps each factor's dtypes: a bf16 round carries f32 bases.
 The port's task starts from the same dtypes (serving keeps bf16 bases).
 
 Cases: (a) the task's parameter dtypes, leaf for leaf, under a reduced
-Qwen2 config with bf16 parameters and compute; (b) one FeDLRT round of that
+config with bf16 parameters and compute; (b) one FeDLRT round of that
 config from the reference's parameters; (c) the registry's own reduced
-config (``smoke=True``, f32) at the training tests' tolerances.
+Qwen2 config (``smoke=True``, f32) at the training tests' tolerances; and
+a bf16 round's kernel calls against ``chip_smoke.round_calls``. (a), (b)
+and the kernel calls run for both architectures.
 
 Tolerances of (b), in bf16: the loss 2⁻⁹ relative (half a bf16 rounding:
 both packages round every activation to bf16 and differ only where an f32
@@ -19,8 +21,20 @@ mean over 4 × 2 × 32 tokens averages); ``U S Vᵀ`` 2⁻⁸ of its largest ent
 lies far below the round's own change of each factor's ``U S Vᵀ`` (over
 0.1 of its largest entry; the test holds it to at least 8x the limit), so
 a round that left a factor unchanged, or moved it the wrong way, fails.
-τ sits at 0.085, where every factor drops to rank 63 of 64 and the nearest
-tail norm of the round's spectra lies 17 % from ϑ: no rank can flip.
+Qwen2's τ sits at 0.085, where every factor drops to rank 63 of 64 and the
+nearest tail norm of the round's spectra lies 17 % from ϑ: no rank can
+flip.
+
+OLMoE's expert stacks (E members in a leaf) move by only ~1e-3 of their
+largest entry in a round's coefficient step, so 2⁻⁸ of max alone would pass
+a round whose step left them unchanged: each expert leaf is also held
+within 1/4 of the reference round's own change of it past the truncation's
+cut (one bf16 rounding apart reads 0.15-0.16 of it; a step that did nothing
+reads 1), and the 8x guard holds the other factors. Its τ sits at 0.113,
+where the expert members drop to rank 31 of 32 (at 0.085 none is
+truncated: their augmented spectra's small half lies under ϑ and the rank
+stays at r_max) and the other factors to 62 of 64; the nearest tail norm
+lies 9.6 % from ϑ.
 """
 import dataclasses
 import importlib.util
@@ -51,7 +65,12 @@ LOSS_AFTER_RTOL = 1e-4
 USVT_RTOL = 1e-4
 BF16_LOSS_RTOL = 2.0**-9
 BF16_USVT_RTOL = 2.0**-8
-BF16_TAU = 0.085
+#: per architecture: τ of the bf16 round and the ranks it leaves, (the
+#: other factors', the expert members')
+BF16_ROUNDS = {"qwen2-7b": (0.085, {63.0}, set()),
+               "olmoe-1b-7b": (0.113, {62.0}, {31.0})}
+EXPERT_OF_MOVE = 1 / 4
+ARCHS = list(BF16_ROUNDS)
 
 
 @pytest.fixture
@@ -68,9 +87,9 @@ def bf16_reduced(monkeypatch):
         monkeypatch.setattr(module, "lm_model_config", bf16)
 
 
-def spec_pair(**fed):
+def spec_pair(arch="qwen2-7b", **fed):
     kw = dict(rounds=1, log_every=0)
-    sections = dict(model=dict(arch="qwen2-7b", smoke=True),
+    sections = dict(model=dict(arch=arch, smoke=True),
                     data=dict(tokens_per_client=2000, seq=32),
                     fed=dict(local_steps=2, **fed))
     return (japi.ExperimentSpec(**kw, model=japi.ModelSpec(**sections["model"]),
@@ -119,13 +138,34 @@ def worst_usvt(jparams, tparams) -> float:
 
 def round_moves(start, end) -> list:
     """Each factor's change of ``U S Vᵀ`` over the round, max|W_end −
-    W_start| / max|W_end|."""
+    W_start| / max|W_end|, and whether it is an expert stack."""
     moves = []
     for a, b in zip(*(([x for x in tree_leaves(p, is_leaf=fac.is_factor) if fac.is_factor(x)])
                       for p in (start, end))):
         W0, W1 = fac.materialize(a).float(), fac.materialize(b).float()
-        moves.append(float((W1 - W0).abs().max() / W1.abs().max()))
+        moves.append((float((W1 - W0).abs().max() / W1.abs().max()), a.U.dim() > 3))
     return moves
+
+
+def expert_shares(jparams, tparams, start) -> list:
+    """Each expert stack's max|W_port − W_ref| as a share of the reference
+    round's own change of it past the truncation's cut, max|W_ref −
+    W_cut|: ``W_cut`` is the start with each member's S cut to the rank the
+    round left (its SVD's leading singular triples), so a round whose
+    coefficient step did nothing reads 1 even where the cut itself moves
+    the stack by ~0.2 of its largest entry."""
+    shares = []
+    starts = [x for x in tree_leaves(start, is_leaf=fac.is_factor) if fac.is_factor(x)]
+    for (jf, tf), f0 in zip(factors_of(jparams, tparams), starts):
+        if tf.U.dim() <= 3:
+            continue
+        want = np.asarray(jfac.materialize(jf), np.float32)
+        got = fac.materialize(tf).float().numpy()
+        P, s, Qt = torch.linalg.svd(f0.S.float())
+        s = s * (torch.arange(s.shape[-1]) < tf.rank[..., None])
+        W_cut = (f0.U.float() @ ((P * s[..., None, :]) @ Qt) @ f0.V.float().mT).numpy()
+        shares.append(float(np.abs(got - want).max() / np.abs(want - W_cut).max()))
+    return shares
 
 
 def assert_round_close(rj, rt, loss_rtol):
@@ -141,10 +181,11 @@ def assert_round_close(rj, rt, loss_rtol):
     assert rt.wire_bytes_up_per_client == rj.wire_bytes_up_per_client
 
 
-def test_lm_task_starts_from_the_reference_dtypes(bf16_reduced):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_task_starts_from_the_reference_dtypes(bf16_reduced, arch):
     """(a) f32 U and V, bf16 S and dense leaves, f32 ranks, leaf for leaf;
     serving's ``model.init`` keeps bf16 bases."""
-    jspec, tspec = spec_pair()
+    jspec, tspec = spec_pair(arch)
     want = dtypes(jflatten(japi.build(jspec).engine.params))
     texp = api.build(tspec, device="cpu")
     got = dtypes(_flatten(texp.engine.params))
@@ -160,21 +201,35 @@ def test_lm_task_starts_from_the_reference_dtypes(bf16_reduced):
             k.endswith("@rank")} == {"bfloat16"}
 
 
-def test_bf16_round_matches_the_reference(bf16_reduced):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_round_matches_the_reference(bf16_reduced, arch):
     """(b) one FeDLRT round in bf16 from the reference's parameters."""
-    jspec, tspec = spec_pair(tau=BF16_TAU)
+    tau, dense_ranks, expert_ranks = BF16_ROUNDS[arch]
+    jspec, tspec = spec_pair(arch, tau=tau)
     jexp, texp, rj, rt, start = run_pair(jspec, tspec)
     assert dtypes(_flatten(texp.engine.params)) == dtypes(jflatten(jexp.engine.params))
     assert_round_close(rj, rt, (BF16_LOSS_RTOL, BF16_LOSS_RTOL))
-    ranks = np.concatenate([np.ravel(v) for v in rt.ranks.values()])
-    assert set(ranks.tolist()) == {63.0}  # truncation acted, one step below r_max
+    # truncation acted on every factor, one or two steps below r_max
+    ranks = {k: set(np.ravel(v).tolist()) for k, v in rt.ranks.items()}
+    assert set().union(*(v for k, v in ranks.items() if "moe" not in k)) == dense_ranks
+    assert set().union(*(v for k, v in ranks.items() if "moe" in k), set()) == expert_ranks
     worst = worst_usvt(jexp.engine.params, texp.engine.params)
     moves = round_moves(start, texp.engine.params)
+    dense = [m for m, stacked in moves if not stacked]
+    shares = expert_shares(jexp.engine.params, texp.engine.params, start)
     print(f"U S V^T: port vs reference {worst:.3g} (limit {BF16_USVT_RTOL:.3g}); the round's "
-          f"own change {min(moves):.3g} to {max(moves):.3g}")
+          f"own change {min(dense):.3g} to {max(dense):.3g}"
+          + (f"; expert stacks {min(m for m, s in moves if s):.3g} to "
+             f"{max(m for m, s in moves if s):.3g}, port vs reference {min(shares):.3g} to "
+             f"{max(shares):.3g} of the reference's change past the cut (limit "
+             f"{EXPERT_OF_MOVE})"
+             if shares else ""))
     assert worst <= BF16_USVT_RTOL
-    # the limit separates a wrong round: every factor moves far more
-    assert min(moves) >= 8 * BF16_USVT_RTOL
+    # the limit separates a wrong round: every other factor moves far more
+    assert min(dense) >= 8 * BF16_USVT_RTOL
+    # and an expert stack, which moves less, is held by its own change
+    assert len(shares) == (3 if expert_ranks else 0)
+    assert all(s <= EXPERT_OF_MOVE for s in shares)
     # the identity codec measures each tensor at its own size
     want = cost_model.wire_round_bytes(texp.engine.params)
     assert (rt.wire_bytes_down_per_client, rt.wire_bytes_up_per_client) == (
@@ -187,29 +242,30 @@ def test_bf16_round_matches_the_reference(bf16_reduced):
             assert abs(float(got[key]) - float(want[key])) <= 1e-4, key
 
 
-def test_bf16_round_kernel_calls_by_dtype(bf16_reduced):
-    """``chip_smoke``'s per-shape counts of a bf16 round, by dtype
-    (``qwen2_round_calls``: the backward's products with S take S in f32,
-    the gather's backward into the f32 embedding U runs ``atb`` in f32),
-    equal the kernel calls of a reduced bf16 round on the CPU (the
-    wrappers' plain versions)."""
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_round_kernel_calls_by_dtype(bf16_reduced, arch):
+    """``chip_smoke.round_calls``, a bf16 round's calls one per launch by
+    (kernel, dtype, K or N, R, S's dtype, G, M) (the backward's products
+    with S take S in f32, the gather's backward into the f32 embedding U
+    runs ``atb`` in f32, an expert stack launches once a layer with its E
+    experts as G at the capacity's M), equals the kernel calls of a reduced
+    bf16 round on the CPU (the wrappers' plain versions)."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_train_calls", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    _, tspec = spec_pair()
+    _, tspec = spec_pair(arch)
     exp = api.build(tspec, device="cpu")
     params, cfg = exp.params, exp.engine.cfg
     calls = {}
     with smoke.kernel_calls(calls):
         exp.run(1)
-    recorded, typed = smoke.round_calls_by_shape(calls)
-    assert recorded == {"xus": smoke.train_xus_calls(params, cfg),
-                        "avt": smoke.train_avt_calls(params, cfg),
-                        "atb": smoke.train_atb_calls(params, cfg)}
-    want = smoke.qwen2_round_calls(params, cfg, 0)
-    assert typed == {"xus": want["xus"], "atb": want["atb"]}
-    assert {k[3] for k in want["xus"] if k[2]} == {"bfloat16", "float32"}
+    moe = tasks.lm_model_config(tspec.model).moe
+    M = tspec.data.batch * tspec.data.seq
+    assert calls == smoke.round_calls(params, cfg, M, "bfloat16", moe)
+    assert {k[4] for k in calls if k[0] == "xus" and k[4]} == {"bfloat16", "float32"}
+    stacks = {(k[5], k[6]) for k in calls if k[5] > 1}
+    assert stacks == ({(moe.num_experts, smoke.expert_rows(moe, M))} if moe else set())
 
 
 def test_registry_smoke_round_matches_the_reference():
