@@ -33,7 +33,8 @@ per source, all started together) and drives each of the port's paths:
 - models: the five architectures the MoE slice added (CodeQwen1.5-7B,
   Qwen1.5-32B, Qwen3-32B, OLMoE-1B-7B, DeepSeekMoE-16B) and the two the SSM
   slice added (RWKV6-7B; Jamba-1.5-Large, Mamba and attention with MoE) at
-  full width and depth in bf16 through ``repro_torch.api.serve``: each
+  full width and depth in bf16 (the two 32B models at 16 of their 64
+  layers) through ``repro_torch.api.serve``: each
   model served, launches a forward held to ``decode_step_calls``, bytes
   against the plan, tok/s, p50/p99, decode step host and device ms, a
   repeated step and prefill bit-identical, the MoE capacity drops per
@@ -62,7 +63,7 @@ per source, all started together) and drives each of the port's paths:
   truncations' coefficients held to an f64 SVD under both cuSOLVER
   drivers;
 - train-qwen2: the token stream's rows route held token-equal to the dense
-  route at vocabulary 8192 on this host's numpy; two FeDLRT rounds of
+  route at vocabulary 8192 on this host's numpy; one FeDLRT round of
   Qwen2-7B at full width and depth in bf16 (f32 bases, vocabulary
   152,064, r_max 256) through ``build(spec).run()`` on 4 x 4,096 tokens,
   with the launches, the losses, the inactive columns, the ranks and the
@@ -86,6 +87,15 @@ per source, all started together) and drives each of the port's paths:
   does, else again in f32, where the first differing choices must be
   near-ties (an expert stack within 1/4 of its own change); the
   truncation SVD drivers on 8 expert members;
+- train-rwkv: the same for RWKV6-7B (32 layers, d 4096, 64 heads of 64,
+  d_ff 14,336 non-gated, vocabulary 65,536, the wkv in chunks of 64): one
+  round and the profiled one, with the kernels-off pair at 2 layers; after
+  the main path, layer 0's time mix of the trained model at B 4, T 128 in
+  f32 held to the same mix with its wkv run token by token in f64: the
+  output and the gradients with respect to x, ``w0``, ``u`` and the decay
+  LoRA within ``WKV_RTOL`` of each tensor's largest entry; the wkv's
+  calls a round and its estimated share of the device's busy time and of
+  the round's host time;
 - flash: ``repro_torch.kernels.flash_attention`` at four attention shapes
   (Qwen2-7B prefill and decode against a cache, Mistral-7B's sliding
   window, an f32 case), each held to ``flash_attention_ref``, with its time
@@ -187,7 +197,7 @@ SOURCES = {
 }
 KERNELS = tuple(SOURCES)
 PATHS = ("serve", "serve-quant", "models", "encdec", "vlm", "mesh", "train", "train-qwen2",
-         "train-olmoe", "flash", "spec", "sim", "examples")
+         "train-olmoe", "train-rwkv", "flash", "spec", "sim", "examples")
 #: tolerance of a kernel against its plain version, with the reason
 TOL = {
     # both round once from f32 to bf16; f32 sums taken in different orders
@@ -1041,6 +1051,12 @@ def phase_serve_quant(torch, counters, serve_stats, bf16_tokens):
 MODELS = (("olmoe-1b-7b", 8, 16), ("deepseek-moe-16b", 4, 8), ("codeqwen1.5-7b", 4, 8),
           ("qwen1.5-32b", 4, 8), ("qwen3-32b", 4, 8), ("rwkv6-7b", 4, 8),
           ("jamba-1.5-large-398b", 4, 8))
+#: the models served at full width and part depth (layers of their 64):
+#: the two 32B models, whose every layer gives the kernels the same shapes,
+#: so a quarter of the depth drives every shape and the launches a forward
+#: of that depth; a decode step's sums (``by_model``) stay reckoned over
+#: all 64 layers from the shapes' records
+MODEL_LAYERS = {"qwen1.5-32b": 16, "qwen3-32b": 16}
 #: every factor's bf16 bytes, GB, as planned from ``LowRankPolicy.r_max_for``
 #: and the published dimensions before the first run (PERF.md, §6)
 PLANNED_FACTOR_GB = {"codeqwen1.5-7b": 1.53, "qwen1.5-32b": 4.76, "qwen3-32b": 4.30,
@@ -1159,7 +1175,8 @@ def phase_models(torch, counters, records):
     length), at full width and depth in bf16 (fresh seeded weights):
 
     - each model served through ``repro_torch.api.serve``, one session at a
-      time: launches per forward held to :func:`decode_step_calls`, the
+      time (Qwen1.5-32B and Qwen3-32B at ``MODEL_LAYERS`` of their 64
+      layers): launches per forward held to :func:`decode_step_calls`, the
       shapes its ``xus`` / ``avt`` calls took recorded (decode at 4 rows, or
       cap = 1 row an expert of a G = E stack; prefill at one prompt's
       bucket of 16–64 rows, its experts at that bucket's capacity, the LM
@@ -1181,9 +1198,10 @@ def phase_models(torch, counters, records):
     Returns (kernel records, stats)."""
     import numpy as np
 
-    from repro_torch.api import serve
+    from repro_torch.api import experiment, serve
     from repro_torch.serve import resident_bytes
 
+    resolve = experiment.lm_model_config
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     have = {(r["kernel"], r["dtype"], r["dim"], r["R"], r["G"], r["M"]) for r in records}
@@ -1196,14 +1214,21 @@ def phase_models(torch, counters, records):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        depth = MODEL_LAYERS.get(arch)
         t0 = t_arch = time.perf_counter()
-        session = serve(spec, device="cuda")
+        cut = (unittest.mock.patch.object(
+            experiment, "lm_model_config",
+            lambda m, depth=depth: dataclasses.replace(resolve(m), num_layers=depth))
+            if depth else contextlib.nullcontext())
+        with cut:
+            session = serve(spec, device="cuda")
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         eng = session.engine
         cfg = eng.model.cfg
         mixers = "+".join(sorted(set(cfg.block_pattern)))
-        log(f"{tag} built ({cfg.num_layers} layers, d {cfg.d_model}, {cfg.compute_dtype}, "
+        of = f" of {resolve(spec.model).num_layers}" if depth else ""
+        log(f"{tag} built ({cfg.num_layers}{of} layers, d {cfg.d_model}, {cfg.compute_dtype}, "
             f"{mixers}, {'MoE' if cfg.moe else 'dense'}, prefill at "
             f"{'the true length' if eng.exact_prefill else 'buckets'}) in {build_s:.1f} s")
         log(session.describe())
@@ -1264,9 +1289,11 @@ def phase_models(torch, counters, records):
         step_bytes = factor_bytes_per_step(eng.params)
         floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
         peak = torch.cuda.max_memory_allocated() / 2**30
-        planned = PLANNED_FACTOR_GB[arch]
-        log(f"{tag} resident {res / 1e9:.3f} GB, of it factors {fb / 1e9:.3f} GB against "
-            f"{planned} GB planned ({fb / 1e9 / planned:.3f}x); peak {peak:.2f} GiB")
+        planned = None if depth else PLANNED_FACTOR_GB[arch]
+        log(f"{tag} resident {res / 1e9:.3f} GB, of it factors {fb / 1e9:.3f} GB "
+            + (f"at {depth} layers (the plan, {PLANNED_FACTOR_GB[arch]} GB, is for all of them)"
+               if depth else f"against {planned} GB planned ({fb / 1e9 / planned:.3f}x)")
+            + f"; peak {peak:.2f} GiB")
         log(f"{tag} decode step: host {host_ms:.2f} ms (median of 10), device {dev_ms:.3f} ms "
             f"(CUDA graph replay); floor {floor_ms:.3f} ms = {step_bytes / 1e9:.3f} GB of "
             f"factors / 3.35 TB/s; device idle {100 * (1 - dev_ms / host_ms):.1f} % of the "
@@ -2612,7 +2639,9 @@ def truncation_svd_drivers(torch, coeffs, tau, tag="[train]"):
 # Qwen2-7B and OLMoE-1B-7B trained at full width and depth, bf16
 # ---------------------------------------------------------------------------
 
-QWEN2_ROUNDS = 2
+#: one round and the profiled one, as OLMoE's and RWKV's (a second round
+#: reads only its host time again)
+QWEN2_ROUNDS = 1
 QWEN2_ROUND_UNIT = ("one Qwen2-7B FeDLRT round (bf16 activations, M=512; atb's embedding "
                     "gather in f32)")
 QWEN2_TOKENS_PER_CLIENT = 4096
@@ -2860,6 +2889,13 @@ def _kernels_against_off(torch, tag, p0, on, off, moe_cfg, near_ties=False):
             failed.append(f"{path}: U S V^T differs between kernels and off by {rel} of its "
                           f"largest entry, {rel / move} of the round's change")
         del W, W_off, W0
+    small = [(path, m) for (path, _), m in zip(_factors(exp_off.params), moves)
+             if m < 8 * QWEN2_USVT_RTOL]
+    if small:
+        log(f"{tag} kernels vs off: {len(small)} of {len(moves)} factor leaves move by less "
+            f"than 8x the {QWEN2_USVT_RTOL:.3g} limit in the round, so that limit alone could "
+            f"not tell a wrong round; each is held by its share of its own change: "
+            + ", ".join(f"{path} {m:.3g}" for path, m in small))
     log(f"{tag} kernels vs off: ranks {'identical' if ranks_same else 'DIFFER'}; worst factor "
         f"max|W - W_off| / max|W_off| = {worst:.3g} (tol {QWEN2_USVT_RTOL:.3g}), at most "
         f"{of_move:.3g} of the factor's own change in the round ({min(moves):.3g} to "
@@ -2868,11 +2904,12 @@ def _kernels_against_off(torch, tag, p0, on, off, moe_cfg, near_ties=False):
     if gate and failed:
         raise AssertionError(f"{tag} kernels vs off: " + "; ".join(failed))
     out.update(worst_usvt=worst, round_move=(min(moves), max(moves)), worst_of_move=of_move,
-               ranks_same=ranks_same, held=gate)
+               ranks_same=ranks_same, held=gate, small_moves=small)
     return out
 
 
-def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, off_tokens):
+def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, off_tokens,
+                     watch=contextlib.nullcontext, check=None):
     """``arch`` at full width and depth in bf16 (f32 bases): ``rounds``
     FeDLRT rounds through ``build(spec).run()`` with the spec defaults
     (fedlrt, simplified correction, 4 clients, s* = 4, batch 4, seq 128,
@@ -2889,7 +2926,11 @@ def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, of
     again in f32, where the 3xTF32 route must keep the choices but for
     near-ties under ``FLIP_MARGIN``, held); and every shape of the round's
     ``xus`` / ``avt`` / ``atb`` against its plain version, timed, summed
-    over one full-depth round."""
+    over one full-depth round. ``watch()``, a context manager, is entered
+    around each round of the main path (a pass-through wrapper that counts
+    what it sees); ``check(exp, params0)`` runs after the main path's
+    rounds, on the trained model, and its result is returned under
+    ``check``."""
     import numpy as np
 
     import repro_torch.core.fedlrt as fedlrt_module
@@ -2947,7 +2988,8 @@ def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, of
     for r in range(rounds):
         before = _launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        res = exp.run(rounds=1)[-1]
+        with watch():
+            res = exp.run(rounds=1)[-1]
         torch.cuda.synchronize()
         got = {k: v - before[k] for k, v in _launch_counts().items() if k in want}
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2984,6 +3026,7 @@ def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, of
     path_s = time.perf_counter() - t_path
     counters[path] = _launch_counts()
     log(f"{tag} {rounds} round(s) in {path_s:.1f} s; launches {counters[path]}")
+    checked = check(exp, params0) if check is not None else None
     profile = profile_train_round(torch, exp, tag, history[-1]["host_s"])
     del exp, params0
     gc.collect()
@@ -3039,7 +3082,7 @@ def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, of
     log(f"{tag} the round's xus / avt shapes timed in {time.perf_counter() - t0:.1f} s")
     return dict(stream_s=data_s[0], build_s=build_s, factor_entries=entries, members=members,
                 bytes_by_dtype=by_dtype, wire=wire, rounds=history, path_s=path_s,
-                profile=profile,
+                profile=profile, check=checked,
                 off=off_stats, off_f32=off_f32, svd_drivers=drivers,
                 round_calls=calls_round, xus_round=xus_round, avt_round=avt_round)
 
@@ -3069,6 +3112,221 @@ def phase_train_olmoe(torch, counters):
     return phase_train_arch(torch, counters, "train-olmoe", "olmoe-1b-7b", OLMOE_ROUNDS,
                             OLMOE_TOKENS_PER_CLIENT, OLMOE_OFF_LAYERS,
                             OLMOE_OFF_TOKENS_PER_CLIENT)
+
+
+#: RWKV6-7B (32 layers, d 4096, 64 heads of 64, d_ff 14,336 non-gated,
+#: vocabulary 65,536, wkv chunks of 64): one round and the profiled one on
+#: 4 x 4,096 tokens (the rows route), as OLMoE's
+RWKV_ROUNDS = 1
+RWKV_ROUND_UNIT = ("one RWKV6-7B FeDLRT round (bf16 activations, M=512; atb's embedding "
+                   "gather in f32)")
+RWKV_TOKENS_PER_CLIENT = 4096
+RWKV_OFF_LAYERS = 2
+RWKV_OFF_TOKENS_PER_CLIENT = 512
+#: [train-rwkv wkv]: layer 0's time mix of the trained model over B x T
+#: tokens in f32, its wkv chunked against token by token in f64
+WKV_CHECK_B, WKV_CHECK_T = 4, 128
+#: the chunked wkv in f32 against the recurrence in f64, as a share of each
+#: tensor's largest entry (the output and five gradients): the f32 prefix
+#: sums of the log-decays reach ~23.5 in a 64-token chunk at w0 = -1, an
+#: absolute rounding of ~2e-6 an add, which the rescaled keys k / W_{<=i}
+#: (up to e^23.5) and r ⊙ W_{<i} turn into a relative error of the same
+#: order in each product; 1e-5 is the worst reckoned, 1e-4 the limit
+WKV_RTOL = 1e-4
+
+
+def wkv_against_recurrence(torch, cfg, p, B, T, seed, device="cuda", tag="[train-rwkv wkv]"):
+    """One RWKV6 time mix (``ssm.rwkv_mix``, layer parameters ``p`` of
+    ``cfg`` cast to f32, on the kernels ``cfg`` names) over a seeded x of
+    (B, T, d) in f32, against the same mix with its wkv run token by token
+    in f64 (``ssm._rwkv_stepped``): the output, and the gradients of
+    ``<out, P>`` (P a seeded projection) with respect to x, ``w0``, ``u``,
+    ``w_lora_a`` and ``w_lora_b``, each as max|chunked - stepped| /
+    max|stepped|, held within ``WKV_RTOL``.
+
+    A chunk whose log-decay passes -``ssm.CLAMP`` (the clamps bind: its
+    keys' rescaling is cut at e^30, so its own outputs are not the
+    recurrence's) is left out of the output and of ``<out, P>``, and said;
+    the state it hands on is the recurrence's up to e^-30 of it (its
+    ``k_i ⊙ W_{i+1..L}`` is never clamped), so the later chunks are held.
+    Returns the readings."""
+    from repro_torch.models import ssm
+    from repro_torch.utils.tree import tree_map
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    p = tree_map(lambda t: t.detach().float() if t.is_floating_point() else t, p)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((B, T, cfg.d_model), generator=gen, device=device)
+    proj = torch.randn((B, T, cfg.d_model), generator=gen, device=device)
+    chunked, seen = ssm._rwkv_chunked, []
+
+    def record(*a):
+        seen.append(a)
+        return chunked(*a)
+
+    with torch.no_grad(), unittest.mock.patch.object(ssm, "_rwkv_chunked", record):
+        ssm.rwkv_mix(p, x, cfg32)
+    logw, L = seen[0][3], min(seen[0][6], T)
+    n = -(-T // L)
+    lw = torch.cat([logw, logw.new_zeros((B, n * L - T) + logw.shape[2:])], dim=1)
+    deepest = torch.cumsum(lw.reshape((B, n, L) + logw.shape[2:]), dim=2).amin(dim=(0, 2, 3, 4))
+    binds = (deepest < -ssm.CLAMP).tolist()
+    if all(binds):
+        raise AssertionError(f"{tag} a clamp binds in every chunk: nothing to hold")
+    held = torch.tensor([not b for b in binds], device=device).repeat_interleave(L)[:T, None]
+
+    def stepped(r, k, v, logw, u, S0, chunk):
+        o, S = ssm._rwkv_stepped(*(a.double() for a in (r, k, v, logw, u, S0)))
+        return o.float(), S.float()
+
+    names = ("x", "w0", "u", "w_lora_a", "w_lora_b")
+
+    def run(wkv):
+        leaves = {k: p[k].clone().requires_grad_(True) for k in names[1:]}
+        xg = x.clone().requires_grad_(True)
+        t0 = time.perf_counter()
+        with unittest.mock.patch.object(ssm, "_rwkv_chunked", wkv):
+            out, _ = ssm.rwkv_mix(dict(p, **leaves), xg, cfg32)
+            grads = torch.autograd.grad((out * proj * held).sum(), [xg, *leaves.values()])
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return [out.detach() * held, *grads], time.perf_counter() - t0
+
+    got, chunked_s = run(chunked)
+    want, stepped_s = run(stepped)
+    errs = {name: ((a - b).abs().max() / b.abs().max()).item()
+            for name, a, b in zip(("out",) + tuple(f"grad {k}" for k in names), got, want)}
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    log(f"{tag} one time mix at B {B}, T {T}, d {cfg.d_model} ({cfg.d_model // cfg.rwkv.head_dim} "
+        f"heads of {cfg.rwkv.head_dim}), f32, chunks of {L}: the deepest log-decay a chunk "
+        f"reaches {deepest.min().item():.2f} (the rescaled keys up to "
+        f"e^{min(-deepest.min().item(), ssm.CLAMP):.1f}; the clamps at -{ssm.CLAMP:g}); a "
+        f"clamp binds in "
+        f"{sum(binds)} of {n} chunks" + (", left out" if any(binds) else "")
+        + f"; chunked {1e3 * chunked_s:.1f} ms, token by token in f64 {1e3 * stepped_s:.1f} "
+          f"ms (forward and backward)")
+    log(f"{tag} chunked in f32 against token by token in f64, max|a - b| / max|b| (limit "
+        f"{WKV_RTOL:g}): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    if not finite or not max(errs.values()) <= WKV_RTOL:
+        raise AssertionError(f"{tag} the chunked wkv misses the token-by-token recurrence: "
+                             f"{errs} (limit {WKV_RTOL}), finite {finite}")
+    return dict(errs=errs, deepest_log_decay=deepest.min().item(), chunks=n,
+                clamped_chunks=sum(binds), chunked_s=chunked_s, stepped_s=stepped_s)
+
+
+def wkv_call_cost(torch, cfg, B, T, reps=5):
+    """One chunked wkv's forward, and its forward and backward, at the
+    round's shape (B rows of T tokens, f32 as ``rwkv_mix`` runs it): the
+    card's busy ms a call (the union of its kernels' intervals under
+    ``torch.profiler``, over ``reps`` calls) and the host's ms a call (the
+    same calls unprofiled, ending in a sync), with the kernels a call."""
+    from repro_torch.models import ssm
+
+    H, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    r, k, v = (torch.randn((B, T, H, hd), generator=gen, device="cuda") for _ in range(3))
+    logw = -torch.exp(-1.0 + 0.1 * torch.randn((B, T, H, hd), generator=gen, device="cuda"))
+    u = torch.full((H, hd), 0.5, device="cuda")
+    S0 = torch.zeros((B, H, hd, hd), device="cuda")
+    ins = [t.requires_grad_(True) for t in (r, k, v, logw, u)]
+
+    def fwd():
+        with torch.no_grad():
+            ssm._rwkv_chunked(*ins, S0, cfg.rwkv.chunk_len)
+
+    def fwd_bwd():
+        o, S = ssm._rwkv_chunked(*ins, S0, cfg.rwkv.chunk_len)
+        torch.autograd.grad(o.sum() + S.sum(), ins)
+
+    out = {}
+    for name, fn in (("forward", fwd), ("forward_backward", fwd_bwd)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / reps * 1e3
+        n, busy_s, _ = device_profile(
+            torch, lambda fn=fn: [fn() for _ in range(reps)],
+            f"[train-rwkv wkv] {name.replace('_', ' and ')} at B {B}, T {T}:", 3, cpu=False)
+        out[name] = dict(device_ms=busy_s / reps * 1e3, host_ms=host_ms, kernels=n // reps)
+    return out
+
+
+def phase_train_rwkv(torch, counters):
+    """RWKV6-7B (32 layers, d 4096, 64 heads of 64, d_ff 14,336 non-gated,
+    vocabulary 65,536, the wkv in chunks of 64; r_max 256 everywhere)
+    through :func:`phase_train_arch`: ``RWKV_ROUNDS`` round(s) on
+    ``RWKV_TOKENS_PER_CLIENT`` tokens a client, each of the five d x d
+    projections, the MLP's two factors, the embedding and the head one
+    launch a layer on the chain; the wkv's calls in the round counted.
+    After the main path, on the trained model: :func:`wkv_against_recurrence`
+    on layer 0 (``[train-rwkv wkv]``), the decay LoRA's move in the round,
+    and one wkv's device busy and host ms at the round's shape
+    (:func:`wkv_call_cost`), which times its calls a round give its share
+    of the profiled round's busy time and of the round's host time (an
+    estimate: the wkv's einsums carry no name of their own in the trace).
+    Then the kernels-off pair at ``RWKV_OFF_LAYERS`` layers."""
+    from repro_torch.api import ModelSpec, tasks
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import _layer
+
+    cfg = tasks.lm_model_config(ModelSpec(arch="rwkv6-7b"))
+    calls = {}  # (forward or forward_backward, B, T) -> calls in the main path
+
+    @contextlib.contextmanager
+    def watch():
+        chunked = ssm._rwkv_chunked
+
+        def counted(r, *a):
+            kind = "forward_backward" if torch.is_grad_enabled() and r.requires_grad else "forward"
+            key = (kind,) + tuple(r.shape[:2])
+            calls[key] = calls.get(key, 0) + 1
+            return chunked(r, *a)
+
+        with unittest.mock.patch.object(ssm, "_rwkv_chunked", counted):
+            yield
+
+    def check(exp, params0):
+        tag = "[train-rwkv wkv]"
+        mix, mix0 = (_layer(p["blocks"]["pos0"]["rwkv"], 0) for p in (exp.params, params0))
+        moved = {k: ((mix[k].float() - mix0[k].float()).abs().max()
+                     / mix0[k].float().abs().max()).item()
+                 for k in ("w0", "u", "w_lora_a", "w_lora_b")}
+        log(f"{tag} layer 0's dense leaves moved in the round, max|after - before| / "
+            f"max|before|: " + ", ".join(f"{k} {v:.3g}" for k, v in moved.items()))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        out = wkv_against_recurrence(torch, cfg, mix, WKV_CHECK_B, WKV_CHECK_T, 7, tag=tag)
+        cost = {(B, T): wkv_call_cost(torch, cfg, B, T) for B, T in {k[1:] for k in calls}}
+        per_round = {what: sum(n * cost[key[1:]][key[0]][f"{what}_ms"]
+                               for key, n in calls.items()) / RWKV_ROUNDS / 1e3
+                     for what in ("device", "host")}
+        log(f"{tag} the round's wkv calls, each's device busy / host ms: "
+            + "; ".join(f"{n // RWKV_ROUNDS} x {kind.replace('_', ' and ')} at B {B}, T {T} "
+                        f"{cost[(B, T)][kind]['device_ms']:.3f} / "
+                        f"{cost[(B, T)][kind]['host_ms']:.3f} ms "
+                        f"({cost[(B, T)][kind]['kernels']} kernels)"
+                        for (kind, B, T), n in sorted(calls.items()))
+            + f"; a round {per_round['device']:.3f} s device busy, {per_round['host']:.3f} s "
+              f"host")
+        return dict(out, dense_moved=moved,
+                    wkv_cost={f"{B}x{T}": v for (B, T), v in cost.items()},
+                    wkv_calls={f"{k} {B}x{T}": n for (k, B, T), n in calls.items()},
+                    wkv_round_device_s=per_round["device"], wkv_round_host_s=per_round["host"])
+
+    out = phase_train_arch(torch, counters, "train-rwkv", "rwkv6-7b", RWKV_ROUNDS,
+                           RWKV_TOKENS_PER_CLIENT, RWKV_OFF_LAYERS, RWKV_OFF_TOKENS_PER_CLIENT,
+                           watch=watch, check=check)
+    busy, host = out["profile"]["device_busy_s"], out["rounds"][-1]["host_s"]
+    shares = dict(device=out["check"]["wkv_round_device_s"] / busy,
+                  host=out["check"]["wkv_round_host_s"] / host)
+    log(f"[train-rwkv wkv] the wkv's share of the profiled round's device busy time "
+        f"{busy:.3f} s: {100 * shares['device']:.1f} %; of the round's host time {host:.3f} s: "
+        f"{100 * shares['host']:.1f} % (estimated: its calls in the round times one call's "
+        f"device busy and host ms)")
+    out["check"]["wkv_shares"] = shares
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4388,7 +4646,7 @@ def decode_step_sums(name, cfg, records):
 
 
 def kernel_summary(records, model_records, atb_records, flash_records, counters, cfg, atb_round,
-                   xus_round, avt_round, encdec_sums, scan, qwen2, olmoe):
+                   xus_round, avt_round, encdec_sums, scan, qwen2, olmoe, rwkv):
     """Per kernel: ``xus``/``avt`` as the sum over one Qwen2-7B decode
     step's launches (M = 4) of each measured number, with the sum over one
     decode step of each of the models phase's architectures under
@@ -4396,8 +4654,8 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
     recorded calls, a decode step's with a prefill's under ``prefill``)
     and over one llm-100m round's calls under ``round``;
     ``xus``, ``avt`` and ``atb`` also summed over one bf16 Qwen2-7B round's
-    calls under ``train_qwen2`` and one OLMoE-1B-7B round's under
-    ``train_olmoe``;
+    calls under ``train_qwen2``, one OLMoE-1B-7B round's under
+    ``train_olmoe`` and one RWKV6-7B round's under ``train_rwkv``;
     ``atb`` as the sum over
     one llm-100m FeDLRT round's calls (M = 512, f32: ``phase_atb``'s
     ``[atb] round``); ``flash_attention``
@@ -4438,6 +4696,7 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
                             "unit": "one llm-100m FeDLRT round (f32, M=512)"}
         out[-1]["train_qwen2"] = {**qwen2[f"{name}_round"], "unit": QWEN2_ROUND_UNIT}
         out[-1]["train_olmoe"] = {**olmoe[f"{name}_round"], "unit": OLMOE_ROUND_UNIT}
+        out[-1]["train_rwkv"] = {**rwkv[f"{name}_round"], "unit": RWKV_ROUND_UNIT}
     out.append({
         "name": "atb", "route": "cuda", "source": SOURCES["atb"], "replaces": REPLACES["atb"],
         **launches("atb"),
@@ -4450,6 +4709,7 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
         "unit": "one llm-100m FeDLRT round (f32, M=512)",
         "train_qwen2": {**qwen2["atb_round"], "unit": QWEN2_ROUND_UNIT},
         "train_olmoe": {**olmoe["atb_round"], "unit": OLMOE_ROUND_UNIT},
+        "train_rwkv": {**rwkv["atb_round"], "unit": RWKV_ROUND_UNIT},
     })
     [pre] = [r for r in flash_records if r["case"] == "qwen2-7b prefill"]
     out.append({
@@ -4557,6 +4817,10 @@ def main() -> int:
     train_olmoe["atb_round"] = atb_round_total(torch, atb_records, train_olmoe["round_calls"],
                                                "olmoe-1b-7b", "[train-olmoe atb]")
     done("train-olmoe")
+    train_rwkv = phase_train_rwkv(torch, counters)
+    train_rwkv["atb_round"] = atb_round_total(torch, atb_records, train_rwkv["round_calls"],
+                                              "rwkv6-7b", "[train-rwkv atb]")
+    done("train-rwkv")
     flash_records = phase_flash(torch, counters)
     done("flash")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spec_") as workdir:
@@ -4576,6 +4840,8 @@ def main() -> int:
                                                    if k != "round_calls"},
                                    "train_olmoe": {k: v for k, v in train_olmoe.items()
                                                    if k != "round_calls"},
+                                   "train_rwkv": {k: v for k, v in train_rwkv.items()
+                                                  if k != "round_calls"},
                                    "flash": flash_records, "spec": spec_stats,
                                    "sim": sim_stats, "examples": examples_stats,
                                    "xus_train": xus_train,
@@ -4583,7 +4849,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_summary(
         records, model_records, atb_records, flash_records, counters, cfg, atb_round, xus_round,
         avt_round, ev_sums, model_stats["jamba mamba scan"]["kernel"], train_qwen2,
-        train_olmoe)}))
+        train_olmoe, train_rwkv)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

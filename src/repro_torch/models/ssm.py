@@ -372,6 +372,20 @@ def _rwkv_chunked(r, k, v, logw, u, S0, chunk: int):
     return o[:, :T], S
 
 
+def _rwkv_stepped(r, k, v, logw, u, S0):
+    """The wkv token by token, the recurrence :func:`_rwkv_chunked` states,
+    in the inputs' dtype: no rescaled keys and no clamp. No model path
+    calls it; the checks hold the chunked form to it, run in f64."""
+    w = torch.exp(logw)
+    S, outs = S0, []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # k_tᵀ v_t: (B, H, hd, hd)
+        outs.append(torch.einsum("bhd,bhde->bhe", r[:, t], S)
+                    + torch.einsum("bhd,bhde->bhe", r[:, t] * u, kv))
+        S = w[:, t, :, :, None] * S + kv
+    return torch.stack(outs, dim=1), S
+
+
 def _sharded_wkv(r, k, v, logw, u, S0, chunk: int):
     """:func:`_rwkv_chunked` on DTensors, each rank on its shards: the
     recurrence runs over all of T, so a sequence split is gathered; a batch
