@@ -34,7 +34,7 @@ per source, all started together) and drives each of the port's paths:
   Qwen1.5-32B, Qwen3-32B, OLMoE-1B-7B, DeepSeekMoE-16B) and the two the SSM
   slice added (RWKV6-7B; Jamba-1.5-Large, Mamba and attention with MoE) at
   full width and depth in bf16 (the two 32B models at 16 of their 64
-  layers) through ``repro_torch.api.serve``: each
+  layers, Jamba at 16 of its 72) through ``repro_torch.api.serve``: each
   model served, launches a forward held to ``decode_step_calls``, bytes
   against the plan, tok/s, p50/p99, decode step host and device ms, a
   repeated step and prefill bit-identical, the MoE capacity drops per
@@ -64,24 +64,21 @@ per source, all started together) and drives each of the port's paths:
   drivers;
 - train-qwen2: the token stream's rows route held token-equal to the dense
   route at vocabulary 8192 on this host's numpy; one FeDLRT round of
-  Qwen2-7B at full width and depth in bf16 (f32 bases, vocabulary
-  152,064, r_max 256) through ``build(spec).run()`` on 4 x 4,096 tokens,
-  with the launches, the losses, the inactive columns, the ranks and the
-  measured wire bytes held (``cost_model.wire_round_bytes``),
-  peak memory, host s a round and the data's host s; one more round under
-  ``torch.profiler`` (device busy share, kernels by device time, the
-  truncation SVD's share); at full width and 2 layers one round with
+  Qwen2-7B at full width and 14 of its 28 layers in bf16 (f32 bases,
+  vocabulary 152,064, r_max 256) through ``build(spec).run()`` on 4 x
+  4,096 tokens, with the launches, the losses, the inactive columns, the
+  ranks and the measured wire bytes held (``cost_model.wire_round_bytes``),
+  peak memory and host s a round; at full width and 2 layers one round with
   kernels on, its every call held to ``round_calls`` (one per launch, by
   kernel, dtypes, K or N, R, the stack G and the rows M), against one
   with kernels off (each factor's ``U S Vᵀ`` within 2⁻⁷ of its largest
   entry and 1/8 of the round's own change of it); every bf16 ``xus`` (S
   in bf16, or in f32 as the backward gives it) / ``avt`` / ``atb`` shape
-  of the round against its plain version, timed, and the sums over one
-  full-depth round;
-- train-olmoe: the same for OLMoE-1B-7B (16 layers, d 2048, 64 experts
-  top-8 of hidden 1024, vocabulary 50,304): one round and the profiled
-  one (the expert stacks' truncations timed by CUDA events outside the
-  trace), each MoE projection one launch a layer with its 64 experts on
+  of the round against its plain version, timed, and the sums over the
+  round that ran;
+- train-olmoe: the same for OLMoE-1B-7B at full depth (16 layers, d 2048,
+  64 experts top-8 of hidden 1024, vocabulary 50,304): one round, each
+  MoE projection one launch a layer with its 64 experts on
   the kernels' grid axis at the capacity's 80 rows; the 2-layer pair with
   the tokens whose expert choices differ counted, held only where none
   does, else again in f32, where the first differing choices must be
@@ -89,12 +86,12 @@ per source, all started together) and drives each of the port's paths:
   truncation SVD drivers on 8 expert members;
 - train-rwkv: the same for RWKV6-7B (32 layers, d 4096, 64 heads of 64,
   d_ff 14,336 non-gated, vocabulary 65,536, the wkv in chunks of 64): one
-  round and the profiled one, with the kernels-off pair at 2 layers; after
+  round at 16 of the 32 layers, with the kernels-off pair at 2 layers; after
   the main path, layer 0's time mix of the trained model at B 4, T 128 in
   f32 held to the same mix with its wkv run token by token in f64: the
   output and the gradients with respect to x, ``w0``, ``u`` and the decay
   LoRA within ``WKV_RTOL`` of each tensor's largest entry; the wkv's
-  calls a round and its estimated share of the device's busy time and of
+  calls a round, their estimated device busy seconds and their share of
   the round's host time;
 - flash: ``repro_torch.kernels.flash_attention`` at four attention shapes
   (Qwen2-7B prefill and decode against a cache, Mistral-7B's sliding
@@ -168,6 +165,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -197,7 +195,7 @@ SOURCES = {
 }
 KERNELS = tuple(SOURCES)
 PATHS = ("serve", "serve-quant", "models", "encdec", "vlm", "mesh", "train", "train-qwen2",
-         "train-olmoe", "train-rwkv", "flash", "spec", "sim", "examples")
+         "train-olmoe", "train-rwkv", "train-jamba", "flash", "spec", "sim", "examples")
 #: tolerance of a kernel against its plain version, with the reason
 TOL = {
     # both round once from f32 to bf16; f32 sums taken in different orders
@@ -1047,16 +1045,17 @@ def phase_serve_quant(torch, counters, serve_stats, bf16_tokens):
 #: depth in bf16: OLMoE-1B-7B, the MoE block's path, with the serve phase's
 #: 8 requests of 16 new tokens; the other four with 4 requests of 8
 #: 8; then the SSM slice's RWKV6-7B and Jamba-1.5-Large (last: its 34 GB
-#: of factors), 4 × 8 each
+#: of factors at full depth, 7.6 GB at the depth served), 4 × 8 each
 MODELS = (("olmoe-1b-7b", 8, 16), ("deepseek-moe-16b", 4, 8), ("codeqwen1.5-7b", 4, 8),
           ("qwen1.5-32b", 4, 8), ("qwen3-32b", 4, 8), ("rwkv6-7b", 4, 8),
           ("jamba-1.5-large-398b", 4, 8))
-#: the models served at full width and part depth (layers of their 64):
-#: the two 32B models, whose every layer gives the kernels the same shapes,
-#: so a quarter of the depth drives every shape and the launches a forward
-#: of that depth; a decode step's sums (``by_model``) stay reckoned over
-#: all 64 layers from the shapes' records
-MODEL_LAYERS = {"qwen1.5-32b": 16, "qwen3-32b": 16}
+#: the models served at full width and part depth (layers): the two 32B
+#: models, whose every layer gives the kernels the same shapes, at 16 of
+#: their 64, and Jamba-1.5-Large, whose every 8-layer period does, at two
+#: periods of its nine; the part drives every shape and the launches a
+#: forward of that depth; a decode step's sums (``by_model``) stay reckoned
+#: over every layer from the shapes' records
+MODEL_LAYERS = {"qwen1.5-32b": 16, "qwen3-32b": 16, "jamba-1.5-large-398b": 16}
 #: every factor's bf16 bytes, GB, as planned from ``LowRankPolicy.r_max_for``
 #: and the published dimensions before the first run (PERF.md, §6)
 PLANNED_FACTOR_GB = {"codeqwen1.5-7b": 1.53, "qwen1.5-32b": 4.76, "qwen3-32b": 4.30,
@@ -2284,6 +2283,19 @@ def _factors(params):
     return out
 
 
+def fake_params(torch, cfg):
+    """The training parameters of a model of ``cfg`` (f32 bases beside the
+    model's S) as fake tensors: their shapes and dtypes, nothing
+    allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core.factorization import training_dtypes
+    from repro_torch.models import build_model
+
+    with FakeTensorMode():
+        return training_dtypes(build_model(cfg).init(torch.Generator())[0])
+
+
 def expert_rows(moe, M) -> int:
     """Rows each expert of a MoE block takes from ``M`` tokens: its capacity
     ``cap = min(max(int(cf·k·M/E), 1), M)`` (``models/moe.py`` ``route``)."""
@@ -2639,9 +2651,13 @@ def truncation_svd_drivers(torch, coeffs, tau, tag="[train]"):
 # Qwen2-7B and OLMoE-1B-7B trained at full width and depth, bf16
 # ---------------------------------------------------------------------------
 
-#: one round and the profiled one, as OLMoE's and RWKV's (a second round
-#: reads only its host time again)
+#: one round, as OLMoE's and RWKV's (a second round reads only its host
+#: time again)
 QWEN2_ROUNDS = 1
+#: the main path's depth, half of the model's 28 layers for the script's
+#: time (the launch and wire gates hold at any depth); the timed shapes are
+#: summed over this round's calls
+QWEN2_LAYERS = 14
 QWEN2_ROUND_UNIT = ("one Qwen2-7B FeDLRT round (bf16 activations, M=512; atb's embedding "
                     "gather in f32)")
 QWEN2_TOKENS_PER_CLIENT = 4096
@@ -2667,9 +2683,16 @@ QWEN2_USVT_OF_MOVE = 1 / 8
 #: round, and one bf16 rounding apart reads 0.14-0.16 of that change on the
 #: CPU (tests/test_torch_train_arch.py); a no-op round reads 1
 EXPERT_USVT_OF_MOVE = 1 / 4
+#: the least limit of a factor's kernels-against-off gap, of its largest
+#: entry: 2⁻²⁰, 8 f32 ulps of it. A factor that one round barely trains
+#: (Jamba's dt_proj and x_proj, reached only through Δ ~ 0.01 and the
+#: scan's B and C) moves by a few ulps to ~1e-5 of its largest entry, so
+#: 1/8 of that change would sit under the two rounds' f32 rounding; such a
+#: factor is held to this instead (its f32 pair at full width reads up to
+#: 2.95e-7, dt_proj's change 1.8e-7 to 6.5e-7, x_proj's 2.2e-6 up)
+USVT_FLOOR = 2.0**-20
 #: OLMoE-1B-7B (16 layers, d 2048, 64 experts top-8 of hidden 1024,
-#: vocabulary 50,304): one round and the profiled one (the phase's seconds
-#: are the script's to spare), on 4 x 4,096 tokens (the rows route)
+#: vocabulary 50,304): one round on 4 x 4,096 tokens (the rows route)
 OLMOE_ROUNDS = 1
 OLMOE_ROUND_UNIT = ("one OLMoE-1B-7B FeDLRT round (bf16 activations; M=512, the experts' "
                     "G=64 stacks at M=80; atb's embedding gather in f32)")
@@ -2784,16 +2807,21 @@ def profile_train_round(torch, exp, tag, wall):
                 profiled_wall_s=wall_prof, read_s=read_s)
 
 
-def _cut_round(torch, spec, arch, layers, tokens, dtype, calls=None):
+def _cut_round(torch, spec, arch, layers, tokens, dtype, calls=None, clients=None):
     """One FeDLRT round of ``arch`` at full width and ``layers`` layers in
     ``dtype`` (parameters and compute; f32 bases as every training caller)
-    with kernels, and one with kernels off from the same parameters; every
-    kernel call of the first counted in ``calls``, every MoE block's
-    routing of both recorded. Returns (the start, each run's experiment,
-    round result and routings)."""
+    with kernels, and one with kernels off from the same parameters, with
+    ``clients`` clients (the spec's when None); every kernel call of the
+    first counted in ``calls``, every MoE block's routing of both recorded.
+    The kernel run's start and end parameters go to host memory before the
+    plain run starts, so one model's round lives on the card at a time.
+    Returns (the start, (the kernel run's parameters, round result and
+    routings), the plain run's, the round's ``FedConfig``): the start and
+    the kernel run's parameters on the host."""
     from repro_torch.api import DataSpec, ModelSpec, build
     from repro_torch.api import tasks
     from repro_torch.models import moe
+    from repro_torch.utils.tree import tree_map
 
     resolve = tasks.lm_model_config
 
@@ -2801,31 +2829,64 @@ def _cut_round(torch, spec, arch, layers, tokens, dtype, calls=None):
         return dataclasses.replace(resolve(m), num_layers=layers, param_dtype=dtype,
                                    compute_dtype=dtype)
 
+    fed = spec.fed if clients is None else dataclasses.replace(spec.fed, clients=clients)
     small = dataclasses.replace(spec, name=f"{spec.name}-cut", rounds=1, log_every=0,
-                                data=DataSpec(tokens_per_client=tokens))
+                                data=DataSpec(tokens_per_client=tokens), fed=fed)
     runs = {}
     torch.backends.cuda.matmul.allow_tf32 = False
     with unittest.mock.patch.object(tasks, "lm_model_config", cut):
         for kernels in ("auto", "off"):
             routed = []
-            p = None if kernels == "auto" else _clone(runs["auto"][3])
+            p = None if kernels == "auto" else tree_map(lambda t: t.cuda(), start)
             exp = build(dataclasses.replace(small, model=ModelSpec(arch=arch, kernels=kernels)),
                         params=p, device="cuda")
-            start = _clone(exp.params)
+            if kernels == "auto":
+                start = tree_map(lambda t: t.detach().cpu(), exp.params)
             count = kernel_calls(calls) if calls is not None and kernels == "auto" else (
                 contextlib.nullcontext())
             with count, calls_of(moe, "route", lambda _, r: routed.append(r)):
                 res = exp.run(rounds=1)[-1]
-            runs[kernels] = (exp, res, routed, start)
+            params = exp.params
+            if kernels == "auto":
+                params = tree_map(lambda t: t.detach().cpu(), params)
+            runs[kernels] = (params, res, routed)
+            fed_cfg = exp.engine.cfg
+            del exp, p
+            gc.collect()
+            torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    return runs["auto"][3], runs["auto"][:3], runs["off"][:3]
+    return start, runs["auto"], runs["off"], fed_cfg
+
+
+def _usvt_gaps(torch, f, g, f0):
+    """max|W_f − W_g|, max|W_g| and max|W_g − W_f0| of three factors of one
+    leaf (``W = U S Vᵀ``), each member of a stack (its leading dims) on the
+    card at a time, wherever its tensors lie: a MoE leaf of Jamba's 16
+    experts of 8192 x 24,576 holds 12.9 GB of f32 entries whole."""
+    from repro_torch.core.factorization import LowRankFactor, materialize
+
+    def members(x):
+        lead = x.U.shape[:-2]
+        flat = [t.reshape((-1,) + t.shape[len(lead):]) for t in (x.U, x.S, x.V)]
+        return [LowRankFactor(U=u.cuda(), S=s.cuda(), V=v.cuda(), rank=x.rank)
+                for u, s, v in zip(*flat)]
+
+    gap = scale = move = 0.0
+    for a, b, c in zip(members(f), members(g), members(f0)):
+        W, W_off, W0 = materialize(a), materialize(b), materialize(c)
+        gap = max(gap, (W - W_off).abs().max().item())
+        scale = max(scale, W_off.abs().max().item())
+        move = max(move, (W_off - W0).abs().max().item())
+        del W, W_off, W0
+    return gap, scale, move
 
 
 def _kernels_against_off(torch, tag, p0, on, off, moe_cfg, near_ties=False):
     """The kernel round ``on`` against the plain chain's ``off`` from ``p0``:
     the losses, the ranks, each factor's ``U S Vᵀ`` against its largest
     entry and against the round's own change of it (an expert stack within
-    ``EXPERT_USVT_OF_MOVE``, the others ``QWEN2_USVT_OF_MOVE``), and with
+    ``EXPERT_USVT_OF_MOVE``, the others ``QWEN2_USVT_OF_MOVE``; no limit
+    under ``USVT_FLOOR`` of its largest entry), and with
     MoE blocks the tokens whose expert choices differ. Held to the limits
     unless an expert choice differs; with ``near_ties`` the first MoE call
     in which a choice differs may hold only near-ties (the plain round's
@@ -2834,9 +2895,7 @@ def _kernels_against_off(torch, tag, p0, on, off, moe_cfg, near_ties=False):
     and the limits are held all the same. Returns the readings."""
     import numpy as np
 
-    from repro_torch.core.factorization import materialize
-
-    (exp_k, res_k, routed_k), (exp_off, res_off, routed_off) = on, off
+    (params_k, res_k, routed_k), (params_off, res_off, routed_off) = on, off
     out = dict(loss_before=(res_k.loss_before, res_off.loss_before),
                loss_after=(res_k.loss_after, res_off.loss_after))
     failed, gate = [], True
@@ -2872,30 +2931,40 @@ def _kernels_against_off(torch, tag, p0, on, off, moe_cfg, near_ties=False):
                      for k, v in res_off.ranks.items())
     if not ranks_same:
         failed.append(f"ranks differ: kernels {res_k.ranks} vs off {res_off.ranks}")
-    worst, moves, of_move = 0.0, [], 0.0
-    for (path, f), (_, g), (_, f0) in zip(_factors(exp_k.params), _factors(exp_off.params),
+    worst, moves, of_move, floored = 0.0, [], 0.0, []
+    for (path, f), (_, g), (_, f0) in zip(_factors(params_k), _factors(params_off),
                                           _factors(p0)):
         limit = EXPERT_USVT_OF_MOVE if f.U.dim() > 3 else QWEN2_USVT_OF_MOVE
-        W, W_off, W0 = materialize(f), materialize(g), materialize(f0)
-        scale = W_off.abs().max()
-        rel = ((W - W_off).abs().max() / scale).item()
-        move = ((W_off - W0).abs().max() / scale).item()
+        gap, scale, move = _usvt_gaps(torch, f, g, f0)
+        rel, move = gap / scale, move / scale
         moves.append(move)
-        worst, of_move = max(worst, rel), max(of_move, rel / move)
+        floor = limit * move < USVT_FLOOR
+        worst = max(worst, rel)
+        if floor:
+            floored.append((path, rel, move))
+        else:
+            of_move = max(of_move, rel / move)
         log(f"{tag} kernels vs off, {path}: max|W - W_off| / max|W_off| = {rel:.3g}; "
             f"the round's own change max|W_off - W_0| / max|W_off| = {move:.3g} "
-            f"({rel / move:.3g} of it, limit {limit:g})")
-        if not (rel <= QWEN2_USVT_RTOL and rel <= limit * move):
+            + (f"(limit {USVT_FLOOR:.3g} of max: {limit:g} of the change is under it)" if floor
+               else f"({rel / move:.3g} of it, limit {limit:g})"))
+        if not (rel <= QWEN2_USVT_RTOL and rel <= max(limit * move, USVT_FLOOR)):
             failed.append(f"{path}: U S V^T differs between kernels and off by {rel} of its "
-                          f"largest entry, {rel / move} of the round's change")
-        del W, W_off, W0
-    small = [(path, m) for (path, _), m in zip(_factors(exp_off.params), moves)
+                          f"largest entry, {rel / move if move else math.inf} of the round's "
+                          f"change")
+    small = [(path, m) for (path, _), m in zip(_factors(params_off), moves)
              if m < 8 * QWEN2_USVT_RTOL]
     if small:
         log(f"{tag} kernels vs off: {len(small)} of {len(moves)} factor leaves move by less "
             f"than 8x the {QWEN2_USVT_RTOL:.3g} limit in the round, so that limit alone could "
-            f"not tell a wrong round; each is held by its share of its own change: "
+            f"not tell a wrong round; each is held by its share of its own change, or "
+            f"where that is under {USVT_FLOOR:.3g} by that bound: "
             + ", ".join(f"{path} {m:.3g}" for path, m in small))
+    if floored:
+        log(f"{tag} kernels vs off: {len(floored)} factor leaves held to {USVT_FLOOR:.3g} of max, "
+            f"worst gap {max(r for _, r, _ in floored):.3g}; of them a round that left the "
+            f"factor as it was (a gap equal to its change) would pass for "
+            + (", ".join(p for p, _, m in floored if m <= USVT_FLOOR) or "none"))
     log(f"{tag} kernels vs off: ranks {'identical' if ranks_same else 'DIFFER'}; worst factor "
         f"max|W - W_off| / max|W_off| = {worst:.3g} (tol {QWEN2_USVT_RTOL:.3g}), at most "
         f"{of_move:.3g} of the factor's own change in the round ({min(moves):.3g} to "
@@ -2904,12 +2973,14 @@ def _kernels_against_off(torch, tag, p0, on, off, moe_cfg, near_ties=False):
     if gate and failed:
         raise AssertionError(f"{tag} kernels vs off: " + "; ".join(failed))
     out.update(worst_usvt=worst, round_move=(min(moves), max(moves)), worst_of_move=of_move,
-               ranks_same=ranks_same, held=gate, small_moves=small)
+               ranks_same=ranks_same, held=gate, small_moves=small,
+               floored=[dict(path=p, gap=r, move=m) for p, r, m in floored])
     return out
 
 
 def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, off_tokens,
-                     watch=contextlib.nullcontext, check=None):
+                     watch=contextlib.nullcontext, check=None, layers=None, off_clients=None,
+                     profile=True):
     """``arch`` at full width and depth in bf16 (f32 bases): ``rounds``
     FeDLRT rounds through ``build(spec).run()`` with the spec defaults
     (fedlrt, simplified correction, 4 clients, s* = 4, batch 4, seq 128,
@@ -2926,24 +2997,33 @@ def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, of
     again in f32, where the 3xTF32 route must keep the choices but for
     near-ties under ``FLIP_MARGIN``, held); and every shape of the round's
     ``xus`` / ``avt`` / ``atb`` against its plain version, timed, summed
-    over one full-depth round. ``watch()``, a context manager, is entered
+    over the main path's round (the calls its launches were held to). ``watch()``, a context manager, is entered
     around each round of the main path (a pass-through wrapper that counts
     what it sees); ``check(exp, params0)`` runs after the main path's
     rounds, on the trained model, and its result is returned under
-    ``check``."""
+    ``check``. ``layers`` cuts the main path's depth (``num_layers``
+    through a patched ``tasks.lm_model_config``, the spec as the
+    reference's) and ``off_clients`` sets the pair's cohort (the spec's
+    when None); ``profile=False`` leaves out the profiled round."""
     import numpy as np
 
     import repro_torch.core.fedlrt as fedlrt_module
     import repro_torch.data
-    from repro_torch.api import DataSpec, ExperimentSpec, ModelSpec, build
+    from repro_torch.api import DataSpec, ExperimentSpec, FedSpec, ModelSpec, build
     from repro_torch.api import tasks
     from repro_torch.core import cost_model
     from repro_torch.utils.tree import tree_leaves
 
     tag = f"[{path}]"
     spec = ExperimentSpec(name=f"chip-{path}", seed=0, rounds=rounds, log_every=1,
-                          model=ModelSpec(arch=arch), data=DataSpec(tokens_per_client=tokens))
+                          model=ModelSpec(arch=arch), data=DataSpec(tokens_per_client=tokens),
+                          fed=FedSpec())
     moe_cfg = tasks.lm_model_config(spec.model).moe
+    resolve = tasks.lm_model_config
+
+    def depth(m):
+        cfg = resolve(m)
+        return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
     make_stream, data_s = repro_torch.data.make_token_stream, []
 
     def timed_stream(**kw):
@@ -2953,7 +3033,8 @@ def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, of
         return out
 
     t0 = time.perf_counter()
-    with unittest.mock.patch.object(repro_torch.data, "make_token_stream", timed_stream):
+    with unittest.mock.patch.object(repro_torch.data, "make_token_stream", timed_stream), \
+            unittest.mock.patch.object(tasks, "lm_model_config", depth):
         exp = build(spec, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -2972,9 +3053,10 @@ def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, of
     wire = cost_model.wire_round_bytes(params0, correction=cfg.correction)
     r_max = {p: f.r_max for p, f in factors}
     members = sum(math.prod(f.U.shape[:-2]) for _, f in factors)
-    log(f"{tag} built in {build_s:.1f} s, of it the token stream {data_s[0]:.1f} s on the host "
-        f"({cfg.num_clients} x {tokens} tokens, "
-        f"{1e3 * data_s[0] / (cfg.num_clients * tokens):.3f} ms a token); {len(factors)} factor "
+    log(f"{tag} {depth(spec.model).num_layers} layers, {cfg.num_clients} clients: built in "
+        f"{build_s:.1f} s, of it {data_s[0]:.1f} s to fetch the token stream "
+        f"({cfg.num_clients} x {tokens} tokens, built in a process of its own: its build's "
+        f"host time is on its [streams] line); {len(factors)} factor "
         f"leaves ({members} members), {entries / 1e6:.1f} M factor entries; bytes by dtype "
         f"{ {k: f'{v / 1e9:.3f} GB' for k, v in by_dtype.items()} }; r_max "
         f"{sorted(set(r_max.values()))}; expected launches a round {want}; wire a client "
@@ -3027,8 +3109,11 @@ def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, of
     counters[path] = _launch_counts()
     log(f"{tag} {rounds} round(s) in {path_s:.1f} s; launches {counters[path]}")
     checked = check(exp, params0) if check is not None else None
-    profile = profile_train_round(torch, exp, tag, history[-1]["host_s"])
-    del exp, params0
+    del params0, factors
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = profile_train_round(torch, exp, tag, history[-1]["host_s"]) if profile else None
+    del exp
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3044,9 +3129,10 @@ def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, of
 
     t0 = time.perf_counter()
     with unittest.mock.patch.object(fedlrt_module, "truncate", keep_coeff):
-        p0, on, off = _cut_round(torch, spec, arch, off_layers, off_tokens, "bfloat16", calls)
+        p0, on, off, off_cfg = _cut_round(torch, spec, arch, off_layers, off_tokens, "bfloat16",
+                                          calls, off_clients)
     log(f"{tag} {off_layers} layers: the pair of rounds in {time.perf_counter() - t0:.1f} s")
-    want_calls = round_calls(p0, on[0].engine.cfg, M, "bfloat16", moe_cfg)
+    want_calls = round_calls(p0, off_cfg, M, "bfloat16", moe_cfg)
     if calls != want_calls:
         raise AssertionError(f"the {off_layers}-layer round's kernel calls {calls} differ from "
                              f"round_calls' {want_calls}")
@@ -3063,7 +3149,8 @@ def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, of
     if not off_stats["held"]:
         log(f"{tag} expert choices differ in bf16: the pair again in f32")
         t0 = time.perf_counter()
-        p0, on, off = _cut_round(torch, spec, arch, off_layers, off_tokens, "float32")
+        p0, on, off, _ = _cut_round(torch, spec, arch, off_layers, off_tokens, "float32",
+                                    clients=off_clients)
         log(f"{tag} {off_layers} layers, f32: the pair of rounds in "
             f"{time.perf_counter() - t0:.1f} s")
         off_f32 = _kernels_against_off(torch, f"{tag[:-1]} f32]", p0, on, off, moe_cfg,
@@ -3075,14 +3162,16 @@ def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, of
     t0 = time.perf_counter()
 
     # every xus / avt shape of the bf16 round against its plain version,
-    # timed; the sums over one full-depth round's calls (atb's: main, from
-    # the atb phase's records)
+    # timed; the sums over the main path's round (atb's: main, from the atb
+    # phase's records)
     _, xus_round = phase_xus_train(torch, calls_round, f"{tag[:-1]} xus]", arch)
     _, avt_round = phase_avt_train(torch, calls_round, f"{tag[:-1]} avt]", arch)
-    log(f"{tag} the round's xus / avt shapes timed in {time.perf_counter() - t0:.1f} s")
-    return dict(stream_s=data_s[0], build_s=build_s, factor_entries=entries, members=members,
+    log(f"{tag} the round's xus / avt shapes timed in {time.perf_counter() - t0:.1f} s; summed "
+        f"over the main path's round at {depth(spec.model).num_layers} layers ("
+        + ", ".join(f"{k} {v}" for k, v in launches_of(calls_round).items()) + " launches)")
+    return dict(stream_fetch_s=data_s[0], build_s=build_s, factor_entries=entries, members=members,
                 bytes_by_dtype=by_dtype, wire=wire, rounds=history, path_s=path_s,
-                profile=profile, check=checked,
+                profile=prof, check=checked,
                 off=off_stats, off_f32=off_f32, svd_drivers=drivers,
                 round_calls=calls_round, xus_round=xus_round, avt_round=avt_round)
 
@@ -3091,12 +3180,14 @@ def phase_train_qwen2(torch, counters):
     """The token stream's rows route held to the dense route
     (:func:`token_stream_check`), then Qwen2-7B (28 layers, d 3584, d_ff
     18944, vocabulary 152,064, r_max 256) through :func:`phase_train_arch`:
-    ``QWEN2_ROUNDS`` rounds on ``QWEN2_TOKENS_PER_CLIENT`` tokens a client,
-    the kernels-off comparison at ``QWEN2_OFF_LAYERS`` layers."""
+    ``QWEN2_ROUNDS`` rounds at ``QWEN2_LAYERS`` layers on
+    ``QWEN2_TOKENS_PER_CLIENT`` tokens a client, no profiled round (the
+    script's time), the kernels-off comparison at ``QWEN2_OFF_LAYERS``
+    layers."""
     stream = token_stream_check()
     out = phase_train_arch(torch, counters, "train-qwen2", "qwen2-7b", QWEN2_ROUNDS,
                            QWEN2_TOKENS_PER_CLIENT, QWEN2_OFF_LAYERS,
-                           QWEN2_OFF_TOKENS_PER_CLIENT)
+                           QWEN2_OFF_TOKENS_PER_CLIENT, layers=QWEN2_LAYERS, profile=False)
     return dict(out, stream=stream)
 
 
@@ -3108,16 +3199,19 @@ def phase_train_olmoe(torch, counters):
     projection one launch a layer with its 64 experts on the kernels' grid
     axis at the capacity's 80 rows, the kernels-off comparison at
     ``OLMOE_OFF_LAYERS`` layers with the expert choices counted, and the
-    truncation SVD drivers on ``OLMOE_SVD_MEMBERS`` expert members."""
+    truncation SVD drivers on ``OLMOE_SVD_MEMBERS`` expert members. No
+    profiled round (the script's time)."""
     return phase_train_arch(torch, counters, "train-olmoe", "olmoe-1b-7b", OLMOE_ROUNDS,
                             OLMOE_TOKENS_PER_CLIENT, OLMOE_OFF_LAYERS,
-                            OLMOE_OFF_TOKENS_PER_CLIENT)
+                            OLMOE_OFF_TOKENS_PER_CLIENT, profile=False)
 
 
 #: RWKV6-7B (32 layers, d 4096, 64 heads of 64, d_ff 14,336 non-gated,
-#: vocabulary 65,536, wkv chunks of 64): one round and the profiled one on
-#: 4 x 4,096 tokens (the rows route), as OLMoE's
+#: vocabulary 65,536, wkv chunks of 64): one round on 4 x 4,096 tokens (the
+#: rows route), as OLMoE's
 RWKV_ROUNDS = 1
+#: the main path's depth, half of the model's 32 layers, as Qwen2's
+RWKV_LAYERS = 16
 RWKV_ROUND_UNIT = ("one RWKV6-7B FeDLRT round (bf16 activations, M=512; atb's embedding "
                    "gather in f32)")
 RWKV_TOKENS_PER_CLIENT = 4096
@@ -3216,10 +3310,8 @@ def wkv_against_recurrence(torch, cfg, p, B, T, seed, device="cuda", tag="[train
 
 def wkv_call_cost(torch, cfg, B, T, reps=5):
     """One chunked wkv's forward, and its forward and backward, at the
-    round's shape (B rows of T tokens, f32 as ``rwkv_mix`` runs it): the
-    card's busy ms a call (the union of its kernels' intervals under
-    ``torch.profiler``, over ``reps`` calls) and the host's ms a call (the
-    same calls unprofiled, ending in a sync), with the kernels a call."""
+    round's shape (B rows of T tokens, f32 as ``rwkv_mix`` runs it), timed
+    by :func:`call_cost`."""
     from repro_torch.models import ssm
 
     H, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
@@ -3238,6 +3330,15 @@ def wkv_call_cost(torch, cfg, B, T, reps=5):
         o, S = ssm._rwkv_chunked(*ins, S0, cfg.rwkv.chunk_len)
         torch.autograd.grad(o.sum() + S.sum(), ins)
 
+    return call_cost(torch, fwd, fwd_bwd, f"[train-rwkv wkv] %s at B {B}, T {T}:", reps)
+
+
+def call_cost(torch, fwd, fwd_bwd, tag, reps):
+    """``fwd()`` and ``fwd_bwd()``, each ``reps`` times after a warm-up:
+    the card's busy ms a call (the union of its kernels' intervals under
+    ``torch.profiler``) and the host's ms a call (the same calls
+    unprofiled, ending in a sync), with the kernels a call; ``tag`` takes
+    the call's name at its ``%s``."""
     out = {}
     for name, fn in (("forward", fwd), ("forward_backward", fwd_bwd)):
         fn()
@@ -3247,9 +3348,8 @@ def wkv_call_cost(torch, cfg, B, T, reps=5):
             fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) / reps * 1e3
-        n, busy_s, _ = device_profile(
-            torch, lambda fn=fn: [fn() for _ in range(reps)],
-            f"[train-rwkv wkv] {name.replace('_', ' and ')} at B {B}, T {T}:", 3, cpu=False)
+        n, busy_s, _ = device_profile(torch, lambda fn=fn: [fn() for _ in range(reps)],
+                                      tag % name.replace("_", " and "), 3, cpu=False)
         out[name] = dict(device_ms=busy_s / reps * 1e3, host_ms=host_ms, kernels=n // reps)
     return out
 
@@ -3257,15 +3357,16 @@ def wkv_call_cost(torch, cfg, B, T, reps=5):
 def phase_train_rwkv(torch, counters):
     """RWKV6-7B (32 layers, d 4096, 64 heads of 64, d_ff 14,336 non-gated,
     vocabulary 65,536, the wkv in chunks of 64; r_max 256 everywhere)
-    through :func:`phase_train_arch`: ``RWKV_ROUNDS`` round(s) on
-    ``RWKV_TOKENS_PER_CLIENT`` tokens a client, each of the five d x d
+    through :func:`phase_train_arch`: ``RWKV_ROUNDS`` round(s) at
+    ``RWKV_LAYERS`` layers on ``RWKV_TOKENS_PER_CLIENT`` tokens a client
+    (no profiled round: the script's time), each of the five d x d
     projections, the MLP's two factors, the embedding and the head one
     launch a layer on the chain; the wkv's calls in the round counted.
     After the main path, on the trained model: :func:`wkv_against_recurrence`
     on layer 0 (``[train-rwkv wkv]``), the decay LoRA's move in the round,
     and one wkv's device busy and host ms at the round's shape
-    (:func:`wkv_call_cost`), which times its calls a round give its share
-    of the profiled round's busy time and of the round's host time (an
+    (:func:`wkv_call_cost`), which times its calls a round give its device
+    busy seconds a round and its share of the round's host time (an
     estimate: the wkv's einsums carry no name of their own in the trace).
     Then the kernels-off pair at ``RWKV_OFF_LAYERS`` layers."""
     from repro_torch.api import ModelSpec, tasks
@@ -3317,16 +3418,311 @@ def phase_train_rwkv(torch, counters):
 
     out = phase_train_arch(torch, counters, "train-rwkv", "rwkv6-7b", RWKV_ROUNDS,
                            RWKV_TOKENS_PER_CLIENT, RWKV_OFF_LAYERS, RWKV_OFF_TOKENS_PER_CLIENT,
-                           watch=watch, check=check)
+                           watch=watch, check=check, layers=RWKV_LAYERS, profile=False)
+    host = out["rounds"][-1]["host_s"]
+    share = out["check"]["wkv_round_host_s"] / host
+    log(f"[train-rwkv wkv] the wkv in the round: {out['check']['wkv_round_device_s']:.3f} s "
+        f"device busy; {100 * share:.1f} % of the round's host time {host:.3f} s (estimated: its "
+        f"calls in the round times one call's device busy and host ms)")
+    out["check"]["wkv_host_share"] = share
+    return out
+
+
+#: Jamba-1.5-Large (arXiv:2403.19887) at full width, one period of its 72
+#: layers (``superblocks`` takes whole periods of 8): positions 0-3 and 5-7
+#: Mamba (d_inner 16,384, N 16), 4 attention (64 heads, 8 KV heads of 128),
+#: the odd layers MoE (16 experts top-2 of hidden 24,576), d 8192,
+#: vocabulary 65,536; one round and the profiled one on 4,096 tokens a
+#: client (the rows route)
+JAMBA_LAYERS = 8
+JAMBA_ROUNDS = 1
+JAMBA_ROUND_UNIT = ("one Jamba-1.5-Large FeDLRT round at 8 of its 72 layers (bf16 activations; "
+                    "M=512, the experts' G=16 stacks at M=80; atb's embedding gather in f32)")
+JAMBA_TOKENS_PER_CLIENT = 4096
+#: the kernels-against-off pair: the model's fewest layers, one client
+JAMBA_OFF_CLIENTS = 1
+JAMBA_OFF_TOKENS_PER_CLIENT = 512
+#: the reckoned peak of the main path's round at the spec's four clients
+#: (:func:`train_peak_reckoning`) is held at or under this
+JAMBA_PEAK_LIMIT_GIB = 70.0
+#: [train-jamba scan]: layer 0's Mamba mixer of the trained model over B x T
+#: tokens in f32: the round's shape (one chunk of ``scan_chunk`` 512), and
+#: three chunks (the chunk carry and the zero-padded ragged tail)
+SCAN_CHECK_CASES = ((4, 128), (1, 1100))
+#: the doubling scan in f32 (and its reverse-recurrence backward) against
+#: the recurrence token by token in f64, as a share of each tensor's largest
+#: entry (the output and six gradients): each of the scan's log2(chunk)
+#: passes rounds once in f32, ~6e-8 relative, carried by decays under 1 over
+#: ~100 tokens; 1e-5 is the worst reckoned, 1e-4 the limit
+SCAN_RTOL = 1e-4
+
+
+def train_peak_reckoning(params, cfg, clients, B, T):
+    """The card memory of one FeDLRT round of ``params`` (a model of
+    ``cfg``, the round's shapes: ``clients`` clients, B x T tokens a
+    batch), reckoned from the leaves' shapes and dtypes at the round's
+    three fullest moments (``core/fedlrt.py``):
+
+    - the basis augmentation (the end of ``broadcast``): the parameters,
+      every client's gradient (each leaf at its dtype, the bases f32), their
+      aggregate, and the augmented bases ``[U | Ū]``, ``[V | V̄]`` in f32
+      with the 2r x 2r S̃;
+    - the last client's backward in the basis pass: the parameters, the
+      clients' gradients (its own forming), the forward's saved tensors:
+      each Mamba mixer's scan keeps ``a`` and ``h`` at the compute dtype
+      and ``exp(Δ A)`` and ``h`` in f32 for the output's product with C
+      (B·T·d_inner·N each), and the head's M x vocab logits (the compute
+      dtype, their f32 copy and the one-hot mask);
+    - a client's coefficient step: the parameters, the aggregate gradient
+      (kept to the round's end), the augmented factors and the forward's
+      saved tensors again.
+
+    The dense activations (B·T·d a tensor) are left out: ~0.1 GB a layer
+    at Jamba's width. Returns bytes by term and by moment."""
+    from repro_torch.models.ssm import mamba_dims
+    from repro_torch.utils.tree import tree_leaves
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    factors = [f for _, f in _factors(params)]
+    params_b = nbytes(tree_leaves(params))
+    bases_b = nbytes([t for f in factors for t in (f.U, f.V)])
+    aug_b = 2 * bases_b + 4 * nbytes([f.S for f in factors])
+    M = B * T
+    n_mamba = sum(cfg.block_pattern[i % len(cfg.block_pattern)] == "mamba"
+                  for i in range(cfg.num_layers))
+    act = {"bfloat16": 2, "float16": 2, "float32": 4}[cfg.compute_dtype]
+    scan_b = 0
+    if n_mamba:
+        d_inner, _, d_state, _ = mamba_dims(cfg)
+        scan_b = n_mamba * B * T * d_inner * d_state * (2 * act + 2 * 4)
+    logits_b = M * cfg.vocab_size * (act + 4 + 1)
+    terms = dict(parameters=params_b, client_gradients=clients * params_b,
+                 aggregate_gradient=params_b, augmented=aug_b, scan_saved=scan_b,
+                 logits=logits_b)
+    moments = {
+        "augmentation": params_b + (clients + 1) * params_b + aug_b,
+        "basis pass backward": params_b + clients * params_b + scan_b + logits_b,
+        "coefficient step": params_b + params_b + aug_b + scan_b + logits_b,
+    }
+    return dict(terms=terms, moments=moments, peak=max(moments.values()))
+
+
+def jamba_reckoning(torch):
+    """:func:`train_peak_reckoning` of the main path's round (the spec's
+    clients) on the parameters' shapes (fake tensors: nothing is
+    allocated), printed, and held at or under ``JAMBA_PEAK_LIMIT_GIB``."""
+    from repro_torch.api import DataSpec, FedSpec, ModelSpec, tasks
+
+    cfg = dataclasses.replace(tasks.lm_model_config(ModelSpec(arch="jamba-1.5-large-398b")),
+                              num_layers=JAMBA_LAYERS)
+    data, clients = DataSpec(), FedSpec().clients
+    r = train_peak_reckoning(fake_params(torch, cfg), cfg, clients, data.batch, data.seq)
+    log(f"[train-jamba] reckoned card memory of a round at {clients} clients (GiB): "
+        + ", ".join(f"{k.replace('_', ' ')} {v / 2**30:.2f}" for k, v in r["terms"].items())
+        + "; by moment " + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in r["moments"].items())
+        + f"; peak {r['peak'] / 2**30:.2f} (limit {JAMBA_PEAK_LIMIT_GIB:g})")
+    if not r["peak"] <= JAMBA_PEAK_LIMIT_GIB * 2**30:
+        raise AssertionError(f"[train-jamba] the reckoned peak at {clients} clients passes "
+                             f"{JAMBA_PEAK_LIMIT_GIB} GiB")
+    return r
+
+
+def _stepped_recurrence(a, b, h0):
+    """``h_t = a_t ⊙ h_{t-1} + b_t`` token by token in f64 from ``h0``, each
+    ``h_t`` cast back to ``a``'s dtype: the check's reference for
+    ``ssm.linear_recurrence``, independent of its doubling scan."""
+    import torch
+
+    h, a64, b64, out = h0.double(), a.double(), b.double(), []
+    for t in range(a.shape[1]):
+        h = a64[:, t] * h + b64[:, t]
+        out.append(h)
+    return torch.stack(out, dim=1).to(a.dtype)
+
+
+def mamba_scan_against_recurrence(torch, cfg, p, B, T, seed, device="cuda",
+                                  tag="[train-jamba scan]"):
+    """One Mamba mixer (``ssm.mamba_mix`` without a state, the training
+    branch; layer parameters ``p`` of ``cfg`` cast to f32, kernels off) over
+    a seeded x of (B, T, d) in f32, its scan the chunked doubling scan at
+    ``cfg.mamba.scan_chunk`` with its reverse-recurrence backward, against
+    the same mixer in one chunk of T with ``linear_recurrence`` run token
+    by token in f64 (:func:`_stepped_recurrence`): the output, and the
+    gradients of ``<out, P>`` (P a seeded projection) with respect to x,
+    ``A_log``, ``D``, ``dt_bias``, ``conv_w`` and ``in_x``'s S, each as
+    max|scan - stepped| / max|stepped|, held within ``SCAN_RTOL``. Then the
+    mixer as the round runs it (``p`` as trained, the compute dtype, the
+    kernels on) against the same reference output, a reading. Returns the
+    readings."""
+    from repro_torch.models import ssm
+    from repro_torch.utils.tree import tree_map
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32",
+                                kernels="off")
+    whole = dataclasses.replace(cfg32, mamba=dataclasses.replace(cfg.mamba, scan_chunk=T))
+    p32 = tree_map(lambda t: t.detach().float() if t.is_floating_point() else t, p)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((B, T, cfg.d_model), generator=gen, device=device)
+    proj = torch.randn((B, T, cfg.d_model), generator=gen, device=device)
+    names = ("A_log", "D", "dt_bias", "conv_w")
+    chunk = cfg.mamba.scan_chunk
+    seen = []
+
+    def run(c, scan):
+        leaves = {k: p32[k].clone().requires_grad_(True) for k in names}
+        s = p32["in_x"].S.clone().requires_grad_(True)
+        xg = x.clone().requires_grad_(True)
+        mix = dict(p32, **leaves, in_x=dataclasses.replace(p32["in_x"], S=s))
+
+        def counted(*a):
+            seen.append(a[0].shape[1])
+            return scan(*a)
+
+        t0 = time.perf_counter()
+        with unittest.mock.patch.object(ssm, "linear_recurrence", counted):
+            out, _ = ssm.mamba_mix(mix, xg, c)
+            grads = torch.autograd.grad((out * proj).sum(), [xg, *leaves.values(), s])
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return [out.detach(), *grads], time.perf_counter() - t0
+
+    got, scan_s = run(cfg32, ssm.linear_recurrence)
+    chunks = len(seen)
+    want, stepped_s = run(whole, _stepped_recurrence)
+    labels = ("out", "grad x") + tuple(f"grad {k}" for k in names) + ("grad in_x S",)
+    errs = {k: ((a - b).abs().max() / b.abs().max()).item() for k, a, b in zip(labels, got, want)}
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    with torch.no_grad():
+        served, _ = ssm.mamba_mix(p, x.to(getattr(torch, cfg.compute_dtype)), cfg)
+    served_err = ((served.float() - want[0]).abs().max() / want[0].abs().max()).item()
+    d_inner, _, d_state, _ = ssm.mamba_dims(cfg)
+    log(f"{tag} one Mamba mixer at B {B}, T {T}, d {cfg.d_model}, d_inner {d_inner}, N "
+        f"{d_state}, f32, kernels off: the doubling scan in {chunks} chunk(s) of {chunk} "
+        f"({chunks * chunk - T} padded steps) {1e3 * scan_s:.1f} ms, token by token in f64 in one "
+        f"chunk {1e3 * stepped_s:.1f} ms (forward and backward)")
+    log(f"{tag} the doubling scan in f32 against token by token in f64, max|a - b| / max|b| "
+        f"(limit {SCAN_RTOL:g}): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; the mixer in {cfg.compute_dtype} with kernels {cfg.kernels} (the round's), its "
+          f"output against the same: {served_err:.3g} (a reading)")
+    if not finite or not max(errs.values()) <= SCAN_RTOL:
+        raise AssertionError(f"{tag} the doubling scan misses the token-by-token recurrence at "
+                             f"B {B}, T {T}: {errs} (limit {SCAN_RTOL}), finite {finite}")
+    return dict(B=B, T=T, chunks=chunks, errs=errs, served_err=served_err, scan_s=scan_s,
+                stepped_s=stepped_s)
+
+
+def scan_call_cost(torch, shape, dtype, reps=5):
+    """One ``ssm.linear_recurrence`` call at ``shape`` (B, T, d_inner, N) in
+    ``dtype`` (the round's chunks: the compute dtype), forward alone and
+    forward with its backward, timed by :func:`call_cost`."""
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dt = getattr(torch, dtype)
+    a = (0.85 + 0.15 * torch.rand(shape, generator=gen, device="cuda")).to(dt)
+    b = (0.1 * torch.randn(shape, generator=gen, device="cuda")).to(dt)
+    h0 = torch.zeros((shape[0],) + shape[2:], dtype=dt, device="cuda")
+    dh = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    ins = [t.requires_grad_(True) for t in (a, b)]
+
+    def fwd():
+        with torch.no_grad():
+            ssm.linear_recurrence(a, b, h0)
+
+    def fwd_bwd():
+        torch.autograd.grad(ssm.linear_recurrence(*ins, h0), ins, dh)
+
+    return call_cost(torch, fwd, fwd_bwd,
+                     f"[train-jamba scan] %s at {'x'.join(map(str, shape))}:", reps)
+
+
+def phase_train_jamba(torch, counters):
+    """Jamba-1.5-Large at full width and one 8-layer period (``JAMBA_LAYERS``)
+    through :func:`phase_train_arch`: the spec's four clients, their round's
+    peak reckoned first (:func:`jamba_reckoning`), ``JAMBA_ROUNDS`` round(s) on
+    ``JAMBA_TOKENS_PER_CLIENT`` tokens a client, each Mamba projection,
+    attention projection, MLP factor, embedding and head one launch on the
+    chain and each MoE projection one launch a layer with its 16 experts on
+    the kernels' grid axis at the capacity's 80 rows; the Mamba scan's calls
+    in the round counted. After the main path, on the trained model:
+    :func:`mamba_scan_against_recurrence` on layer 0 at each of
+    ``SCAN_CHECK_CASES`` (``[train-jamba scan]``), the Mamba dense leaves'
+    move in the round, and one scan call's device busy and host ms at each
+    shape the round ran (:func:`scan_call_cost`), which times its calls a
+    round give its share of the profiled round's busy time and of the
+    round's host time (an estimate: the scan's elementwise kernels carry no
+    name of their own in the trace). Then the kernels-off pair at the same
+    8 layers on ``JAMBA_OFF_CLIENTS`` client and
+    ``JAMBA_OFF_TOKENS_PER_CLIENT`` tokens."""
+    from repro_torch.api import ModelSpec, tasks
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import _layer
+
+    reckoned = jamba_reckoning(torch)
+    cfg = dataclasses.replace(tasks.lm_model_config(ModelSpec(arch="jamba-1.5-large-398b")),
+                              num_layers=JAMBA_LAYERS)
+    calls = {}  # (forward or forward_backward, shape) -> calls in the main path
+
+    @contextlib.contextmanager
+    def watch():
+        scan = ssm.linear_recurrence
+
+        def counted(a, *rest):
+            grad = torch.is_grad_enabled() and (a.requires_grad or rest[0].requires_grad)
+            key = ("forward_backward" if grad else "forward", tuple(a.shape), str(a.dtype)[6:])
+            calls[key] = calls.get(key, 0) + 1
+            return scan(a, *rest)
+
+        with unittest.mock.patch.object(ssm, "linear_recurrence", counted):
+            yield
+
+    def check(exp, params0):
+        tag = "[train-jamba scan]"
+        mix, mix0 = (_layer(p["blocks"]["pos0"]["mamba"], 0) for p in (exp.params, params0))
+        moved = {k: ((mix[k].float() - mix0[k].float()).abs().max()
+                     / mix0[k].float().abs().max()).item()
+                 for k in ("A_log", "D", "dt_bias", "conv_w")}
+        log(f"{tag} layer 0's Mamba dense leaves moved in the round, max|after - before| / "
+            f"max|before|: " + ", ".join(f"{k} {v:.3g}" for k, v in moved.items()))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cases = [mamba_scan_against_recurrence(torch, cfg, mix, B, T, 7 + i, tag=tag)
+                 for i, (B, T) in enumerate(SCAN_CHECK_CASES)]
+        cost = {key: scan_call_cost(torch, *key) for key in {k[1:] for k in calls}}
+        per_round = {what: sum(n * cost[key[1:]][key[0]][f"{what}_ms"]
+                               for key, n in calls.items()) / JAMBA_ROUNDS / 1e3
+                     for what in ("device", "host")}
+        log(f"{tag} the round's scan calls, each's device busy / host ms: "
+            + "; ".join(f"{n // JAMBA_ROUNDS} x {kind.replace('_', ' and ')} at "
+                        f"{'x'.join(map(str, shape))} {dt} "
+                        f"{cost[(shape, dt)][kind]['device_ms']:.3f} / "
+                        f"{cost[(shape, dt)][kind]['host_ms']:.3f} ms "
+                        f"({cost[(shape, dt)][kind]['kernels']} kernels)"
+                        for (kind, shape, dt), n in sorted(calls.items()))
+            + f"; a round {per_round['device']:.3f} s device busy, {per_round['host']:.3f} s "
+              f"host")
+        return dict(cases=cases, dense_moved=moved,
+                    scan_cost={f"{'x'.join(map(str, s))} {dt}": v for (s, dt), v in cost.items()},
+                    scan_calls={f"{k} {'x'.join(map(str, s))} {dt}": n
+                                for (k, s, dt), n in calls.items()},
+                    scan_round_device_s=per_round["device"], scan_round_host_s=per_round["host"])
+
+    out = phase_train_arch(torch, counters, "train-jamba", "jamba-1.5-large-398b", JAMBA_ROUNDS,
+                           JAMBA_TOKENS_PER_CLIENT, JAMBA_LAYERS, JAMBA_OFF_TOKENS_PER_CLIENT,
+                           watch=watch, check=check, layers=JAMBA_LAYERS,
+                           off_clients=JAMBA_OFF_CLIENTS)
     busy, host = out["profile"]["device_busy_s"], out["rounds"][-1]["host_s"]
-    shares = dict(device=out["check"]["wkv_round_device_s"] / busy,
-                  host=out["check"]["wkv_round_host_s"] / host)
-    log(f"[train-rwkv wkv] the wkv's share of the profiled round's device busy time "
+    shares = dict(device=out["check"]["scan_round_device_s"] / busy,
+                  host=out["check"]["scan_round_host_s"] / host)
+    log(f"[train-jamba scan] the scan's share of the profiled round's device busy time "
         f"{busy:.3f} s: {100 * shares['device']:.1f} %; of the round's host time {host:.3f} s: "
         f"{100 * shares['host']:.1f} % (estimated: its calls in the round times one call's "
         f"device busy and host ms)")
-    out["check"]["wkv_shares"] = shares
-    return out
+    out["check"]["scan_shares"] = shares
+    log(f"[train-jamba] peak {out['rounds'][-1]['peak_gib']:.2f} GiB against "
+        f"{reckoned['peak'] / 2**30:.2f} GiB reckoned")
+    return dict(out, reckoned_gib={k: v / 2**30 for k, v in reckoned["moments"].items()})
 
 
 # ---------------------------------------------------------------------------
@@ -3742,9 +4138,10 @@ SIM_PROFILE = "straggler:0.25,10"
 #: FedBuff flushes of the async runs: with buffer 2 the three fast clients
 #: flush ~1.5 times a round trip, so the straggler's first round (priced
 #: 10x a fast one) lands at flush 24 at llm-100m's 12 layers (PERF.md) and
-#: at flush 21 at the phase's ``SIM_LAYERS`` (the virtual clock's, the same
-#: on any device), and its track with it
-SIM_FLUSHES = 26
+#: in flush 21 (after 21 flushes, counting from 0) at the phase's
+#: ``SIM_LAYERS`` (the virtual clock's, the same on any device), and its
+#: track with it: 22 flushes take every client's first arrival
+SIM_FLUSHES = 22
 #: rounds of the sync engine and flushes of the uniform async engine held to
 #: the plain engine (2 before the script passed 900 s; the async runs above
 #: carry state over their flushes)
@@ -4646,7 +5043,7 @@ def decode_step_sums(name, cfg, records):
 
 
 def kernel_summary(records, model_records, atb_records, flash_records, counters, cfg, atb_round,
-                   xus_round, avt_round, encdec_sums, scan, qwen2, olmoe, rwkv):
+                   xus_round, avt_round, encdec_sums, scan, qwen2, olmoe, rwkv, jamba):
     """Per kernel: ``xus``/``avt`` as the sum over one Qwen2-7B decode
     step's launches (M = 4) of each measured number, with the sum over one
     decode step of each of the models phase's architectures under
@@ -4655,7 +5052,8 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
     and over one llm-100m round's calls under ``round``;
     ``xus``, ``avt`` and ``atb`` also summed over one bf16 Qwen2-7B round's
     calls under ``train_qwen2``, one OLMoE-1B-7B round's under
-    ``train_olmoe`` and one RWKV6-7B round's under ``train_rwkv``;
+    ``train_olmoe``, one RWKV6-7B round's under ``train_rwkv`` and one
+    round of Jamba-1.5-Large's 8-layer period under ``train_jamba``;
     ``atb`` as the sum over
     one llm-100m FeDLRT round's calls (M = 512, f32: ``phase_atb``'s
     ``[atb] round``); ``flash_attention``
@@ -4697,6 +5095,7 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
         out[-1]["train_qwen2"] = {**qwen2[f"{name}_round"], "unit": QWEN2_ROUND_UNIT}
         out[-1]["train_olmoe"] = {**olmoe[f"{name}_round"], "unit": OLMOE_ROUND_UNIT}
         out[-1]["train_rwkv"] = {**rwkv[f"{name}_round"], "unit": RWKV_ROUND_UNIT}
+        out[-1]["train_jamba"] = {**jamba[f"{name}_round"], "unit": JAMBA_ROUND_UNIT}
     out.append({
         "name": "atb", "route": "cuda", "source": SOURCES["atb"], "replaces": REPLACES["atb"],
         **launches("atb"),
@@ -4710,6 +5109,7 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
         "train_qwen2": {**qwen2["atb_round"], "unit": QWEN2_ROUND_UNIT},
         "train_olmoe": {**olmoe["atb_round"], "unit": OLMOE_ROUND_UNIT},
         "train_rwkv": {**rwkv["atb_round"], "unit": RWKV_ROUND_UNIT},
+        "train_jamba": {**jamba["atb_round"], "unit": JAMBA_ROUND_UNIT},
     })
     [pre] = [r for r in flash_records if r["case"] == "qwen2-7b prefill"]
     out.append({
@@ -4732,26 +5132,106 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
     return out
 
 
+def train_stream_args():
+    """The token streams the training phases' specs ask for (vocabulary,
+    the spec's clients x tokens a client, its stream rank and seed): each
+    above a vocabulary of 11,585, the rows route, 0.6–2.5 ms a token on
+    the card machine's host."""
+    from repro_torch.api import DataSpec, FedSpec, ModelSpec, tasks
+
+    out = []
+    for arch, tokens in (("qwen2-7b", QWEN2_TOKENS_PER_CLIENT),
+                         ("olmoe-1b-7b", OLMOE_TOKENS_PER_CLIENT),
+                         ("rwkv6-7b", RWKV_TOKENS_PER_CLIENT),
+                         ("jamba-1.5-large-398b", JAMBA_TOKENS_PER_CLIENT)):
+        kw = dict(vocab_size=tasks.lm_model_config(ModelSpec(arch=arch)).vocab_size,
+                  num_tokens=FedSpec().clients * tokens, rank=DataSpec().stream_rank, seed=0)
+        if kw not in out:
+            out.append(kw)
+    return out
+
+
+def build_streams(todo_json: str, out_dir: str) -> None:
+    """Each stream of ``todo_json`` (a JSON list of keyword sets) built by
+    the port's ``make_token_stream`` and saved as ``<i>.npy`` under
+    ``out_dir`` with its host seconds in ``<i>.s``, the ``.s`` written
+    last: :func:`prefetch_token_streams`' process."""
+    import numpy as np
+
+    from repro_torch.data import make_token_stream
+
+    for i, kw in enumerate(json.loads(todo_json)):
+        t0 = time.perf_counter()
+        tokens = make_token_stream(**kw)
+        seconds = time.perf_counter() - t0
+        np.save(os.path.join(out_dir, f"{i}.npy"), tokens)
+        with open(os.path.join(out_dir, f"{i}.tmp"), "w") as fh:
+            fh.write(repr(seconds))
+        os.replace(os.path.join(out_dir, f"{i}.tmp"), os.path.join(out_dir, f"{i}.s"))
+
+
+def prefetch_token_streams(todo):
+    """:func:`build_streams` on ``todo`` in a process of its own (one
+    thread, at a lower priority than this one), started after the serving
+    phases (their host-bound step times run alone) beside the phases
+    before the training ones, so the rows-route streams cost the script
+    no time of its own; killed at exit if still running. Returns what
+    :func:`memo_token_streams` reads."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_streams_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    code = ("import sys; sys.path.insert(0, sys.argv[3]); import chip_smoke; "
+            "chip_smoke.build_streams(sys.argv[1], sys.argv[2])")
+    with open(os.path.join(out_dir, "stderr"), "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", code, json.dumps(todo), out_dir, ROOT],
+                                stdout=subprocess.DEVNULL, stderr=err, env=env, cwd=ROOT,
+                                preexec_fn=lambda: os.nice(10))
+    atexit.register(shutil.rmtree, out_dir, True)
+    atexit.register(lambda: proc.kill() if proc.poll() is None else None)
+    return dict(proc=proc, dir=out_dir, todo=todo)
+
+
 def memo_token_streams():
     """From here on, each token stream is built once per argument set and
     every later build with the same arguments takes a copy: llm-100m's 4 x
     200,000 tokens at vocabulary 8,192 (~5 s on the host) are asked for by
     some twenty builds across the phases, each on the same seed. The first
     build of each stream runs the port's own code, timed where a phase
-    times it."""
+    times it; once the returned dict holds :func:`prefetch_token_streams`'
+    result, a stream it builds is read from its process, waited for if not
+    done, its build's host seconds logged."""
     import numpy as np
 
     import repro_torch.data
 
-    make, built = repro_torch.data.make_token_stream, {}
+    make, built, prefetched = repro_torch.data.make_token_stream, {}, {}
+
+    def fetch(i, kw):
+        proc, base = prefetched["proc"], os.path.join(prefetched["dir"], str(i))
+        t0 = time.perf_counter()
+        while not os.path.exists(f"{base}.s"):
+            if proc.poll() is not None and not os.path.exists(f"{base}.s"):
+                with open(os.path.join(prefetched["dir"], "stderr")) as fh:
+                    err = fh.read()[-2000:]
+                raise AssertionError(f"the token streams' process ended (rc {proc.returncode}) "
+                                     f"before stream {kw}: {err}")
+            time.sleep(0.05)
+        with open(f"{base}.s") as fh:
+            seconds = float(fh.read())
+        log(f"[streams] vocabulary {kw['vocab_size']}, {kw['num_tokens']} tokens: built beside "
+            f"the phases in {seconds:.1f} s on the host ({1e3 * seconds / kw['num_tokens']:.3f} "
+            f"ms a token), waited {time.perf_counter() - t0:.1f} s")
+        return np.load(f"{base}.npy")
 
     def once(**kw):
         key = tuple(sorted(kw.items()))
         if key not in built:
-            built[key] = make(**kw)
+            todo = [tuple(sorted(t.items())) for t in prefetched.get("todo", ())]
+            built[key] = fetch(todo.index(key), kw) if key in todo else make(**kw)
         return np.array(built[key], copy=True)
 
     repro_torch.data.make_token_stream = once
+    return prefetched
 
 
 def main() -> int:
@@ -4775,7 +5255,7 @@ def main() -> int:
     done("build")
     dryruns = finish_dryruns(dryruns)
     done("dryrun traces")
-    memo_token_streams()
+    streams = memo_token_streams()
     records = phase_kernels(torch, cfg)
     done("kernels")
     llm_calls = llm100m_round_calls()
@@ -4798,6 +5278,7 @@ def main() -> int:
     if not counters["models"]["selective_scan"]:
         raise AssertionError(f"the models path launched no selective_scan: {counters['models']}")
     done("models")
+    streams.update(prefetch_token_streams(train_stream_args()))
     ev_records, ev_stats, ev_sums = phase_encdec_vlm(torch, counters, records + model_records)
     model_records += ev_records
     done("encdec-vlm")
@@ -4821,6 +5302,10 @@ def main() -> int:
     train_rwkv["atb_round"] = atb_round_total(torch, atb_records, train_rwkv["round_calls"],
                                               "rwkv6-7b", "[train-rwkv atb]")
     done("train-rwkv")
+    train_jamba = phase_train_jamba(torch, counters)
+    train_jamba["atb_round"] = atb_round_total(torch, atb_records, train_jamba["round_calls"],
+                                               "jamba-1.5-large-398b", "[train-jamba atb]")
+    done("train-jamba")
     flash_records = phase_flash(torch, counters)
     done("flash")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spec_") as workdir:
@@ -4831,6 +5316,8 @@ def main() -> int:
     done("sim")
     examples_stats = phase_examples(torch, counters)
     done("examples")
+    if streams["proc"].wait(timeout=60) != 0:
+        raise AssertionError(f"the token streams' process: rc {streams['proc'].returncode}")
     log("[summary] " + json.dumps({"card": smi, "serve": serve_stats,
                                    "serve_quant": quant_stats, "models": model_stats,
                                    "encdec_vlm": ev_stats, "mesh": mesh_stats,
@@ -4842,6 +5329,8 @@ def main() -> int:
                                                    if k != "round_calls"},
                                    "train_rwkv": {k: v for k, v in train_rwkv.items()
                                                   if k != "round_calls"},
+                                   "train_jamba": {k: v for k, v in train_jamba.items()
+                                                   if k != "round_calls"},
                                    "flash": flash_records, "spec": spec_stats,
                                    "sim": sim_stats, "examples": examples_stats,
                                    "xus_train": xus_train,
@@ -4849,7 +5338,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_summary(
         records, model_records, atb_records, flash_records, counters, cfg, atb_round, xus_round,
         avt_round, ev_sums, model_stats["jamba mamba scan"]["kernel"], train_qwen2,
-        train_olmoe, train_rwkv)}))
+        train_olmoe, train_rwkv, train_jamba)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
