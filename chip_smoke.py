@@ -76,13 +76,16 @@ per source, all started together) and drives each of the port's paths:
   in bf16, or in f32 as the backward gives it) / ``avt`` / ``atb`` shape
   of the round against its plain version, timed, and the sums over the
   round that ran;
-- train-olmoe: the same for OLMoE-1B-7B at full depth (16 layers, d 2048,
-  64 experts top-8 of hidden 1024, vocabulary 50,304): one round, each
+- train-olmoe: the same for OLMoE-1B-7B (16 layers, d 2048, 64 experts
+  top-8 of hidden 1024, vocabulary 50,304): one round at 8 of the 16
+  layers, each
   MoE projection one launch a layer with its 64 experts on
   the kernels' grid axis at the capacity's 80 rows; the 2-layer pair with
   the tokens whose expert choices differ counted, held only where none
-  does, else again in f32, where the first differing choices must be
-  near-ties (an expert stack within 1/4 of its own change); the
+  does, else again in f32, where a choice of the basis pass may differ
+  only at a near-tie and a later one only within twice its call's
+  largest router probability gap (an expert stack within 1/4 of its own
+  change); the
   truncation SVD drivers on 8 expert members;
 - train-rwkv: the same for RWKV6-7B (32 layers, d 4096, 64 heads of 64,
   d_ff 14,336 non-gated, vocabulary 65,536, the wkv in chunks of 64): one
@@ -93,6 +96,19 @@ per source, all started together) and drives each of the port's paths:
   LoRA within ``WKV_RTOL`` of each tensor's largest entry; the wkv's
   calls a round, their estimated device busy seconds and their share of
   the round's host time;
+- train-jamba: the same for Jamba-1.5-Large at one 8-layer period, its
+  round's memory reckoned first; layer 0's Mamba mixer of the trained
+  model held to its recurrence run token by token in f64;
+- train-deepseek: the same for DeepSeekMoE-16B (28 layers, d 2048, 64
+  routed experts top-6 of hidden 1408 and 2 shared ones of 2816 in all,
+  vocabulary 102,400) at 4 of its 28 layers, its round's memory reckoned
+  first; the routed experts' G = 64 stacks at the capacity's 60 rows, the
+  shared experts dense factors at the batch's 512; after the main path,
+  layer 0's shared experts of the trained model in f32, kernels against
+  the plain chain: the output and the gradients of x and of each factor's
+  U, S and V within ``SHARED_RTOL`` of each tensor's largest entry; the
+  2-layer pair as OLMoE's; the truncation SVD drivers on 8 of the
+  experts' 352 x 352 S̃;
 - flash: ``repro_torch.kernels.flash_attention`` at four attention shapes
   (Qwen2-7B prefill and decode against a cache, Mistral-7B's sliding
   window, an f32 case), each held to ``flash_attention_ref``, with its time
@@ -144,8 +160,9 @@ per source, all started together) and drives each of the port's paths:
 - examples (last): the example twins ``examples/torch_*.py`` through their
   ``main``: the quickstart (the planted rank 4 found), ``torch_train_llm.py
   --preset llm-100m --rounds 2`` (llm-100m at full width and depth on
-  ``xus`` / ``avt`` / ``atb``), a dropout-participation run of it under
-  ``repro_torch.analysis.trace_audit`` (one step signature per callsite),
+  ``xus`` / ``avt`` / ``atb``), a dropout-participation run of it at
+  llm-tiny under ``repro_torch.analysis.trace_audit`` (one step signature
+  per callsite),
   ``torch_serve_llm.py`` (trained, then continuous ≡ static), and
   ``torch_federated_vision.py --clients 4 --rounds 6`` (the ``mlp`` task's
   ``lr_matmul`` on the kernels).
@@ -153,6 +170,14 @@ per source, all started together) and drives each of the port's paths:
 Every failure raises and exits non-zero. The last two lines of standard
 output are one JSON object with each kernel's numbers and one with the
 device.
+
+``python3 chip_smoke.py --round ARCH [--limit-gib G]``
+runs no phase: one FeDLRT round of ARCH at full width and
+depth through ``build(spec, device="cuda").run(1)`` on 4,096 tokens a
+client at the largest cohort of 4, 2 and 1 clients
+whose reckoned memory, with the layers' activations measured at full width,
+fits G GiB (the card's memory by default), held to the training phases'
+gates (:func:`recorded_round`).
 
 Imports nothing of JAX. Needs one CUDA card.
 """
@@ -195,7 +220,8 @@ SOURCES = {
 }
 KERNELS = tuple(SOURCES)
 PATHS = ("serve", "serve-quant", "models", "encdec", "vlm", "mesh", "train", "train-qwen2",
-         "train-olmoe", "train-rwkv", "train-jamba", "flash", "spec", "sim", "examples")
+         "train-olmoe", "train-rwkv", "train-jamba", "train-deepseek", "flash", "spec", "sim",
+         "examples")
 #: tolerance of a kernel against its plain version, with the reason
 TOL = {
     # both round once from f32 to bf16; f32 sums taken in different orders
@@ -2694,14 +2720,20 @@ USVT_FLOOR = 2.0**-20
 #: OLMoE-1B-7B (16 layers, d 2048, 64 experts top-8 of hidden 1024,
 #: vocabulary 50,304): one round on 4 x 4,096 tokens (the rows route)
 OLMOE_ROUNDS = 1
-OLMOE_ROUND_UNIT = ("one OLMoE-1B-7B FeDLRT round (bf16 activations; M=512, the experts' "
-                    "G=64 stacks at M=80; atb's embedding gather in f32)")
+#: the main path's depth, half of the model's 16 layers, as Qwen2's
+OLMOE_LAYERS = 8
+OLMOE_ROUND_UNIT = ("one OLMoE-1B-7B FeDLRT round at 8 of its 16 layers (bf16 activations; "
+                    "M=512, the experts' G=64 stacks at M=80; atb's embedding gather in f32)")
 OLMOE_TOKENS_PER_CLIENT = 4096
 OLMOE_OFF_LAYERS = 2
 OLMOE_OFF_TOKENS_PER_CLIENT = 512
 #: expert members whose truncation SVD both cuSOLVER drivers take (f64
 #: reference on the host)
 OLMOE_SVD_MEMBERS = 8
+#: the reckoned peak of a cut training phase's round at the spec's four
+#: clients (:func:`train_peak_reckoning`) is held at or under this, ~10 GiB
+#: under the card's 79.18 for what a reckoning may miss
+PEAK_LIMIT_GIB = 70.0
 #: tokens of the rows-against-dense check of the token stream at vocab 8192
 STREAM_CHECK_TOKENS = 8192
 
@@ -2858,6 +2890,12 @@ def _cut_round(torch, spec, arch, layers, tokens, dtype, calls=None, clients=Non
     return start, runs["auto"], runs["off"], fed_cfg
 
 
+def moe_layers(params) -> int:
+    """MoE blocks in a model's ``params``: the layers of every routed
+    ``up`` expert stack, the MoE calls of one forward."""
+    return sum(f.U.shape[0] for path, f in _factors(params) if path.endswith("['moe']['up']"))
+
+
 def _usvt_gaps(torch, f, g, f0):
     """max|W_f − W_g|, max|W_g| and max|W_g − W_f0| of three factors of one
     leaf (``W = U S Vᵀ``), each member of a stack (its leading dims) on the
@@ -2881,18 +2919,25 @@ def _usvt_gaps(torch, f, g, f0):
     return gap, scale, move
 
 
-def _kernels_against_off(torch, tag, p0, on, off, moe_cfg, near_ties=False):
+def _kernels_against_off(torch, tag, p0, on, off, moe_cfg, near_ties=False, same_start=0):
     """The kernel round ``on`` against the plain chain's ``off`` from ``p0``:
     the losses, the ranks, each factor's ``U S Vᵀ`` against its largest
     entry and against the round's own change of it (an expert stack within
     ``EXPERT_USVT_OF_MOVE``, the others ``QWEN2_USVT_OF_MOVE``; no limit
     under ``USVT_FLOOR`` of its largest entry), and with
     MoE blocks the tokens whose expert choices differ. Held to the limits
-    unless an expert choice differs; with ``near_ties`` the first MoE call
-    in which a choice differs may hold only near-ties (the plain round's
-    top-k margin under ``FLIP_MARGIN``): a near-tie sends one client's
-    steps apart, after which its later choices may differ at any margin;
-    and the limits are held all the same. Returns the readings."""
+    unless an expert choice differs. With ``near_ties``, in the first
+    ``same_start`` MoE calls (every client's basis pass, where both runs
+    start from the same parameters and differ only by this forward's
+    rounding) a choice may differ only at a near-tie (the plain round's
+    top-k margin under ``FLIP_MARGIN``); later calls follow client steps,
+    which amplify the two runs' f32 roundings step by step (each call's
+    largest router probability gap logged), so there a choice may differ
+    only where its margin is at most twice its own call's largest
+    probability gap (a set of top-k choices changes only where two
+    probabilities cross, and each moved by at most that gap: a flip past it
+    is a fault of the choice, not of the rounding); and the limits are held
+    all the same. Returns the readings."""
     import numpy as np
 
     (params_k, res_k, routed_k), (params_off, res_off, routed_off) = on, off
@@ -2908,17 +2953,42 @@ def _kernels_against_off(torch, tag, p0, on, off, moe_cfg, near_ties=False):
             f"(token, MoE call) over {len(routed_off)} MoE calls; smallest top-k margin "
             f"{smallest:.3g}" + "".join(f"; call {i} token {t} margin {m:.3g}"
                                         for i, _, t, m in flips[:5]))
-        if near_ties and flips:
-            first = [f for f in flips if f[0] == flips[0][0]]
-            far = [f for f in first if f[-1] >= FLIP_MARGIN]
-            log(f"{tag} kernels vs off: the first MoE call with a differing choice, call "
-                f"{first[0][0]}: {len(first)} token(s), top-k margins "
-                f"{', '.join(f'{f[-1]:.3g}' for f in first[:8])} (each under {FLIP_MARGIN} "
-                f"held); {len(flips) - len(first)} more after it")
+        if near_ties:
+            if same_start < 1:
+                raise ValueError("near_ties needs the basis pass's MoE calls (same_start)")
+            drift = [(a.probs - b.probs).abs().max().item()
+                     for a, b in zip(routed_k, routed_off, strict=True)]
+            start = max(drift[:same_start], default=0.0)
+            early = [f for f in flips if f[0] < same_start]
+            far = [f for f in early if f[-1] >= FLIP_MARGIN]
+            out.update(start_drift=start, drift=drift)
+            log(f"{tag} kernels vs off: the {same_start} MoE calls of the clients' basis pass "
+                f"(one start): router probabilities within {start:.3g}, "
+                f"{len(early)} differing choice(s) there, margins "
+                f"{', '.join(f'{f[-1]:.3g}' for f in early[:8]) or '-'} (each under "
+                f"{FLIP_MARGIN} held); the largest probability gap by call after it: "
+                + ", ".join(f"{i} {d:.3g}" for i, d in enumerate(drift) if i >= same_start))
+            if flips:
+                first = [f for f in flips if f[0] == flips[0][0]]
+                log(f"{tag} kernels vs off: the first MoE call with a differing choice, call "
+                    f"{first[0][0]} (its largest probability gap {drift[first[0][0]]:.3g}): "
+                    f"{len(first)} token(s), top-k margins "
+                    f"{', '.join(f'{f[-1]:.3g}' for f in first[:8])}; "
+                    f"{len(flips) - len(first)} more after it")
+            unexplained = [f for f in flips if f[-1] > 2 * drift[f[0]]]
+            out.update(worst_margin_of_drift=max((f[-1] / (2 * drift[f[0]]) for f in flips
+                                                  if drift[f[0]] > 0), default=0.0))
+            log(f"{tag} kernels vs off: every differing choice's margin against twice its "
+                f"call's largest probability gap: at most {out['worst_margin_of_drift']:.3g} of "
+                f"it (limit 1), {len(unexplained)} past it")
             if far:
-                raise AssertionError(f"{tag} the first differing expert choices are not "
-                                     f"near-ties (margin >= {FLIP_MARGIN}): {far[:10]}")
-        elif not near_ties:
+                raise AssertionError(f"{tag} in the clients' basis pass an expert choice "
+                                     f"differs at a margin >= {FLIP_MARGIN}: {far[:10]}")
+            if unexplained:
+                raise AssertionError(f"{tag} an expert choice differs at a margin over twice "
+                                     f"its call's largest probability gap: "
+                                     f"{[(f, drift[f[0]]) for f in unexplained[:10]]}")
+        else:
             gate = not flips
     for name in ("loss_before", "loss_after"):
         a, b = getattr(res_k, name), getattr(res_off, name)
@@ -2931,13 +3001,18 @@ def _kernels_against_off(torch, tag, p0, on, off, moe_cfg, near_ties=False):
                      for k, v in res_off.ranks.items())
     if not ranks_same:
         failed.append(f"ranks differ: kernels {res_k.ranks} vs off {res_off.ranks}")
-    worst, moves, of_move, floored = 0.0, [], 0.0, []
+    worst, moves, of_move, floored, shared = 0.0, [], 0.0, [], []
     for (path, f), (_, g), (_, f0) in zip(_factors(params_k), _factors(params_off),
                                           _factors(p0)):
+        # an expert stack has (layers, experts) in front; DeepSeekMoE's
+        # shared experts, under the same block, are (layers,) stacks of
+        # dense factors and held as such
         limit = EXPERT_USVT_OF_MOVE if f.U.dim() > 3 else QWEN2_USVT_OF_MOVE
         gap, scale, move = _usvt_gaps(torch, f, g, f0)
         rel, move = gap / scale, move / scale
         moves.append(move)
+        if "['shared_" in path:
+            shared.append((path, rel, move, limit))
         floor = limit * move < USVT_FLOOR
         worst = max(worst, rel)
         if floor:
@@ -2960,6 +3035,11 @@ def _kernels_against_off(torch, tag, p0, on, off, moe_cfg, near_ties=False):
             f"not tell a wrong round; each is held by its share of its own change, or "
             f"where that is under {USVT_FLOOR:.3g} by that bound: "
             + ", ".join(f"{path} {m:.3g}" for path, m in small))
+    if shared:
+        log(f"{tag} kernels vs off, the shared experts (dense factors beside the routed "
+            f"experts, each held to {QWEN2_USVT_OF_MOVE:g} of its change as a dense factor): "
+            + "; ".join(f"{p} gap {r:.3g} of max, change {m:.3g}, {r / m:.3g} of it (limit {lim:g})"
+                        for p, r, m, lim in shared))
     if floored:
         log(f"{tag} kernels vs off: {len(floored)} factor leaves held to {USVT_FLOOR:.3g} of max, "
             f"worst gap {max(r for _, r, _ in floored):.3g}; of them a round that left the "
@@ -2974,51 +3054,128 @@ def _kernels_against_off(torch, tag, p0, on, off, moe_cfg, near_ties=False):
         raise AssertionError(f"{tag} kernels vs off: " + "; ".join(failed))
     out.update(worst_usvt=worst, round_move=(min(moves), max(moves)), worst_of_move=of_move,
                ranks_same=ranks_same, held=gate, small_moves=small,
-               floored=[dict(path=p, gap=r, move=m) for p, r, m in floored])
+               floored=[dict(path=p, gap=r, move=m) for p, r, m in floored],
+               shared=[dict(path=p, gap=r, move=m) for p, r, m, _ in shared])
     return out
 
 
-def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, off_tokens,
-                     watch=contextlib.nullcontext, check=None, layers=None, off_clients=None,
-                     profile=True):
-    """``arch`` at full width and depth in bf16 (f32 bases): ``rounds``
-    FeDLRT rounds through ``build(spec).run()`` with the spec defaults
-    (fedlrt, simplified correction, 4 clients, s* = 4, batch 4, seq 128,
-    kernels auto) on ``tokens`` tokens a client, counted as the ``path``
-    path, with the launches held to :func:`round_calls`' per-launch count,
-    the losses finite, the inactive columns zero, the ranks in [1, r_max]
-    and the measured wire bytes equal to ``cost_model.wire_round_bytes``;
-    one more round under ``torch.profiler`` (the card's trace alone: busy
-    share, kernels by device time, the truncation SVD's share); then at
-    full width and ``off_layers`` layers one bf16 round with kernels on,
-    its every kernel call held to :func:`round_calls`, against one with
-    kernels off from the same parameters (:func:`_kernels_against_off`;
-    with MoE blocks held only if no expert choice differs, else the pair
-    again in f32, where the 3xTF32 route must keep the choices but for
-    near-ties under ``FLIP_MARGIN``, held); and every shape of the round's
-    ``xus`` / ``avt`` / ``atb`` against its plain version, timed, summed
-    over the main path's round (the calls its launches were held to). ``watch()``, a context manager, is entered
-    around each round of the main path (a pass-through wrapper that counts
-    what it sees); ``check(exp, params0)`` runs after the main path's
-    rounds, on the trained model, and its result is returned under
-    ``check``. ``layers`` cuts the main path's depth (``num_layers``
-    through a patched ``tasks.lm_model_config``, the spec as the
-    reference's) and ``off_clients`` sets the pair's cohort (the spec's
-    when None); ``profile=False`` leaves out the profiled round."""
+@contextlib.contextmanager
+def moment_peaks(torch, peaks):
+    """For the body: the card's peak memory (GiB) in the moments of a
+    FeDLRT round that :func:`train_peak_reckoning` reckons, and in the
+    truncation, each the largest over its calls: ``basis pass backward`` (each client's
+    ``value_and_grad``), ``augmentation`` (each leaf's ``augment_basis``),
+    ``coefficient step`` (each client's ``client_step``) and
+    ``truncation`` (each leaf's ``truncate``); each call starts the peak
+    counter anew, and ``peaks["round"]`` keeps the peak over the whole
+    body, the windows between the calls included."""
+    import repro_torch.core.fedlrt as fl
+
+    def fold():
+        torch.cuda.synchronize()
+        peaks["round"] = max(peaks.get("round", 0.0), torch.cuda.max_memory_allocated() / 2**30)
+
+    def wrap(fn, name):
+        def measured(*a, **kw):
+            fold()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                return fn(*a, **kw)
+            finally:
+                fold()
+                peaks[name] = max(peaks.get(name, 0.0),
+                                  torch.cuda.max_memory_allocated() / 2**30)
+        return measured
+
+    torch.cuda.reset_peak_memory_stats()
+    with unittest.mock.patch.object(fl, "value_and_grad",
+                                    wrap(fl.value_and_grad, "basis pass backward")), \
+            unittest.mock.patch.object(fl, "augment_basis",
+                                       wrap(fl.augment_basis, "augmentation")), \
+            unittest.mock.patch.object(fl.FedLRTProgram, "client_step",
+                                       wrap(fl.FedLRTProgram.client_step, "coefficient step")), \
+            unittest.mock.patch.object(fl, "truncate", wrap(fl.truncate, "truncation")):
+        yield
+    fold()
+
+
+def gated_round(torch, exp, tag, r, want, wire, r_max, watch=contextlib.nullcontext,
+                by_moment=False):
+    """One FeDLRT round of ``exp`` (``exp.run(rounds=1)``, inside
+    ``watch()``) held to the training gates: finite losses, the launches
+    ``want`` (:func:`launches_of` of :func:`round_calls`), no nonzeros past
+    the ranks, every rank in [1, ``r_max`` of its leaf] and the measured
+    wire bytes equal to ``wire`` (``cost_model.wire_round_bytes``); logged
+    as ``tag`` round ``r``, with the round's peak card memory and, with
+    ``by_moment``, each moment's (:func:`moment_peaks`, whose syncs around
+    every call it wraps lengthen the round's host time: the recorded rounds
+    only). Returns the readings."""
     import numpy as np
 
-    import repro_torch.core.fedlrt as fedlrt_module
+    before = _launch_counts()
+    peaks = {}
+    torch.cuda.reset_peak_memory_stats()
+    with watch(), moment_peaks(torch, peaks) if by_moment else contextlib.nullcontext():
+        res = exp.run(rounds=1)[-1]
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in _launch_counts().items() if k in want}
+    peak = peaks.pop("round", torch.cuda.max_memory_allocated() / 2**30)
+    ranks = {k: np.ravel(v) for k, v in res.ranks.items()}
+    flat = np.concatenate(list(ranks.values()))
+    inactive = _inactive_nonzeros(torch, exp.params)
+    if not (math.isfinite(res.loss_before) and math.isfinite(res.loss_after)):
+        raise AssertionError(f"round {r}: non-finite loss {res.loss_before} / {res.loss_after}")
+    if got != want:
+        raise AssertionError(f"round {r}: launches {got}, expected {want}")
+    if inactive:
+        raise AssertionError(f"round {r}: {inactive} nonzeros past the ranks")
+    bad = {k: v for k, v in ranks.items() if v.min() < 1 or v.max() > r_max[k]}
+    if bad:
+        raise AssertionError(f"round {r}: ranks outside [1, r_max]: {bad}")
+    measured = (res.wire_bytes_down_per_client, res.wire_bytes_up_per_client)
+    if measured != (wire["down"], wire["up"]):
+        raise AssertionError(f"round {r}: measured wire bytes {measured}, cost model "
+                             f"{(wire['down'], wire['up'])}")
+    below = {k: int((v < r_max[k]).sum()) for k, v in ranks.items() if (v < r_max[k]).any()}
+    by_r_max = {}
+    for k, v in ranks.items():
+        by_r_max.setdefault(r_max[k], []).append(v)
+    by_r_max = {m: np.concatenate(v) for m, v in sorted(by_r_max.items())}
+    log(f"{tag} round {r}: loss_before {res.loss_before:.6f} loss_after "
+        f"{res.loss_after:.6f}; rank min/mean/max {flat.min():.0f}/{flat.mean():.2f}/"
+        f"{flat.max():.0f} over {flat.size} factor members, {sum(below.values())} below "
+        f"r_max (" + ", ".join(f"r_max {m}: {v.min():.0f}/{v.mean():.2f}/{v.max():.0f} over "
+                               f"{v.size}" for m, v in by_r_max.items())
+        + f"); host {res.seconds:.3f} s; wire a client {measured[0] / 1e6:.6f} MB down, "
+        f"{measured[1] / 1e6:.6f} MB up (= cost model); paper protocol "
+        f"{res.comm_bytes_per_client / 1e6:.3f} MB static, "
+        f"{res.comm_bytes_per_client_effective / 1e6:.3f} MB effective; peak {peak:.2f} GiB"
+        + (" (by moment " + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items()) + ")"
+           if peaks else "")
+        + f"; nonzeros past the ranks 0; launches {got} = expected")
+    return dict(loss_before=res.loss_before, loss_after=res.loss_after,
+                rank_min=float(flat.min()), rank_mean=float(flat.mean()),
+                rank_max=float(flat.max()), below_r_max=sum(below.values()),
+                ranks_by_r_max={str(m): [float(v.min()), float(v.mean()), float(v.max())]
+                                for m, v in by_r_max.items()},
+                host_s=res.seconds, peak_gib=peak, peak_gib_by_moment=peaks,
+                wire_down_bytes=measured[0], wire_up_bytes=measured[1], launches=got)
+
+
+def build_round(torch, spec, tag, layers=None, stream_note="built here"):
+    """``build(spec, device="cuda")`` of an ``lm`` spec, timed, with
+    ``layers`` cutting the depth (``num_layers`` through a patched
+    ``tasks.lm_model_config``: the spec, its hash and the CLI stay the
+    reference's), described, and its round's reckoning: the factor leaves,
+    members and entries, the bytes by dtype, :func:`round_calls` at bf16
+    activations and their launches, the wire bytes of
+    ``cost_model.wire_round_bytes`` and each leaf's r_max; all logged as
+    ``tag``. Returns (the experiment, the reckoning)."""
     import repro_torch.data
-    from repro_torch.api import DataSpec, ExperimentSpec, FedSpec, ModelSpec, build
-    from repro_torch.api import tasks
+    from repro_torch.api import build, tasks
     from repro_torch.core import cost_model
     from repro_torch.utils.tree import tree_leaves
 
-    tag = f"[{path}]"
-    spec = ExperimentSpec(name=f"chip-{path}", seed=0, rounds=rounds, log_every=1,
-                          model=ModelSpec(arch=arch), data=DataSpec(tokens_per_client=tokens),
-                          fed=FedSpec())
-    moe_cfg = tasks.lm_model_config(spec.model).moe
     resolve = tasks.lm_model_config
 
     def depth(m):
@@ -3039,28 +3196,75 @@ def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, of
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     log(exp.describe())
-    cfg = exp.engine.cfg
+    cfg, model_cfg = exp.engine.cfg, depth(spec.model)
     M = spec.data.batch * spec.data.seq
-    params0 = exp.params
-    factors = _factors(params0)
+    factors = _factors(exp.params)
     entries = sum(f.U.numel() + f.S.numel() + f.V.numel() for _, f in factors)
     by_dtype = {}
-    for t in tree_leaves(params0):
+    for t in tree_leaves(exp.params):
         name = str(t.dtype).removeprefix("torch.")
         by_dtype[name] = by_dtype.get(name, 0) + t.numel() * t.element_size()
-    calls_round = round_calls(params0, cfg, M, "bfloat16", moe_cfg)
+    calls_round = round_calls(exp.params, cfg, M, "bfloat16", model_cfg.moe)
     want = launches_of(calls_round)
-    wire = cost_model.wire_round_bytes(params0, correction=cfg.correction)
+    wire = cost_model.wire_round_bytes(exp.params, correction=cfg.correction)
     r_max = {p: f.r_max for p, f in factors}
     members = sum(math.prod(f.U.shape[:-2]) for _, f in factors)
-    log(f"{tag} {depth(spec.model).num_layers} layers, {cfg.num_clients} clients: built in "
+    log(f"{tag} {model_cfg.num_layers} layers, {cfg.num_clients} clients: built in "
         f"{build_s:.1f} s, of it {data_s[0]:.1f} s to fetch the token stream "
-        f"({cfg.num_clients} x {tokens} tokens, built in a process of its own: its build's "
-        f"host time is on its [streams] line); {len(factors)} factor "
-        f"leaves ({members} members), {entries / 1e6:.1f} M factor entries; bytes by dtype "
-        f"{ {k: f'{v / 1e9:.3f} GB' for k, v in by_dtype.items()} }; r_max "
-        f"{sorted(set(r_max.values()))}; expected launches a round {want}; wire a client "
-        f"{wire['down'] / 1e6:.3f} MB down, {wire['up'] / 1e6:.3f} MB up")
+        f"({cfg.num_clients} x {spec.data.tokens_per_client} tokens, {stream_note}); "
+        f"{len(factors)} factor leaves ({members} members), {entries / 1e6:.1f} M factor "
+        f"entries; bytes by dtype { {k: f'{v / 1e9:.3f} GB' for k, v in by_dtype.items()} }; "
+        f"r_max {sorted(set(r_max.values()))}; expected launches a round {want}; wire a client "
+        f"{wire['down'] / 1e6:.6f} MB down, {wire['up'] / 1e6:.6f} MB up")
+    return exp, dict(layers=model_cfg.num_layers, build_s=build_s, stream_fetch_s=data_s[0],
+                     factor_entries=entries, members=members, bytes_by_dtype=by_dtype,
+                     round_calls=calls_round, want=want, wire=wire, r_max=r_max)
+
+
+def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, off_tokens,
+                     watch=contextlib.nullcontext, check=None, layers=None, off_clients=None,
+                     profile=True):
+    """``arch`` at full width and depth in bf16 (f32 bases): ``rounds``
+    FeDLRT rounds through ``build(spec).run()`` with the spec defaults
+    (fedlrt, simplified correction, 4 clients, s* = 4, batch 4, seq 128,
+    kernels auto) on ``tokens`` tokens a client, counted as the ``path``
+    path, with the launches held to :func:`round_calls`' per-launch count,
+    the losses finite, the inactive columns zero, the ranks in [1, r_max]
+    and the measured wire bytes equal to ``cost_model.wire_round_bytes``;
+    one more round under ``torch.profiler`` (the card's trace alone: busy
+    share, kernels by device time, the truncation SVD's share); then at
+    full width and ``off_layers`` layers one bf16 round with kernels on,
+    its every kernel call held to :func:`round_calls`, against one with
+    kernels off from the same parameters (:func:`_kernels_against_off`;
+    with MoE blocks held only if no expert choice differs, else the pair
+    again in f32, where the 3xTF32 route must keep the basis pass's
+    choices but for near-ties under ``FLIP_MARGIN`` and every later
+    differing choice's margin within twice its call's probability gap,
+    held); and every shape of the round's
+    ``xus`` / ``avt`` / ``atb`` against its plain version, timed, summed
+    over the main path's round (the calls its launches were held to). ``watch()``, a context manager, is entered
+    around each round of the main path (a pass-through wrapper that counts
+    what it sees); ``check(exp, params0)`` runs after the main path's
+    rounds, on the trained model, and its result is returned under
+    ``check``. ``layers`` cuts the main path's depth (``num_layers``
+    through a patched ``tasks.lm_model_config``, the spec as the
+    reference's) and ``off_clients`` sets the pair's cohort (the spec's
+    when None); ``profile=False`` leaves out the profiled round."""
+    import repro_torch.core.fedlrt as fedlrt_module
+    from repro_torch.api import DataSpec, ExperimentSpec, FedSpec, ModelSpec
+    from repro_torch.api import tasks
+
+    tag = f"[{path}]"
+    spec = ExperimentSpec(name=f"chip-{path}", seed=0, rounds=rounds, log_every=1,
+                          model=ModelSpec(arch=arch), data=DataSpec(tokens_per_client=tokens),
+                          fed=FedSpec())
+    moe_cfg = tasks.lm_model_config(spec.model).moe
+    exp, built = build_round(torch, spec, tag, layers,
+                             "built in a process of its own: its build's host time is on its "
+                             "[streams] line")
+    M = spec.data.batch * spec.data.seq
+    cfg, params0 = exp.engine.cfg, exp.params
+    calls_round, want, wire, r_max = (built[k] for k in ("round_calls", "want", "wire", "r_max"))
 
     history = []
     # the main path: counts at 0 just before, read just after
@@ -3068,48 +3272,12 @@ def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, of
     torch.cuda.synchronize()
     t_path = time.perf_counter()
     for r in range(rounds):
-        before = _launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        with watch():
-            res = exp.run(rounds=1)[-1]
-        torch.cuda.synchronize()
-        got = {k: v - before[k] for k, v in _launch_counts().items() if k in want}
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        ranks = {k: np.ravel(v) for k, v in res.ranks.items()}
-        flat = np.concatenate(list(ranks.values()))
-        inactive = _inactive_nonzeros(torch, exp.params)
-        if not (math.isfinite(res.loss_before) and math.isfinite(res.loss_after)):
-            raise AssertionError(f"round {r}: non-finite loss {res.loss_before} / {res.loss_after}")
-        if got != want:
-            raise AssertionError(f"round {r}: launches {got}, expected {want}")
-        if inactive:
-            raise AssertionError(f"round {r}: {inactive} nonzeros past the ranks")
-        bad = {k: v for k, v in ranks.items() if v.min() < 1 or v.max() > r_max[k]}
-        if bad:
-            raise AssertionError(f"round {r}: ranks outside [1, r_max]: {bad}")
-        measured = (res.wire_bytes_down_per_client, res.wire_bytes_up_per_client)
-        if measured != (wire["down"], wire["up"]):
-            raise AssertionError(f"round {r}: measured wire bytes {measured}, cost model "
-                                 f"{(wire['down'], wire['up'])}")
-        below = {k: int((v < r_max[k]).sum()) for k, v in ranks.items() if (v < r_max[k]).any()}
-        log(f"{tag} round {r}: loss_before {res.loss_before:.6f} loss_after "
-            f"{res.loss_after:.6f}; rank min/mean/max {flat.min():.0f}/{flat.mean():.2f}/"
-            f"{flat.max():.0f} over {flat.size} factor members, {sum(below.values())} below "
-            f"r_max; host {res.seconds:.3f} s; wire a client {measured[0] / 1e6:.6f} MB down, "
-            f"{measured[1] / 1e6:.6f} MB up (= cost model); paper protocol "
-            f"{res.comm_bytes_per_client / 1e6:.3f} MB static, "
-            f"{res.comm_bytes_per_client_effective / 1e6:.3f} MB effective; peak {peak:.2f} "
-            f"GiB; nonzeros past the ranks 0; launches {got} = expected")
-        history.append(dict(loss_before=res.loss_before, loss_after=res.loss_after,
-                            rank_min=float(flat.min()), rank_mean=float(flat.mean()),
-                            rank_max=float(flat.max()), below_r_max=sum(below.values()),
-                            host_s=res.seconds, peak_gib=peak, wire_down_bytes=measured[0],
-                            wire_up_bytes=measured[1], launches=got))
+        history.append(gated_round(torch, exp, tag, r, want, wire, r_max, watch))
     path_s = time.perf_counter() - t_path
     counters[path] = _launch_counts()
     log(f"{tag} {rounds} round(s) in {path_s:.1f} s; launches {counters[path]}")
     checked = check(exp, params0) if check is not None else None
-    del params0, factors
+    del params0
     gc.collect()
     torch.cuda.empty_cache()
     prof = profile_train_round(torch, exp, tag, history[-1]["host_s"]) if profile else None
@@ -3149,12 +3317,13 @@ def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, of
     if not off_stats["held"]:
         log(f"{tag} expert choices differ in bf16: the pair again in f32")
         t0 = time.perf_counter()
-        p0, on, off, _ = _cut_round(torch, spec, arch, off_layers, off_tokens, "float32",
-                                    clients=off_clients)
+        p0, on, off, f32_cfg = _cut_round(torch, spec, arch, off_layers, off_tokens, "float32",
+                                          clients=off_clients)
         log(f"{tag} {off_layers} layers, f32: the pair of rounds in "
             f"{time.perf_counter() - t0:.1f} s")
         off_f32 = _kernels_against_off(torch, f"{tag[:-1]} f32]", p0, on, off, moe_cfg,
-                                       near_ties=True)
+                                       near_ties=True,
+                                       same_start=f32_cfg.num_clients * moe_layers(p0))
         del on, off, p0
         gc.collect()
         torch.cuda.empty_cache()
@@ -3167,10 +3336,11 @@ def phase_train_arch(torch, counters, path, arch, rounds, tokens, off_layers, of
     _, xus_round = phase_xus_train(torch, calls_round, f"{tag[:-1]} xus]", arch)
     _, avt_round = phase_avt_train(torch, calls_round, f"{tag[:-1]} avt]", arch)
     log(f"{tag} the round's xus / avt shapes timed in {time.perf_counter() - t0:.1f} s; summed "
-        f"over the main path's round at {depth(spec.model).num_layers} layers ("
+        f"over the main path's round at {built['layers']} layers ("
         + ", ".join(f"{k} {v}" for k, v in launches_of(calls_round).items()) + " launches)")
-    return dict(stream_fetch_s=data_s[0], build_s=build_s, factor_entries=entries, members=members,
-                bytes_by_dtype=by_dtype, wire=wire, rounds=history, path_s=path_s,
+    return dict(stream_fetch_s=built["stream_fetch_s"], build_s=built["build_s"],
+                factor_entries=built["factor_entries"], members=built["members"],
+                bytes_by_dtype=built["bytes_by_dtype"], wire=wire, rounds=history, path_s=path_s,
                 profile=prof, check=checked,
                 off=off_stats, off_f32=off_f32, svd_drivers=drivers,
                 round_calls=calls_round, xus_round=xus_round, avt_round=avt_round)
@@ -3195,7 +3365,8 @@ def phase_train_olmoe(torch, counters):
     """OLMoE-1B-7B (16 layers, d 2048, 16 heads x 128 with qk-norm, 64
     experts top-8 of hidden 1024, vocabulary 50,304; r_max 256, the
     experts' 128) through :func:`phase_train_arch`: ``OLMOE_ROUNDS``
-    round(s) on ``OLMOE_TOKENS_PER_CLIENT`` tokens a client, each MoE
+    round(s) at ``OLMOE_LAYERS`` layers on ``OLMOE_TOKENS_PER_CLIENT``
+    tokens a client, each MoE
     projection one launch a layer with its 64 experts on the kernels' grid
     axis at the capacity's 80 rows, the kernels-off comparison at
     ``OLMOE_OFF_LAYERS`` layers with the expert choices counted, and the
@@ -3203,7 +3374,7 @@ def phase_train_olmoe(torch, counters):
     profiled round (the script's time)."""
     return phase_train_arch(torch, counters, "train-olmoe", "olmoe-1b-7b", OLMOE_ROUNDS,
                             OLMOE_TOKENS_PER_CLIENT, OLMOE_OFF_LAYERS,
-                            OLMOE_OFF_TOKENS_PER_CLIENT, profile=False)
+                            OLMOE_OFF_TOKENS_PER_CLIENT, layers=OLMOE_LAYERS, profile=False)
 
 
 #: RWKV6-7B (32 layers, d 4096, 64 heads of 64, d_ff 14,336 non-gated,
@@ -3442,9 +3613,6 @@ JAMBA_TOKENS_PER_CLIENT = 4096
 #: the kernels-against-off pair: the model's fewest layers, one client
 JAMBA_OFF_CLIENTS = 1
 JAMBA_OFF_TOKENS_PER_CLIENT = 512
-#: the reckoned peak of the main path's round at the spec's four clients
-#: (:func:`train_peak_reckoning`) is held at or under this
-JAMBA_PEAK_LIMIT_GIB = 70.0
 #: [train-jamba scan]: layer 0's Mamba mixer of the trained model over B x T
 #: tokens in f32: the round's shape (one chunk of ``scan_chunk`` 512), and
 #: three chunks (the chunk carry and the zero-padded ragged tail)
@@ -3466,16 +3634,23 @@ def train_peak_reckoning(params, cfg, clients, B, T):
     - the basis augmentation (the end of ``broadcast``): the parameters,
       every client's gradient (each leaf at its dtype, the bases f32), their
       aggregate, and the augmented bases ``[U | Ū]``, ``[V | V̄]`` in f32
-      with the 2r x 2r S̃;
+      with the 2r x 2r S̃; and the workspace of the leaf being augmented
+      (``core/dlrt.py`` ``augment_basis``), beyond its own augmented bases:
+      on the U side the gradient blocks and CholeskyQR2's pass (its input,
+      ``U Uᵀ Q`` and ``Q`` itself) hold 4|U| + |V| before ``[U | Ū]``
+      exists, on the V side ``[U | Ū]`` and 4|V|: the largest leaf's
+      max(2|U| - |V|, 2|V|) (|U|, |V| its f32 bases' bytes);
     - the last client's backward in the basis pass: the parameters, the
       clients' gradients (its own forming), the forward's saved tensors:
       each Mamba mixer's scan keeps ``a`` and ``h`` at the compute dtype
       and ``exp(Δ A)`` and ``h`` in f32 for the output's product with C
       (B·T·d_inner·N each), and the head's M x vocab logits (the compute
       dtype, their f32 copy and the one-hot mask);
-    - a client's coefficient step: the parameters, the aggregate gradient
-      (kept to the round's end), the augmented factors and the forward's
-      saved tensors again.
+    - a client's coefficient step: the parameters, the augmented factors,
+      each client's correction (its S̃ block and dense leaves), the step's
+      own S̃ and its gradient, and the forward's saved tensors again (the
+      server keeps only the aggregate gradient's norm past the
+      augmentation).
 
     The dense activations (B·T·d a tensor) are left out: ~0.1 GB a layer
     at Jamba's width. Returns bytes by term and by moment."""
@@ -3489,6 +3664,11 @@ def train_peak_reckoning(params, cfg, clients, B, T):
     params_b = nbytes(tree_leaves(params))
     bases_b = nbytes([t for f in factors for t in (f.U, f.V)])
     aug_b = 2 * bases_b + 4 * nbytes([f.S for f in factors])
+    work_b = max(max(2 * u - v, 2 * v) for u, v in
+                 ((f.U.numel() * 4, f.V.numel() * 4) for f in factors))
+    # S̃ at S's dtype, with the dense leaves: what a client trains
+    coeff_b = 4 * nbytes([f.S for f in factors]) + params_b - nbytes(
+        [t for f in factors for t in (f.U, f.S, f.V, f.rank)])
     M = B * T
     n_mamba = sum(cfg.block_pattern[i % len(cfg.block_pattern)] == "mamba"
                   for i in range(cfg.num_layers))
@@ -3499,33 +3679,38 @@ def train_peak_reckoning(params, cfg, clients, B, T):
         scan_b = n_mamba * B * T * d_inner * d_state * (2 * act + 2 * 4)
     logits_b = M * cfg.vocab_size * (act + 4 + 1)
     terms = dict(parameters=params_b, client_gradients=clients * params_b,
-                 aggregate_gradient=params_b, augmented=aug_b, scan_saved=scan_b,
+                 aggregate_gradient=params_b, augmented=aug_b, augmentation_workspace=work_b,
+                 client_coefficients=(clients + 2) * coeff_b, scan_saved=scan_b,
                  logits=logits_b)
     moments = {
-        "augmentation": params_b + (clients + 1) * params_b + aug_b,
+        "augmentation": params_b + (clients + 1) * params_b + aug_b + work_b,
         "basis pass backward": params_b + clients * params_b + scan_b + logits_b,
-        "coefficient step": params_b + params_b + aug_b + scan_b + logits_b,
+        "coefficient step": params_b + aug_b + (clients + 2) * coeff_b + scan_b + logits_b,
     }
     return dict(terms=terms, moments=moments, peak=max(moments.values()))
 
 
-def jamba_reckoning(torch):
-    """:func:`train_peak_reckoning` of the main path's round (the spec's
-    clients) on the parameters' shapes (fake tensors: nothing is
-    allocated), printed, and held at or under ``JAMBA_PEAK_LIMIT_GIB``."""
+def round_reckoning(torch, tag, arch, layers=None, clients=None, limit_gib=None):
+    """:func:`train_peak_reckoning` of a round of ``arch`` at ``layers``
+    layers (the model's when None) and ``clients`` clients (the spec's
+    when None), the spec's batch and sequence, on the parameters' shapes
+    (fake tensors: nothing is allocated), logged as ``tag`` and held at or
+    under ``limit_gib`` where given."""
     from repro_torch.api import DataSpec, FedSpec, ModelSpec, tasks
 
-    cfg = dataclasses.replace(tasks.lm_model_config(ModelSpec(arch="jamba-1.5-large-398b")),
-                              num_layers=JAMBA_LAYERS)
-    data, clients = DataSpec(), FedSpec().clients
+    cfg = tasks.lm_model_config(ModelSpec(arch=arch))
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    data, clients = DataSpec(), clients or FedSpec().clients
     r = train_peak_reckoning(fake_params(torch, cfg), cfg, clients, data.batch, data.seq)
-    log(f"[train-jamba] reckoned card memory of a round at {clients} clients (GiB): "
+    log(f"{tag} reckoned card memory of a round at {cfg.num_layers} layers and {clients} "
+        f"client(s) (GiB): "
         + ", ".join(f"{k.replace('_', ' ')} {v / 2**30:.2f}" for k, v in r["terms"].items())
         + "; by moment " + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in r["moments"].items())
-        + f"; peak {r['peak'] / 2**30:.2f} (limit {JAMBA_PEAK_LIMIT_GIB:g})")
-    if not r["peak"] <= JAMBA_PEAK_LIMIT_GIB * 2**30:
-        raise AssertionError(f"[train-jamba] the reckoned peak at {clients} clients passes "
-                             f"{JAMBA_PEAK_LIMIT_GIB} GiB")
+        + f"; peak {r['peak'] / 2**30:.2f}"
+        + (f" (limit {limit_gib:g})" if limit_gib is not None else ""))
+    if limit_gib is not None and not r["peak"] <= limit_gib * 2**30:
+        raise AssertionError(f"{tag} the reckoned peak at {clients} clients passes {limit_gib} GiB")
     return r
 
 
@@ -3641,7 +3826,7 @@ def scan_call_cost(torch, shape, dtype, reps=5):
 def phase_train_jamba(torch, counters):
     """Jamba-1.5-Large at full width and one 8-layer period (``JAMBA_LAYERS``)
     through :func:`phase_train_arch`: the spec's four clients, their round's
-    peak reckoned first (:func:`jamba_reckoning`), ``JAMBA_ROUNDS`` round(s) on
+    peak reckoned first (:func:`round_reckoning`), ``JAMBA_ROUNDS`` round(s) on
     ``JAMBA_TOKENS_PER_CLIENT`` tokens a client, each Mamba projection,
     attention projection, MLP factor, embedding and head one launch on the
     chain and each MoE projection one launch a layer with its 16 experts on
@@ -3660,7 +3845,8 @@ def phase_train_jamba(torch, counters):
     from repro_torch.models import ssm
     from repro_torch.models.transformer import _layer
 
-    reckoned = jamba_reckoning(torch)
+    reckoned = round_reckoning(torch, "[train-jamba]", "jamba-1.5-large-398b", JAMBA_LAYERS,
+                               limit_gib=PEAK_LIMIT_GIB)
     cfg = dataclasses.replace(tasks.lm_model_config(ModelSpec(arch="jamba-1.5-large-398b")),
                               num_layers=JAMBA_LAYERS)
     calls = {}  # (forward or forward_backward, shape) -> calls in the main path
@@ -3723,6 +3909,267 @@ def phase_train_jamba(torch, counters):
     log(f"[train-jamba] peak {out['rounds'][-1]['peak_gib']:.2f} GiB against "
         f"{reckoned['peak'] / 2**30:.2f} GiB reckoned")
     return dict(out, reckoned_gib={k: v / 2**30 for k, v in reckoned["moments"].items()})
+
+
+#: DeepSeekMoE-16B (28 layers, d 2048, 16 heads of 128, 64 routed experts
+#: top-6 of hidden 1408 beside 2 shared ones of 2816 in all, vocabulary
+#: 102,400; r_max 256, the routed experts' 176): one round at 4 of its 28
+#: layers on 4 x 4,096 tokens (the rows route)
+DEEPSEEK_LAYERS = 4
+DEEPSEEK_ROUNDS = 1
+DEEPSEEK_ROUND_UNIT = ("one DeepSeekMoE-16B FeDLRT round at 4 of its 28 layers (bf16 "
+                       "activations; M=512, the routed experts' G=64 stacks at M=60; atb's "
+                       "embedding gather in f32)")
+DEEPSEEK_TOKENS_PER_CLIENT = 4096
+DEEPSEEK_OFF_LAYERS = 2
+DEEPSEEK_OFF_TOKENS_PER_CLIENT = 512
+#: [train-deepseek shared]: layer 0's shared experts of the trained model
+#: on this many rows (the round's batch x seq) in f32
+SHARED_CHECK_M = 512
+#: the shared experts with kernels against the plain chain in f32, as a
+#: share of each tensor's largest entry: the 3xTF32 route sums K <= 2816
+#: products in another order than cuBLAS's f32 (~1e-7 to 1e-5 of max);
+#: 1e-4 is the limit
+SHARED_RTOL = 1e-4
+
+
+def shared_against_off(torch, cfg, p, M, seed, device="cuda", tag="[train-deepseek shared]"):
+    """DeepSeekMoE's shared experts (``moe._shared_ffn``: ``shared_gate``,
+    ``shared_up``, ``shared_down`` of layer parameters ``p``, their U, S and
+    V cast to f32) over a seeded x of (M, d) in f32, kernels ``auto``
+    against ``off`` (the plain chain, TF32 off): the output and the
+    gradients of ``<out, P>`` (P a seeded projection) with respect to x and
+    to each factor's U, S and V, each as max|auto - off| / max|off|, held
+    within ``SHARED_RTOL``. The routing, whose bf16 choices differ between
+    two runs, takes no part. The kernel run must launch ``xus``, ``avt``
+    and ``atb`` on the card, the plain run none (on the CPU the wrappers
+    take their plain versions and launch nothing). Returns the readings."""
+    from repro_torch.models import moe
+
+    names = ("shared_gate", "shared_up", "shared_down")
+    f32 = {n: dataclasses.replace(p[n], **{k: getattr(p[n], k).detach().float() for k in "USV"})
+           for n in names}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((M, cfg.d_model), generator=gen, device=device)
+    proj = torch.randn((M, cfg.d_model), generator=gen, device=device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+
+    def run(kernels):
+        leaves = {(n, k): getattr(f32[n], k).clone().requires_grad_(True)
+                  for n in names for k in "USV"}
+        mix = {n: dataclasses.replace(f32[n], **{k: leaves[n, k] for k in "USV"}) for n in names}
+        xg = x.clone().requires_grad_(True)
+        c = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32",
+                                kernels=kernels)
+        before = _launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        out = moe._shared_ffn(mix, xg, c)
+        grads = torch.autograd.grad((out * proj).sum(), [xg, *leaves.values()])
+        sync()
+        seconds = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in _launch_counts().items()
+                    if k in ("xus", "avt", "atb")}
+        return [out.detach(), *grads], seconds, launched
+
+    got, auto_s, launched = run("auto")
+    want, off_s, off_launched = run("off")
+    labels = ("out", "grad x") + tuple(f"grad {n} {k}" for n in names for k in "USV")
+    errs = {k: ((a - b).abs().max() / b.abs().max()).item() for k, a, b in zip(labels, got, want)}
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    f = f32["shared_up"]
+    log(f"{tag} layer 0's shared experts at M {M}, d {cfg.d_model}, hidden {f.V.shape[-2]}, "
+        f"r_max {f.r_max}, f32: kernels auto {1e3 * auto_s:.1f} ms (launches {launched}), off "
+        f"{1e3 * off_s:.1f} ms, forward and backward; max|auto - off| / max|off| (limit "
+        f"{SHARED_RTOL:g}): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    if any(off_launched.values()) or (device != "cpu" and not all(launched.values())):
+        raise AssertionError(f"{tag} kernels auto launched {launched}, off {off_launched}")
+    if not finite or not max(errs.values()) <= SHARED_RTOL:
+        raise AssertionError(f"{tag} the shared experts with kernels miss the plain chain: "
+                             f"{errs} (limit {SHARED_RTOL}), finite {finite}")
+    return dict(M=M, errs=errs, auto_s=auto_s, off_s=off_s, launches=launched)
+
+
+def phase_train_deepseek(torch, counters):
+    """DeepSeekMoE-16B at full width and ``DEEPSEEK_LAYERS`` of its 28
+    layers through :func:`phase_train_arch`: the spec's four clients, their
+    round's peak reckoned first (:func:`round_reckoning`, held under
+    ``PEAK_LIMIT_GIB``), ``DEEPSEEK_ROUNDS`` round(s) on
+    ``DEEPSEEK_TOKENS_PER_CLIENT`` tokens a client, each routed projection
+    one launch a layer with its 64 experts on the kernels' grid axis at the
+    capacity's 60 rows and each shared one a launch a layer at the batch's
+    512; no profiled round (the script's time). After the main path, on
+    the trained model: :func:`shared_against_off` on layer 0 (``[train-
+    deepseek shared]``). Then the kernels-off pair at
+    ``DEEPSEEK_OFF_LAYERS`` layers and ``DEEPSEEK_OFF_TOKENS_PER_CLIENT``
+    tokens a client, and the truncation SVD drivers on the first expert
+    stack's members (352 x 352)."""
+    from repro_torch.api import ModelSpec, tasks
+    from repro_torch.models.transformer import _layer
+
+    reckoned = round_reckoning(torch, "[train-deepseek]", "deepseek-moe-16b", DEEPSEEK_LAYERS,
+                               limit_gib=PEAK_LIMIT_GIB)
+    cfg = tasks.lm_model_config(ModelSpec(arch="deepseek-moe-16b"))
+
+    def check(exp, params0):
+        return shared_against_off(torch, cfg, _layer(exp.params["blocks"]["pos0"]["moe"], 0),
+                                  SHARED_CHECK_M, 11)
+
+    out = phase_train_arch(torch, counters, "train-deepseek", "deepseek-moe-16b",
+                           DEEPSEEK_ROUNDS, DEEPSEEK_TOKENS_PER_CLIENT, DEEPSEEK_OFF_LAYERS,
+                           DEEPSEEK_OFF_TOKENS_PER_CLIENT, check=check, layers=DEEPSEEK_LAYERS,
+                           profile=False)
+    log(f"[train-deepseek] peak {out['rounds'][-1]['peak_gib']:.2f} GiB against "
+        f"{reckoned['peak'] / 2**30:.2f} GiB reckoned")
+    return dict(out, reckoned_gib={k: v / 2**30 for k, v in reckoned["moments"].items()})
+
+
+# ---------------------------------------------------------------------------
+# one recorded round of an architecture at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def activation_reckoning(torch, cfg, B, T, device="cuda"):
+    """What :func:`train_peak_reckoning` leaves out, measured: the bytes a
+    forward of the ``lm`` loss of ``cfg`` keeps for its backward, by one
+    layer, in each of a round's two passes: the basis pass (the factors at
+    rank r, every U, S, V and dense leaf differentiated) and a client's
+    coefficient step (the augmented factors at 2r, their S̃ and the dense
+    leaves differentiated). The loss of a model of one and of two layers at
+    full width (the training dtypes) on seeded tokens of B x (T + 1), under
+    ``saved_tensors_hooks`` that sum the storages saved for the backward,
+    each once, the parameters' own left out (the graph keeps none of them:
+    no backward runs); the two runs' difference is a layer's. Returns {pass:
+    (a layer's bytes, the one-layer model's)}."""
+    from repro_torch.core.factorization import AugmentedFactor, is_factor, training_dtypes
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    def augmented(f):
+        r = f.r_max
+        S = torch.zeros(f.S.shape[:-2] + (2 * r, 2 * r), dtype=f.S.dtype, device=f.S.device)
+        return AugmentedFactor(U=torch.cat([f.U, f.U], -1), S=S, V=torch.cat([f.V, f.V], -1),
+                               rank=f.rank)
+
+    def saved(layers, client):
+        c = dataclasses.replace(cfg, num_layers=layers)
+        model = build_model(c)
+        gen = torch.Generator(device=device).manual_seed(0)
+        with torch.no_grad():
+            params = training_dtypes(model.init(gen)[0])
+            if client:
+                params = tree_map(lambda x: augmented(x) if is_factor(x) else x, params,
+                                  is_leaf=is_factor)
+        factors = [x for x in tree_leaves(params, is_leaf=is_factor) if is_factor(x)]
+        dense = [x for x in tree_leaves(params, is_leaf=is_factor)
+                 if not is_factor(x) and x.is_floating_point()]
+        trained = dense + [t for f in factors for t in ((f.S,) if client else (f.U, f.S, f.V))]
+        for t in trained:
+            t.requires_grad_(True)
+        own = {t.untyped_storage().data_ptr()
+               for t in dense + [t for f in factors for t in (f.U, f.S, f.V)]}
+        tokens = torch.randint(1, c.vocab_size, (B, T + 1), generator=gen, device=device)
+        kept, hold = {}, []
+
+        def pack(t):
+            ptr = t.untyped_storage().data_ptr()
+            if ptr not in own:
+                kept[ptr] = max(kept.get(ptr, 0), t.untyped_storage().nbytes())
+            # held here to the end, as the graph would hold it (so no address
+            # is reused and counted twice); the graph keeps nothing: no
+            # backward runs, and a saved output handed back whole would hold
+            # its own graph in a cycle that is never freed
+            hold.append(t)
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda _: None):
+            loss = model.loss_fn(params, {"tokens": tokens})
+        del loss, params, factors, dense, trained, hold
+        return sum(kept.values())
+
+    out = {}
+    for name, client in (("basis pass", False), ("client step", True)):
+        one = saved(1, client)
+        out[name] = (saved(2, client) - one, one)
+    return out
+
+
+#: tokens a client of a recorded round (``--round``), as the training phases'
+RECORDED_TOKENS_PER_CLIENT = 4096
+#: the cohorts a recorded round may run at, the spec's four clients first
+RECORDED_COHORTS = (4, 2, 1)
+
+
+def recorded_round(torch, arch, limit_gib=None):
+    """One FeDLRT round of ``arch`` at full width and depth in bf16 (f32
+    bases) through ``build(spec, device="cuda").run(1)`` with the spec
+    defaults but the cohort, on ``RECORDED_TOKENS_PER_CLIENT`` tokens a
+    client. First, for each
+    cohort of ``RECORDED_COHORTS``, the round's card memory reckoned on fake tensors
+    (:func:`train_peak_reckoning`) plus the layers' activations
+    (:func:`activation_reckoning`, measured on a one- and a two-layer model
+    at full width, added to the moments that hold a forward's saved
+    tensors); the largest cohort whose sum stays at or under ``limit_gib``
+    (the card's memory when None) runs, and if none does the round is not
+    run. The round is held to the training phases' gates
+    (:func:`gated_round`: launches equal to :func:`round_calls`', wire
+    bytes to ``wire_round_bytes``, zero inactive columns, ranks in [1,
+    r_max], finite losses), its peak logged beside the reckoning. Returns
+    the readings."""
+    from repro_torch.api import DataSpec, ExperimentSpec, FedSpec, ModelSpec, tasks
+
+    tag = f"[round {arch}]"
+    cfg = tasks.lm_model_config(ModelSpec(arch=arch))
+    data = DataSpec(tokens_per_client=RECORDED_TOKENS_PER_CLIENT)
+    if limit_gib is None:
+        limit_gib = torch.cuda.mem_get_info()[1] / 2**30
+    reckoned = {c: round_reckoning(torch, tag, arch, clients=c) for c in RECORDED_COHORTS}
+    t0 = time.perf_counter()
+    saved = activation_reckoning(torch, cfg, data.batch, data.seq)
+    acts = {k: layer * cfg.num_layers for k, (layer, _) in saved.items()}
+    torch.cuda.empty_cache()
+    totals = {}
+    for c, r in reckoned.items():
+        moments = dict(r["moments"])
+        moments["basis pass backward"] += acts["basis pass"]
+        moments["coefficient step"] += acts["client step"]
+        totals[c] = dict(moments, peak=max(moments.values()))
+    log(f"{tag} activations saved for the backward, measured at full width in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        + "; ".join(f"{k} {layer / 2**30:.3f} GiB a layer ({one / 2**30:.3f} GiB at one layer, "
+                    f"with the embedding and the head), {acts[k] / 2**30:.2f} GiB at "
+                    f"{cfg.num_layers} layers" for k, (layer, one) in saved.items())
+        + "; reckoned with them by moment: "
+        + "; ".join(f"{c} client(s) " + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in t.items())
+                    for c, t in totals.items())
+        + f" GiB (limit {limit_gib:.2f} GiB)")
+    fits = [c for c in RECORDED_COHORTS if totals[c]["peak"] <= limit_gib * 2**30]
+    out = dict(arch=arch, layers=cfg.num_layers, tokens_per_client=data.tokens_per_client,
+               limit_gib=limit_gib,
+               activations_gib_a_layer={k: v[0] / 2**30 for k, v in saved.items()},
+               reckoned_gib={c: r["peak"] / 2**30 for c, r in reckoned.items()},
+               reckoned_with_activations_gib={c: {k: v / 2**30 for k, v in t.items()}
+                                              for c, t in totals.items()})
+    if not fits:
+        log(f"{tag} no cohort of {list(RECORDED_COHORTS)} fits {limit_gib:.2f} GiB: the round is not run")
+        return dict(out, ran=False)
+    clients = max(fits)
+    spec = ExperimentSpec(name=f"chip-round-{arch}", seed=0, rounds=1, log_every=1,
+                          model=ModelSpec(arch=arch), data=data, fed=FedSpec(clients=clients))
+    exp, built = build_round(torch, spec, tag)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rnd = gated_round(torch, exp, tag, 0, built["want"], built["wire"], built["r_max"],
+                      by_moment=True)
+    wall = time.perf_counter() - t0
+    log(f"{tag} {clients} client(s): the round in {wall:.1f} s; peak {rnd['peak_gib']:.2f} GiB "
+        f"against {reckoned[clients]['peak'] / 2**30:.2f} GiB reckoned, "
+        f"{totals[clients]['peak'] / 2**30:.2f} GiB with the activations")
+    out.update(ran=True, clients=clients, round=rnd, wall_s=wall,
+               **{k: v for k, v in built.items() if k not in ("round_calls", "r_max")})
+    log(f"{tag} " + json.dumps(out, default=str))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4936,7 +5383,8 @@ def phase_examples(torch, counters):
       planted rank 4 found;
     - ``torch_train_llm.py --preset llm-100m --rounds 2``: llm-100m at full
       width and depth, every factorized layer on ``xus`` / ``avt`` /
-      ``atb``; then ``--rounds 3 --participation dropout:0.5`` under
+      ``atb``; then at its default preset, llm-tiny (the script's time),
+      ``--rounds 3 --participation dropout:0.5`` under
       ``repro_torch.analysis.trace_audit``: cohorts of several sizes, one
       step signature at the engine's one round callsite;
     - ``torch_serve_llm.py``: two llm-tiny rounds, then 6 requests served
@@ -4979,9 +5427,9 @@ def phase_examples(torch, counters):
         f"{stats['train']['s']:.1f} s with the build")
 
     tag, before = "[examples train dropout]", _launch_counts()
+    t0 = time.perf_counter()
     with trace_audit() as audit:
-        hist = train.main(["--preset", "llm-100m", "--rounds", "3", "--participation",
-                           "dropout:0.5", "--log-every", "0"])
+        hist = train.main(["--rounds", "3", "--participation", "dropout:0.5", "--log-every", "0"])
     got = _twin_launches(torch, before, tag)
     sizes = [r.cohort_size for r in hist]
     if len(set(sizes)) < 2:
@@ -4991,8 +5439,9 @@ def phase_examples(torch, counters):
         raise AssertionError(f"{tag}: {len(audit.counts)} round callsites, expected the "
                              f"engine's one: {audit.counts}")
     [((site_file, site_line, fn), n)] = audit.counts.items()
-    log(f"{tag} cohorts {sizes} padded to 4: {n} step signature at "
-        f"{os.path.relpath(site_file, ROOT)}:{site_line} ({fn}) over {len(hist)} rounds")
+    log(f"{tag} llm-tiny: cohorts {sizes} padded to 4: {n} step signature at "
+        f"{os.path.relpath(site_file, ROOT)}:{site_line} ({fn}) over {len(hist)} rounds; "
+        f"{time.perf_counter() - t0:.1f} s")
     stats["train_dropout"] = dict(cohorts=sizes, signatures=n, launches=got,
                                   host_s=[r.seconds for r in hist])
 
@@ -5043,7 +5492,7 @@ def decode_step_sums(name, cfg, records):
 
 
 def kernel_summary(records, model_records, atb_records, flash_records, counters, cfg, atb_round,
-                   xus_round, avt_round, encdec_sums, scan, qwen2, olmoe, rwkv, jamba):
+                   xus_round, avt_round, encdec_sums, scan, qwen2, olmoe, rwkv, jamba, deepseek):
     """Per kernel: ``xus``/``avt`` as the sum over one Qwen2-7B decode
     step's launches (M = 4) of each measured number, with the sum over one
     decode step of each of the models phase's architectures under
@@ -5052,8 +5501,9 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
     and over one llm-100m round's calls under ``round``;
     ``xus``, ``avt`` and ``atb`` also summed over one bf16 Qwen2-7B round's
     calls under ``train_qwen2``, one OLMoE-1B-7B round's under
-    ``train_olmoe``, one RWKV6-7B round's under ``train_rwkv`` and one
-    round of Jamba-1.5-Large's 8-layer period under ``train_jamba``;
+    ``train_olmoe``, one RWKV6-7B round's under ``train_rwkv``, one
+    round of Jamba-1.5-Large's 8-layer period under ``train_jamba`` and
+    one of DeepSeekMoE-16B's at 4 layers under ``train_deepseek``;
     ``atb`` as the sum over
     one llm-100m FeDLRT round's calls (M = 512, f32: ``phase_atb``'s
     ``[atb] round``); ``flash_attention``
@@ -5096,6 +5546,7 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
         out[-1]["train_olmoe"] = {**olmoe[f"{name}_round"], "unit": OLMOE_ROUND_UNIT}
         out[-1]["train_rwkv"] = {**rwkv[f"{name}_round"], "unit": RWKV_ROUND_UNIT}
         out[-1]["train_jamba"] = {**jamba[f"{name}_round"], "unit": JAMBA_ROUND_UNIT}
+        out[-1]["train_deepseek"] = {**deepseek[f"{name}_round"], "unit": DEEPSEEK_ROUND_UNIT}
     out.append({
         "name": "atb", "route": "cuda", "source": SOURCES["atb"], "replaces": REPLACES["atb"],
         **launches("atb"),
@@ -5110,6 +5561,7 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
         "train_olmoe": {**olmoe["atb_round"], "unit": OLMOE_ROUND_UNIT},
         "train_rwkv": {**rwkv["atb_round"], "unit": RWKV_ROUND_UNIT},
         "train_jamba": {**jamba["atb_round"], "unit": JAMBA_ROUND_UNIT},
+        "train_deepseek": {**deepseek["atb_round"], "unit": DEEPSEEK_ROUND_UNIT},
     })
     [pre] = [r for r in flash_records if r["case"] == "qwen2-7b prefill"]
     out.append({
@@ -5143,7 +5595,8 @@ def train_stream_args():
     for arch, tokens in (("qwen2-7b", QWEN2_TOKENS_PER_CLIENT),
                          ("olmoe-1b-7b", OLMOE_TOKENS_PER_CLIENT),
                          ("rwkv6-7b", RWKV_TOKENS_PER_CLIENT),
-                         ("jamba-1.5-large-398b", JAMBA_TOKENS_PER_CLIENT)):
+                         ("jamba-1.5-large-398b", JAMBA_TOKENS_PER_CLIENT),
+                         ("deepseek-moe-16b", DEEPSEEK_TOKENS_PER_CLIENT)):
         kw = dict(vocab_size=tasks.lm_model_config(ModelSpec(arch=arch)).vocab_size,
                   num_tokens=FedSpec().clients * tokens, rank=DataSpec().stream_rank, seed=0)
         if kw not in out:
@@ -5234,13 +5687,32 @@ def memo_token_streams():
     return prefetched
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="The port's smoke run on one CUDA card: every "
+                                 "phase, or with --round one recorded FeDLRT round.")
+    ap.add_argument("--round", metavar="ARCH",
+                    help="run no phase: one FeDLRT round of ARCH at full width and depth "
+                         "(recorded_round)")
+    ap.add_argument("--limit-gib", type=float, default=None,
+                    help="--round's memory limit: the largest cohort of 4, 2 and 1 clients "
+                         "whose reckoned memory fits it runs (default: the card's memory)")
+    args = ap.parse_args(argv)
+    if args.round:
+        # a round near the card's memory: segments that grow in place leave
+        # no reserved-but-unusable blocks between the round's large tensors
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
         return 1
+    if args.round:
+        phase_environment(torch)
+        recorded_round(torch, args.round, limit_gib=args.limit_gib)
+        return 0
     from repro_torch.configs import get_config
 
     cfg = get_config("qwen2-7b")
@@ -5306,6 +5778,11 @@ def main() -> int:
     train_jamba["atb_round"] = atb_round_total(torch, atb_records, train_jamba["round_calls"],
                                                "jamba-1.5-large-398b", "[train-jamba atb]")
     done("train-jamba")
+    train_deepseek = phase_train_deepseek(torch, counters)
+    train_deepseek["atb_round"] = atb_round_total(torch, atb_records,
+                                                  train_deepseek["round_calls"],
+                                                  "deepseek-moe-16b", "[train-deepseek atb]")
+    done("train-deepseek")
     flash_records = phase_flash(torch, counters)
     done("flash")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spec_") as workdir:
@@ -5331,6 +5808,8 @@ def main() -> int:
                                                   if k != "round_calls"},
                                    "train_jamba": {k: v for k, v in train_jamba.items()
                                                    if k != "round_calls"},
+                                   "train_deepseek": {k: v for k, v in train_deepseek.items()
+                                                      if k != "round_calls"},
                                    "flash": flash_records, "spec": spec_stats,
                                    "sim": sim_stats, "examples": examples_stats,
                                    "xus_train": xus_train,
@@ -5338,7 +5817,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_summary(
         records, model_records, atb_records, flash_records, counters, cfg, atb_round, xus_round,
         avt_round, ev_sums, model_stats["jamba mamba scan"]["kernel"], train_qwen2,
-        train_olmoe, train_rwkv, train_jamba)}))
+        train_olmoe, train_rwkv, train_jamba, train_deepseek)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -204,11 +204,19 @@ def augment_basis(
     gv = gv / (torch.linalg.norm(gv, dim=(-2, -1), keepdim=True) + 1e-12)
     U32, V32 = f.U.float(), f.V.float()
     if method == "cholqr2":
-        # inactive columns come out (numerically) zero; mask exactly
+        # inactive columns come out (numerically) zero; mask exactly. Each
+        # side's gradient block and complement are dropped as soon as its
+        # augmented basis is formed: a stack's bases are the round's largest
+        # tensors (DeepSeekMoE-16B's expert stacks 2.6 GB each in f32), and
+        # the card holds the whole model's gradients beside them
         ubar = _ortho_complement_cholqr2(U32, gu, spec=u_spec) * m[..., None, :]
-        vbar = _ortho_complement_cholqr2(V32, gv, spec=v_spec) * m[..., None, :]
+        del gu
         U_t = torch.cat([U32, ubar], dim=-1)
+        del ubar
+        vbar = _ortho_complement_cholqr2(V32, gv, spec=v_spec) * m[..., None, :]
+        del gv
         V_t = torch.cat([V32, vbar], dim=-1)
+        del vbar
     elif method == "householder":
         am = augmented_mask(f.rank, r_max)
         U_t = qr_pos(torch.cat([U32, gu], dim=-1)) * am[..., None, :]

@@ -226,9 +226,13 @@ class FedLRTProgram:
         else:  # "none"
             corr_c = None  # uncorrected: nothing to send down per client
 
+        # the server keeps ‖∇_S L‖ for the round's metrics, not the
+        # aggregate gradient: its bases (the model's bases again, in f32)
+        # would stay on the card through every client's steps
         shared = {
             "aug_params": aug_params,
-            SERVER: {"g_global": g_global, "loss_before": loss_before},
+            SERVER: {"grad_norm_S": _coeff_grad_norm(params, g_global),
+                     "loss_before": loss_before},
         }
         return shared, corr_c
 
@@ -287,7 +291,7 @@ class FedLRTProgram:
             "loss_before": shared[SERVER]["loss_before"],
             "rank": {k: v["rank"] for k, v in infos.items()},
             "trunc_err": {k: v["trunc_err"] for k, v in infos.items()},
-            "grad_norm_S": _coeff_grad_norm(params, shared[SERVER]["g_global"]),
+            "grad_norm_S": shared[SERVER]["grad_norm_S"],
             # static r_max bound …
             "comm_bytes_per_client": float(
                 cost_model.fedlrt_round_comm_bytes(params, cfg.correction)

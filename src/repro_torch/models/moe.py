@@ -86,6 +86,17 @@ def _stacked_linear(w, x, kernels: str = "off") -> torch.Tensor:
 _dense_linear = _stacked_linear
 
 
+def _shared_ffn(p: dict, xf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The shared ("always-on") experts of the DeepSeekMoE design: one
+    gated FFN of ``shared_gate`` / ``shared_up`` / ``shared_down`` that
+    every token of ``xf`` ((N, d), or (B, T, d) under a mesh) passes
+    through beside its routed experts."""
+    hs = F.silu(_dense_linear(p["shared_gate"], xf, cfg.kernels)) * _dense_linear(
+        p["shared_up"], xf, cfg.kernels
+    )
+    return _dense_linear(p["shared_down"], hs, cfg.kernels)
+
+
 class Routing(NamedTuple):
     """One MoE block's routing of N tokens over E experts."""
 
@@ -283,12 +294,8 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     ye = ye * w.to(ye.dtype)
     out = combine(ye)
 
-    # shared ("always-on") experts: the DeepSeekMoE design
     if "shared_up" in p:
-        hs = F.silu(_dense_linear(p["shared_gate"], xf, cfg.kernels)) * _dense_linear(
-            p["shared_up"], xf, cfg.kernels
-        )
-        out = out + _dense_linear(p["shared_down"], hs, cfg.kernels)
+        out = out + _shared_ffn(p, xf, cfg)
     out = out.reshape(B, T, d)
     if not with_aux:
         return out, None

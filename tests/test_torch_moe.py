@@ -7,6 +7,12 @@ Parameters are the JAX package's reduced OLMoE-1B-7B and DeepSeekMoE-16B
 chain (``kernels="off"``), the port with ``"auto"`` (the kernels' plain
 versions on CPU tensors) unless a test says otherwise.
 
+DeepSeekMoE's shared experts (three dense factors a layer beside the
+routed experts, ``moe._shared_ffn``) are held in the block's output, in the
+gradients of their U, S and V, and in a FeDLRT round's ranks and ``U S
+Vᵀ``; the card's check of them (``chip_smoke.shared_against_off``) runs
+here on the plain versions.
+
 Tolerances: the block's output within 1e-5 of its largest entry (f32 sums
 in another order; the random experts' outputs reach ~20), its auxiliary
 loss 1e-6 relative; expert choices and the dispatched token sets
@@ -14,6 +20,7 @@ identical. Routing is held away from top-k ties: each test asserts its
 smallest top-k margin, so that a reseed cannot hide a flip behind a tie.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -42,8 +49,11 @@ from repro_torch.serve import engine as tengine
 from repro_torch.serve import quantize as tq
 from repro_torch.utils.tree import tree_leaves
 from torch_threads import one_intra_op_thread  # noqa: F401
+from torch_train_common import chip_smoke
 
 ARCHS = ["olmoe-1b-7b", "deepseek-moe-16b"]
+#: the shared experts' leaves of a MoE block (DeepSeekMoE only)
+SHARED = ("shared_up", "shared_gate", "shared_down")
 Y_RTOL = 1e-5
 AUX_RTOL = 1e-6
 #: the smallest gap between the k-th and the (k+1)-th router probability
@@ -210,6 +220,11 @@ def test_moe_block_gradient_matches(built, cf):
     jgp, jgx = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jp, jnp.asarray(x))
     tx = torch.from_numpy(x).requires_grad_(True)
     leaves = {"router": tp["router"]} | {n: tp[n].U for n in ("up", "gate", "down")}
+    # the shared experts (DeepSeekMoE): dense factors beside the routed
+    # experts, every factor tensor differentiated
+    shared = [n for n in SHARED if n in tp]
+    assert len(shared) == (3 if tcfg.moe.num_shared_experts else 0)
+    leaves |= {(n, part): getattr(tp[n], part) for n in shared for part in ("U", "S", "V")}
     for t in leaves.values():
         t.requires_grad_(True)
     try:
@@ -219,20 +234,26 @@ def test_moe_block_gradient_matches(built, cf):
         _close(leaves["router"].grad, jgp["router"])
         for n in ("up", "gate", "down"):
             _close(leaves[n].grad, jgp[n].U)
+        for n in shared:
+            for part in ("U", "S", "V"):
+                _close(leaves[n, part].grad, getattr(jgp[n], part))
     finally:
         for t in leaves.values():
             t.requires_grad_(False)
             t.grad = None
 
 
-def test_fedlrt_round_of_olmoe_matches():
-    """One FeDLRT round of the reduced OLMoE-1B-7B through both packages'
+@pytest.mark.parametrize("arch", ARCHS)
+def test_fedlrt_round_of_moe_matches(arch):
+    """One FeDLRT round of the reduced architecture through both packages'
     ``build(spec)``: every expert factor (a (layers, experts) stack)
     augmented and truncated per member, the router trained as a dense
-    leaf, the aux loss in the client loss."""
+    leaf, the aux loss in the client loss; DeepSeekMoE's shared experts
+    (three (layers,) stacks of dense factors) held like every other
+    factor: their ranks and ``U S Vᵀ``."""
     kw = dict(rounds=1, log_every=0)
     sections = dict(
-        model=("ModelSpec", dict(arch="olmoe-1b-7b", smoke=True)),
+        model=("ModelSpec", dict(arch=arch, smoke=True)),
         data=("DataSpec", dict(tokens_per_client=1200, seq=24)),
         fed=("FedSpec", dict(local_steps=2, tau=0.05)),
     )
@@ -248,6 +269,8 @@ def test_fedlrt_round_of_olmoe_matches():
     assert tr.comm_bytes_per_client == jr.comm_bytes_per_client
     assert jr.ranks.keys() == tr.ranks.keys()
     assert any("moe" in k for k in tr.ranks)
+    shared = [k for k in tr.ranks if any(f"['{n}']" in k for n in SHARED)]
+    assert len(shared) == (3 if arch == "deepseek-moe-16b" else 0)
     for k in jr.ranks:
         np.testing.assert_array_equal(tr.ranks[k], jr.ranks[k])
     jfs = [f for f in jax.tree.leaves(jexp.engine.params, is_leaf=jfac.is_factor)
@@ -258,6 +281,91 @@ def test_fedlrt_round_of_olmoe_matches():
         want = np.asarray(jfac.materialize(jf))
         err = np.abs(fac.materialize(tf).numpy() - want).max() / np.abs(want).max()
         assert err <= 1e-4
+
+
+@pytest.mark.parametrize("kernels", ["auto", "off"])
+def test_shared_ffn_is_the_inline_chain(built, kernels, monkeypatch):
+    """``moe_block`` adds ``_shared_ffn`` of the flattened tokens to the
+    routed experts' output, bit for bit the gated chain it factors out
+    (``silu(x gate) * (x up)`` through ``down``), once a block; a block
+    without shared experts (OLMoE) never calls it."""
+    _, tcfg, _, _, tparams = built
+    tcfg = dataclasses.replace(tcfg, kernels=kernels)
+    tp = _layer(tparams["blocks"]["pos0"]["moe"], 0)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal((2, 8, tcfg.d_model))
+                         .astype(np.float32))
+    seen, shared_ffn = [], moe._shared_ffn
+
+    def counted(p, xf, cfg):
+        seen.append(tuple(xf.shape))
+        return shared_ffn(p, xf, cfg)
+
+    monkeypatch.setattr(moe, "_shared_ffn", counted)
+    y, _ = moe.moe_block(tp, x, tcfg)
+    if not tcfg.moe.num_shared_experts:
+        assert not seen and not any(n in tp for n in SHARED)
+        return
+    assert seen == [(16, tcfg.d_model)]
+    routed, _ = moe.moe_block({k: v for k, v in tp.items() if k not in SHARED}, x, tcfg)
+    xf = x.reshape(16, tcfg.d_model)
+    lin = moe._dense_linear
+    hs = torch.nn.functional.silu(lin(tp["shared_gate"], xf, kernels)) * lin(
+        tp["shared_up"], xf, kernels)
+    inline = routed.reshape(16, -1) + lin(tp["shared_down"], hs, kernels)
+    assert torch.equal(y, inline.reshape(y.shape))
+    assert not torch.equal(y, routed)
+
+
+def test_chip_shared_check_holds_and_tells_a_wrong_chain(monkeypatch):
+    """``chip_smoke.shared_against_off`` (``[train-deepseek shared]``) on
+    the CPU at reduced DeepSeekMoE: the kernels' plain versions meet its
+    limit; a kernel path 1e-3 off (every shared projection with kernels
+    scaled) fails it, so the card's check can tell a wrong chain."""
+    smoke = chip_smoke()
+    cfg = reduced(get_config("deepseek-moe-16b"))
+    with torch.no_grad():
+        params, _ = build_model(cfg).init(torch.Generator().manual_seed(0))
+    p = _layer(params["blocks"]["pos0"]["moe"], 0)
+    out = smoke.shared_against_off(torch, cfg, p, 64, 11, device="cpu")
+    assert len(out["errs"]) == 11 and max(out["errs"].values()) <= smoke.SHARED_RTOL
+    lin = moe._dense_linear
+    monkeypatch.setattr(moe, "_dense_linear",
+                        lambda w, x, k: lin(w, x, k) * (1.001 if k != "off" else 1.0))
+    with pytest.raises(AssertionError, match="miss the plain chain"):
+        smoke.shared_against_off(torch, cfg, p, 64, 11, device="cpu")
+
+
+def test_chip_pair_gate_tells_an_unexplained_flip(monkeypatch):
+    """``chip_smoke._kernels_against_off`` with near-ties (the MoE phases'
+    f32 pair) on the CPU: after the basis pass, a choice that differs where
+    its call's router probabilities drifted past half its margin passes;
+    one that differs where the probabilities agree fails. The factors'
+    ``U S Vᵀ`` readings, taken on the card, are stubbed as equal."""
+    smoke = chip_smoke()
+    monkeypatch.setattr(smoke, "_factors", lambda p: [("['up']", fac.LowRankFactor(
+        U=torch.zeros(1, 2, 4, 2), S=torch.zeros(1, 2, 2, 2), V=torch.zeros(1, 2, 4, 2),
+        rank=torch.ones(1, 2)))])
+    monkeypatch.setattr(smoke, "_usvt_gaps", lambda torch, f, g, f0: (0.0, 1.0, 1.0))
+    m = reduced(get_config("deepseek-moe-16b")).moe
+    gen = torch.Generator().manual_seed(0)
+    x, router = torch.randn(32, 8, generator=gen), torch.randn(8, m.num_experts, generator=gen)
+    start = moe.route(router, x, m)
+    res = types.SimpleNamespace(loss_before=1.0, loss_after=1.0, ranks={})
+
+    def pair(later_on, later_off):
+        return smoke._kernels_against_off(torch, "[t]", None, (None, res, [start, later_on]),
+                                          (None, res, [start, later_off]), m, near_ties=True,
+                                          same_start=1)
+
+    # the kernel run's router moved: every changed choice within its drift
+    moved = moe.route(router + 0.3 * torch.randn(router.shape, generator=gen), x, m)
+    out = pair(moved, start)
+    assert out["flips"] > 0 and 0 < out["worst_margin_of_drift"] <= 1
+    # the same probabilities, one token's choices swapped for others
+    topi = start.topi.clone()
+    topi[0] = torch.argsort(start.probs[0])[:m.top_k]
+    with pytest.raises(AssertionError, match="over twice its call's largest probability gap"):
+        pair(start._replace(topi=topi), start)
 
 
 def test_stacked_expert_factor_at_rest(built):

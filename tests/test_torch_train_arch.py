@@ -11,7 +11,9 @@ config with bf16 parameters and compute; (b) one FeDLRT round of that
 config from the reference's parameters; (c) the registry's own reduced
 Qwen2 config (``smoke=True``, f32) at the training tests' tolerances; and
 a bf16 round's kernel calls against ``chip_smoke.round_calls``. (a), (b)
-and the kernel calls run for both architectures.
+and the kernel calls run for both architectures; the kernel calls also for
+DeepSeekMoE-16B, whose shared experts run as dense factors beside its
+routed expert stacks (the port alone: no reference round).
 
 Tolerances of (b), in bf16: the loss 2⁻⁹ relative (half a bf16 rounding:
 both packages round every activation to bf16 and differ only where an f32
@@ -36,6 +38,9 @@ truncated: their augmented spectra's small half lies under ϑ and the rank
 stays at r_max) and the other factors to 62 of 64; the nearest tail norm
 lies 9.6 % from ϑ.
 """
+import dataclasses
+import gc
+
 import jax
 import numpy as np
 import pytest
@@ -47,8 +52,9 @@ from repro_torch import api
 from repro_torch.api import tasks
 from repro_torch.checkpoint.io import _flatten
 from repro_torch.core import cost_model
+from repro_torch.configs import get_config
 from repro_torch.core import factorization as fac
-from repro_torch.models import build_model
+from repro_torch.models import build_model, reduced
 
 from torch_threads import one_intra_op_thread  # noqa: F401
 from torch_train_common import (BF16_LOSS_RTOL, BF16_USVT_RTOL, LOSS_AFTER_RTOL,
@@ -63,6 +69,9 @@ BF16_ROUNDS = {"qwen2-7b": (0.085, {63.0}, set()),
                "olmoe-1b-7b": (0.113, {62.0}, {31.0})}
 EXPERT_OF_MOVE = 1 / 4
 ARCHS = list(BF16_ROUNDS)
+#: the kernel-call count runs the port alone: DeepSeekMoE too, whose shared
+#: experts are dense factors beside the routed expert stacks
+CALL_ARCHS = ARCHS + ["deepseek-moe-16b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -121,14 +130,15 @@ def test_bf16_round_matches_the_reference(bf16_reduced, arch):
     assert_bases_as_the_reference(jexp.engine.params, texp.engine.params)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CALL_ARCHS)
 def test_bf16_round_kernel_calls_by_dtype(bf16_reduced, arch):
     """``chip_smoke.round_calls``, a bf16 round's calls one per launch by
     (kernel, dtype, K or N, R, S's dtype, G, M) (the backward's products
     with S take S in f32, the gather's backward into the f32 embedding U
     runs ``atb`` in f32, an expert stack launches once a layer with its E
     experts as G at the capacity's M), equals the kernel calls of a reduced
-    bf16 round on the CPU (the wrappers' plain versions)."""
+    bf16 round on the CPU (the wrappers' plain versions). DeepSeekMoE's
+    shared experts run as dense factors: G 1 at M = batch x seq."""
     smoke = chip_smoke()
     _, tspec = spec_pair(arch)
     calls, want = round_calls_of(smoke, tspec)
@@ -138,6 +148,42 @@ def test_bf16_round_kernel_calls_by_dtype(bf16_reduced, arch):
     assert {k[4] for k in calls if k[0] == "xus" and k[4]} == {"bfloat16", "float32"}
     stacks = {(k[5], k[6]) for k in calls if k[5] > 1}
     assert stacks == ({(moe.num_experts, smoke.expert_rows(moe, M))} if moe else set())
+    exp = api.build(tspec, device="cpu")
+    blocks = exp.params["blocks"]["pos0"]
+    shared = {k: v for k, v in blocks.get("moe", {}).items() if k.startswith("shared_")}
+    assert len(shared) == (3 if arch == "deepseek-moe-16b" else 0)
+    if shared:
+        # the shared leaves' calls alone: every one at G 1 and M rows, each
+        # among the round's with at least its count
+        own = smoke.round_calls({"moe": shared}, exp.engine.cfg, M, "bfloat16", moe)
+        assert own and {(k[5], k[6]) for k in own} == {(1, M)}
+        assert all(calls.get(k, 0) >= n for k, n in own.items())
+        routed = smoke.round_calls({"moe": {k: blocks["moe"][k] for k in ("up", "gate", "down")}},
+                                   exp.engine.cfg, M, "bfloat16", moe)
+        assert {(k[5], k[6]) for k in routed} == {(moe.num_experts, smoke.expert_rows(moe, M))}
+
+
+def test_chip_activation_reckoning_keeps_no_tensor():
+    """``chip_smoke.activation_reckoning`` at reduced DeepSeekMoE-16B in bf16
+    on the CPU: a layer's saved bytes in the basis pass and, larger (the
+    augmented rank), in a client step; the same on a second call, which
+    leaves no more tensors alive than the first did (a saved output handed
+    back to the graph whole would keep that graph in a cycle, never
+    freed: ~4 GiB a call at Qwen1.5-32B's width on the card)."""
+    smoke = chip_smoke()
+    cfg = dataclasses.replace(reduced(get_config("deepseek-moe-16b")), param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+
+    def live():
+        gc.collect()
+        return sum(o.numel() * o.element_size() for o in gc.get_objects() if torch.is_tensor(o))
+
+    first = smoke.activation_reckoning(torch, cfg, 4, 32, device="cpu")
+    before = live()
+    assert smoke.activation_reckoning(torch, cfg, 4, 32, device="cpu") == first
+    assert live() == before
+    (basis, _), (client, _) = first["basis pass"], first["client step"]
+    assert 0 < basis < client
 
 
 def test_registry_smoke_round_matches_the_reference():
