@@ -48,7 +48,7 @@ per source, all started together) and drives each of the port's paths:
   layer a prefill or decode step, held to the layers) against the
   kernel's plain version at full width: one mixer over 2 x 1,100 tokens in
   bf16 and f32 (output and state within ``MAMBA_BF16_RTOL`` /
-  ``MAMBA_F32_RTOL``, the state's differing bits counted), the kernel's
+  ``MAMBA_F32_RTOL``, the state's differing bits held at none), the kernel's
   device time against its plain version's and its bound, and a
   reduced-depth model (one 8-layer superblock) prefilled over 37 and 1,100
   tokens (bf16 logits within ``MAMBA_MODEL_RTOL``, with the prefill's host
@@ -97,8 +97,12 @@ per source, all started together) and drives each of the port's paths:
   calls a round, their estimated device busy seconds and their share of
   the round's host time;
 - train-jamba: the same for Jamba-1.5-Large at one 8-layer period, its
-  round's memory reckoned first; layer 0's Mamba mixer of the trained
-  model held to its recurrence run token by token in f64;
+  round's memory reckoned first, the Mamba scan's kernels held to one
+  ``selective_scan`` a mixer call and one ``selective_scan_bwd`` a call
+  that takes a gradient; layer 0's Mamba mixer of the trained model, its
+  scan kernels forward and backward, held to its recurrence run token by
+  token in f64, and the two kernels to their plain versions at the
+  round's shape;
 - train-deepseek: the same for DeepSeekMoE-16B (28 layers, d 2048, 64
   routed experts top-6 of hidden 1408 and 2 shared ones of 2816 in all,
   vocabulary 102,400) at 4 of its 28 layers, its round's memory reckoned
@@ -207,9 +211,11 @@ REPLACES = {
     "avt": "src/repro/kernels/lowrank_matmul.py:103",
     "atb": "src/repro/kernels/coeff_grad.py:22",
     "flash_attention": "src/repro/kernels/flash_attention.py:34",
-    # the port's own kernel: the reference computes this recurrence in XLA
-    # (mamba_mix's sequential lax.scan), no Pallas kernel does
+    # the port's own kernels: the reference computes this recurrence in XLA
+    # (mamba_mix's sequential lax.scan, and in training associative_scan with
+    # the custom VJP _linrec_bwd), no Pallas kernel does
     "selective_scan": "src/repro/models/ssm.py:185",
+    "selective_scan_bwd": "src/repro/models/ssm.py:63",
 }
 SOURCES = {
     "xus": "src/repro_torch/csrc/lowrank_matmul.cu",
@@ -217,6 +223,7 @@ SOURCES = {
     "atb": "src/repro_torch/csrc/coeff_grad.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "selective_scan": "src/repro_torch/csrc/selective_scan.cu",
+    "selective_scan_bwd": "src/repro_torch/csrc/selective_scan.cu",
 }
 KERNELS = tuple(SOURCES)
 PATHS = ("serve", "serve-quant", "models", "encdec", "vlm", "mesh", "train", "train-qwen2",
@@ -1408,19 +1415,34 @@ def _mamba_prefill(torch, model, params, tokens, order):
     return dict(logits=pre.float(), tokens=torch.stack(greedy, 1), routed=routed)
 
 
-def scan_bound_ms(args):
-    """The least time of one ``selective_scan`` call on these inputs: each
+def scan_bound_ms(B, T, D, N, checkpoints=False):
+    """The least time of one ``selective_scan`` call of this shape: each
     input read once (delta, x, Bp, Cp, A, h0, f32) and each output written
-    once (y, h_T, f32), or its ``SCAN_OPS`` operations a (b, t, channel,
-    state) at the f32 rate; the larger, and which."""
-    from repro_torch.kernels.selective_scan import SCAN_OPS
+    once (y, h_T, and the checkpoints when asked for, f32), or its
+    ``SCAN_OPS`` operations a (b, t, channel, state) at the f32 rate; the
+    larger, which, and the bytes."""
+    from repro_torch.kernels.selective_scan import SCAN_K, SCAN_OPS
 
-    delta, _, Bp = args[0], args[1], args[2]
-    B, T, D = delta.shape
-    N = Bp.shape[-1]
-    nbytes = 4 * (3 * B * T * D + 2 * B * T * N + D * N + 2 * B * D * N)
+    ck = B * -(-T // SCAN_K) * D * N if checkpoints else 0
+    nbytes = 4 * (3 * B * T * D + 2 * B * T * N + D * N + 2 * B * D * N + ck)
+    return _larger(nbytes, SCAN_OPS * B * T * D * N)
+
+
+def scan_bwd_bound_ms(B, T, D, N):
+    """The same for one ``selective_scan_bwd`` call: delta, x, dy, Bp, Cp,
+    A, the checkpoints and dh_T read once, dδ, dx, dB, dC, dA and dh0
+    written once (h0 is not read: the first checkpoint holds it), or its
+    ``SCAN_BWD_OPS`` operations a (b, t, channel, state)."""
+    from repro_torch.kernels.selective_scan import SCAN_BWD_OPS, SCAN_K
+
+    ck = B * -(-T // SCAN_K) * D * N
+    nbytes = 4 * (5 * B * T * D + 4 * B * T * N + 2 * D * N + 2 * B * D * N + ck)
+    return _larger(nbytes, SCAN_BWD_OPS * B * T * D * N)
+
+
+def _larger(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = SCAN_OPS * B * T * D * N / PEAK_FLOPS["float32"] * 1e3
+    t_ops = ops / PEAK_FLOPS["float32"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
@@ -1462,7 +1484,8 @@ def mamba_scan_check(torch):
     - layer 0's Mamba mixer from a random state over 2 x 1,100 tokens, in
       bf16 and in f32: output and new ``h`` within ``MAMBA_BF16_RTOL`` /
       ``MAMBA_F32_RTOL`` of their largest entry, the entries of the new
-      ``h`` whose bits differ (a reading; the aim is none), the host ms of
+      ``h`` whose bits differ (held at none: both round every step's state at
+      the same points), the host ms of
       each; then the kernel alone on the bf16 mixer's arguments: device ms
       by CUDA events, the plain version's, the bound (the kernels JSON
       line's ``selective_scan`` entry);
@@ -1511,9 +1534,9 @@ def mamba_scan_check(torch):
             f"{rel[0]:.3g}, of the new h {rel[1]:.3g} (tol {rtol}); entries of the new h whose "
             f"bits differ: {h_bits} of {n_h}; host {mix['kernel'][2]:.1f} ms (kernel) vs "
             f"{mix['plain'][2]:.1f} ms (plain, token by token)")
-        if not max(rel) <= rtol:
+        if not max(rel) <= rtol or h_bits:
             raise AssertionError(f"{tag} {dtype}: the mixer's kernel differs from its plain "
-                                 f"version by {rel} (> {rtol})")
+                                 f"version by {rel} (> {rtol}) or in {h_bits} bits of the state")
         out[f"mixer_{dtype}"] = dict(tokens=T, out_rel_err=rel[0], h_rel_err=rel[1],
                                      h_bits_differ=h_bits, h_entries=n_h,
                                      kernel_host_ms=mix["kernel"][2],
@@ -1523,15 +1546,16 @@ def mamba_scan_check(torch):
             ms = _event_ms(torch, lambda i: selective_scan(*args), 1, 20)
             plain_ms = _event_ms(torch, lambda i: ref.selective_scan_ref(*args), 1, 3)
             selective_scan.launches = n0  # timing launches are not the path's
-            bound, bound_by, nbytes = scan_bound_ms(args)
+            B_, T_, D_ = args[0].shape
+            N_ = args[2].shape[-1]
+            bound, bound_by, nbytes = scan_bound_ms(B_, T_, D_, N_)
             err = max((a - b).abs().max().item() for a, b in
                       zip(selective_scan(*args), ref.selective_scan_ref(*args)))
             selective_scan.launches = n0
-            B_, T_, D_ = args[0].shape
             out["kernel"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                                  library_ms=None, max_abs_err=err, bytes=nbytes,
-                                 shape=[B_, T_, D_, args[2].shape[-1]], scan_dt=dtype)
-            log(f"[kernels] selective_scan B {B_} T {T_} D {D_} N {args[2].shape[-1]} "
+                                 shape=[B_, T_, D_, N_], scan_dt=dtype)
+            log(f"[kernels] selective_scan B {B_} T {T_} D {D_} N {N_} "
                 f"(state {dtype}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
                 f"{bound:.3f} ms ({bound_by}: {nbytes / 1e6:.1f} MB), "
                 f"{100 * bound / ms:.1f} % of the bound; max |kernel - plain| {err:.3g}")
@@ -2403,6 +2427,24 @@ def round_calls(params, cfg, M, dtype="float32", moe=None):
     return calls
 
 
+def scan_launches(cfg, model_cfg) -> dict:
+    """The Mamba scan kernels' launches of one FeDLRT round of a model of
+    ``model_cfg`` under round config ``cfg``, reckoned as
+    :func:`round_calls` reckons the projections': a Mamba mixer call is one
+    ``selective_scan`` launch, and one ``selective_scan_bwd`` where it takes
+    a gradient; each client calls every Mamba layer with a gradient in the
+    basis pass and in each of its s* client steps (one more with the full
+    correction), and without one in the evaluation (``eval_after``). Empty
+    for a model without Mamba layers."""
+    pattern = model_cfg.block_pattern
+    n = sum(pattern[i % len(pattern)] == "mamba" for i in range(model_cfg.num_layers))
+    if not n:
+        return {}
+    grad = cfg.num_clients * n * (1 + cfg.s_star + (1 if cfg.correction == "full" else 0))
+    return {"selective_scan": grad + cfg.num_clients * n * (1 if cfg.eval_after else 0),
+            "selective_scan_bwd": grad}
+
+
 def launches_of(calls) -> dict:
     """``xus`` / ``avt`` / ``atb`` launches of :func:`round_calls`' calls."""
     out = {"xus": 0, "avt": 0, "atb": 0}
@@ -2420,10 +2462,10 @@ def _wrappers():
     from repro_torch.kernels.coeff_grad import atb
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.lowrank_matmul import avt, xus
-    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_bwd
 
     return {"xus": xus, "avt": avt, "atb": atb, "flash_attention": flash_attention,
-            "selective_scan": selective_scan}
+            "selective_scan": selective_scan, "selective_scan_bwd": selective_scan_bwd}
 
 
 def _launch_counts():
@@ -3205,7 +3247,7 @@ def build_round(torch, spec, tag, layers=None, stream_note="built here"):
         name = str(t.dtype).removeprefix("torch.")
         by_dtype[name] = by_dtype.get(name, 0) + t.numel() * t.element_size()
     calls_round = round_calls(exp.params, cfg, M, "bfloat16", model_cfg.moe)
-    want = launches_of(calls_round)
+    want = {**launches_of(calls_round), **scan_launches(cfg, model_cfg)}
     wire = cost_model.wire_round_bytes(exp.params, correction=cfg.correction)
     r_max = {p: f.r_max for p, f in factors}
     members = sum(math.prod(f.U.shape[:-2]) for _, f in factors)
@@ -3508,8 +3550,9 @@ def call_cost(torch, fwd, fwd_bwd, tag, reps):
     """``fwd()`` and ``fwd_bwd()``, each ``reps`` times after a warm-up:
     the card's busy ms a call (the union of its kernels' intervals under
     ``torch.profiler``) and the host's ms a call (the same calls
-    unprofiled, ending in a sync), with the kernels a call; ``tag`` takes
-    the call's name at its ``%s``."""
+    unprofiled, ending in a sync), with the kernels a call (0 where the
+    trace saw none: a lone ctypes launch, timed by CUDA events instead);
+    ``tag`` takes the call's name at its ``%s``."""
     out = {}
     for name, fn in (("forward", fwd), ("forward_backward", fwd_bwd)):
         fn()
@@ -3521,6 +3564,8 @@ def call_cost(torch, fwd, fwd_bwd, tag, reps):
         host_ms = (time.perf_counter() - t0) / reps * 1e3
         n, busy_s, _ = device_profile(torch, lambda fn=fn: [fn() for _ in range(reps)],
                                       tag % name.replace("_", " and "), 3, cpu=False)
+        if not n:  # a lone ctypes launch the trace missed: time the call by CUDA events
+            busy_s = _event_ms(torch, lambda i, fn=fn: fn(), 1, reps) * reps / 1e3
         out[name] = dict(device_ms=busy_s / reps * 1e3, host_ms=host_ms, kernels=n // reps)
     return out
 
@@ -3614,15 +3659,26 @@ JAMBA_TOKENS_PER_CLIENT = 4096
 JAMBA_OFF_CLIENTS = 1
 JAMBA_OFF_TOKENS_PER_CLIENT = 512
 #: [train-jamba scan]: layer 0's Mamba mixer of the trained model over B x T
-#: tokens in f32: the round's shape (one chunk of ``scan_chunk`` 512), and
-#: three chunks (the chunk carry and the zero-padded ragged tail)
+#: tokens in f32: the round's shape, and a long sequence (69 of the
+#: backward's 16-step segments, the last one ragged)
 SCAN_CHECK_CASES = ((4, 128), (1, 1100))
-#: the doubling scan in f32 (and its reverse-recurrence backward) against
-#: the recurrence token by token in f64, as a share of each tensor's largest
-#: entry (the output and six gradients): each of the scan's log2(chunk)
-#: passes rounds once in f32, ~6e-8 relative, carried by decays under 1 over
-#: ~100 tokens; 1e-5 is the worst reckoned, 1e-4 the limit
+#: the scan kernels in f32 (the forward and its backward) against the
+#: recurrence token by token in f64, as a share of each tensor's largest
+#: entry (the output and nine gradients): each step rounds once in f32, ~6e-8
+#: relative, carried by decays under 1 over ~100 tokens, and dB, dC and dA
+#: sum 16,384 channels or 512 steps in another order; 1e-5 is the worst
+#: reckoned, 1e-4 the limit
 SCAN_RTOL = 1e-4
+#: the scan kernels against their plain versions on the same inputs at the
+#: round's shape, in f32 and bf16 states: y within this share of its largest
+#: entry (the sum over the states in another order); each of the backward's
+#: six outputs within SCAN_BWD_RTOL of its largest entry (the kernel's λ
+#: takes one fma where the plain version rounds a product and a sum, and
+#: dB, dC and dA sum their channels, steps and rows in another order; the
+#: states, and so a_t, are the same bits in both). The states and the
+#: checkpoints are held to the same bits
+SCAN_Y_RTOL = 1e-5
+SCAN_BWD_RTOL = 1e-4
 
 
 def train_peak_reckoning(params, cfg, clients, B, T):
@@ -3642,10 +3698,11 @@ def train_peak_reckoning(params, cfg, clients, B, T):
       max(2|U| - |V|, 2|V|) (|U|, |V| its f32 bases' bytes);
     - the last client's backward in the basis pass: the parameters, the
       clients' gradients (its own forming), the forward's saved tensors:
-      each Mamba mixer's scan keeps ``a`` and ``h`` at the compute dtype
-      and ``exp(Δ A)`` and ``h`` in f32 for the output's product with C
-      (B·T·d_inner·N each), and the head's M x vocab logits (the compute
-      dtype, their f32 copy and the one-hot mask);
+      each Mamba mixer's scan keeps its f32 inputs (Δ and x, B·T·d_inner
+      each; B and C; h0) and its state every ``SCAN_K`` steps
+      (B·⌈T/K⌉·d_inner·N f32), no (B, T, d_inner, N) tensor, and the head's
+      M x vocab logits (the compute dtype, their f32 copy and the one-hot
+      mask);
     - a client's coefficient step: the parameters, the augmented factors,
       each client's correction (its S̃ block and dense leaves), the step's
       own S̃ and its gradient, and the forward's saved tensors again (the
@@ -3654,6 +3711,7 @@ def train_peak_reckoning(params, cfg, clients, B, T):
 
     The dense activations (B·T·d a tensor) are left out: ~0.1 GB a layer
     at Jamba's width. Returns bytes by term and by moment."""
+    from repro_torch.kernels.selective_scan import SCAN_K
     from repro_torch.models.ssm import mamba_dims
     from repro_torch.utils.tree import tree_leaves
 
@@ -3676,7 +3734,8 @@ def train_peak_reckoning(params, cfg, clients, B, T):
     scan_b = 0
     if n_mamba:
         d_inner, _, d_state, _ = mamba_dims(cfg)
-        scan_b = n_mamba * B * T * d_inner * d_state * (2 * act + 2 * 4)
+        scan_b = n_mamba * 4 * (2 * B * T * d_inner + 2 * B * T * d_state
+                                 + B * d_inner * d_state * (1 + -(-T // SCAN_K)))
     logits_b = M * cfg.vocab_size * (act + 4 + 1)
     terms = dict(parameters=params_b, client_gradients=clients * params_b,
                  aggregate_gradient=params_b, augmented=aug_b, augmentation_workspace=work_b,
@@ -3716,7 +3775,7 @@ def round_reckoning(torch, tag, arch, layers=None, clients=None, limit_gib=None)
 
 def _stepped_recurrence(a, b, h0):
     """``h_t = a_t ⊙ h_{t-1} + b_t`` token by token in f64 from ``h0``, each
-    ``h_t`` cast back to ``a``'s dtype: the check's reference for
+    ``h_t`` cast back to ``a``'s dtype: the reference that holds
     ``ssm.linear_recurrence``, independent of its doubling scan."""
     import torch
 
@@ -3727,56 +3786,82 @@ def _stepped_recurrence(a, b, h0):
     return torch.stack(out, dim=1).to(a.dtype)
 
 
+def _stepped_scan(delta, x, Bp, Cp, A, h0, scan_dt):
+    """Mamba's recurrence token by token in f64 (``scan_dt`` unread: no
+    rounding), ``y`` and ``h_T`` cast back to f32, differentiated by
+    autograd: the check's reference for the scan kernels, independent of
+    them and of their plain versions."""
+    import torch
+
+    d, xx, b, c, a, h = (t.double() for t in (delta, x, Bp, Cp, A, h0))
+    ys = []
+    for t in range(d.shape[1]):
+        h = torch.exp(d[:, t, :, None] * a) * h + (d[:, t] * xx[:, t])[..., None] * b[:, t, None]
+        ys.append(torch.sum(h * c[:, t, None], dim=-1))
+    return torch.stack(ys, dim=1).float(), h.float()
+
+
+#: the mixer's leaves whose gradients ``mamba_scan_against_recurrence``
+#: holds, beside x's: the dense ones, and the factors' S (a dense leaf's own
+#: weight where the width leaves the projection dense)
+SCAN_CHECK_LEAVES = ("A_log", "D", "dt_bias", "conv_w")
+SCAN_CHECK_FACTORS = ("in_x", "x_proj", "dt_proj")
+
+
 def mamba_scan_against_recurrence(torch, cfg, p, B, T, seed, device="cuda",
                                   tag="[train-jamba scan]"):
     """One Mamba mixer (``ssm.mamba_mix`` without a state, the training
-    branch; layer parameters ``p`` of ``cfg`` cast to f32, kernels off) over
-    a seeded x of (B, T, d) in f32, its scan the chunked doubling scan at
-    ``cfg.mamba.scan_chunk`` with its reverse-recurrence backward, against
-    the same mixer in one chunk of T with ``linear_recurrence`` run token
-    by token in f64 (:func:`_stepped_recurrence`): the output, and the
-    gradients of ``<out, P>`` (P a seeded projection) with respect to x,
-    ``A_log``, ``D``, ``dt_bias``, ``conv_w`` and ``in_x``'s S, each as
-    max|scan - stepped| / max|stepped|, held within ``SCAN_RTOL``. Then the
-    mixer as the round runs it (``p`` as trained, the compute dtype, the
-    kernels on) against the same reference output, a reading. Returns the
-    readings."""
+    branch; layer parameters ``p`` of ``cfg`` cast to f32, the projections'
+    plain chain) over a seeded x of (B, T, d) in f32, its scan the
+    ``selective_scan`` kernel and its backward kernel (their plain versions
+    on CPU tensors), against the same mixer with the scan run token by token
+    in f64 (:func:`_stepped_scan`, differentiated by autograd): the output,
+    and the gradients of ``<out, P>`` (P a seeded projection) with respect
+    to x, ``A_log``, ``D``, ``dt_bias``, ``conv_w`` and the S of ``in_x``,
+    ``x_proj`` and ``dt_proj`` (the factors the backward's dδ, dB and dC
+    train), each as max|scan - stepped| / max|stepped|, held within
+    ``SCAN_RTOL``. Then the mixer as the round runs it (``p`` as trained,
+    the compute dtype, the kernels on) against the same reference output, a
+    reading. Returns the readings, with the scan's calls a mixer call."""
+    from repro_torch.core.factorization import is_factor
     from repro_torch.models import ssm
     from repro_torch.utils.tree import tree_map
 
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32",
                                 kernels="off")
-    whole = dataclasses.replace(cfg32, mamba=dataclasses.replace(cfg.mamba, scan_chunk=T))
     p32 = tree_map(lambda t: t.detach().float() if t.is_floating_point() else t, p)
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn((B, T, cfg.d_model), generator=gen, device=device)
     proj = torch.randn((B, T, cfg.d_model), generator=gen, device=device)
-    names = ("A_log", "D", "dt_bias", "conv_w")
-    chunk = cfg.mamba.scan_chunk
     seen = []
 
-    def run(c, scan):
-        leaves = {k: p32[k].clone().requires_grad_(True) for k in names}
-        s = p32["in_x"].S.clone().requires_grad_(True)
+    def run(scan):
+        leaves = {k: p32[k].clone().requires_grad_(True) for k in SCAN_CHECK_LEAVES}
+        trained = {k: (p32[k].S if is_factor(p32[k]) else p32[k]).clone().requires_grad_(True)
+                   for k in SCAN_CHECK_FACTORS}
         xg = x.clone().requires_grad_(True)
-        mix = dict(p32, **leaves, in_x=dataclasses.replace(p32["in_x"], S=s))
+        mix = dict(p32, **leaves, **{k: dataclasses.replace(p32[k], S=t) if is_factor(p32[k])
+                                      else t for k, t in trained.items()})
 
         def counted(*a):
             seen.append(a[0].shape[1])
             return scan(*a)
 
         t0 = time.perf_counter()
-        with unittest.mock.patch.object(ssm, "linear_recurrence", counted):
-            out, _ = ssm.mamba_mix(mix, xg, c)
-            grads = torch.autograd.grad((out * proj).sum(), [xg, *leaves.values(), s])
+        with unittest.mock.patch.object(ssm, "selective_scan", counted):
+            out, _ = ssm.mamba_mix(mix, xg, cfg32)
+            grads = torch.autograd.grad((out * proj).sum(),
+                                        [xg, *leaves.values(), *trained.values()])
         if device != "cpu":
             torch.cuda.synchronize()
         return [out.detach(), *grads], time.perf_counter() - t0
 
-    got, scan_s = run(cfg32, ssm.linear_recurrence)
-    chunks = len(seen)
-    want, stepped_s = run(whole, _stepped_recurrence)
-    labels = ("out", "grad x") + tuple(f"grad {k}" for k in names) + ("grad in_x S",)
+    got, scan_s = run(ssm.selective_scan)
+    calls = len(seen)
+    want, stepped_s = run(_stepped_scan)
+    labels = (("out", "grad x") + tuple(f"grad {k}" for k in SCAN_CHECK_LEAVES)
+              + tuple(f"grad {k} {'S' if is_factor(p32[k]) else 'W'}"
+                      for k in SCAN_CHECK_FACTORS))
     errs = {k: ((a - b).abs().max() / b.abs().max()).item() for k, a, b in zip(labels, got, want)}
     finite = all(bool(torch.isfinite(t).all()) for t in got)
     with torch.no_grad():
@@ -3784,43 +3869,148 @@ def mamba_scan_against_recurrence(torch, cfg, p, B, T, seed, device="cuda",
     served_err = ((served.float() - want[0]).abs().max() / want[0].abs().max()).item()
     d_inner, _, d_state, _ = ssm.mamba_dims(cfg)
     log(f"{tag} one Mamba mixer at B {B}, T {T}, d {cfg.d_model}, d_inner {d_inner}, N "
-        f"{d_state}, f32, kernels off: the doubling scan in {chunks} chunk(s) of {chunk} "
-        f"({chunks * chunk - T} padded steps) {1e3 * scan_s:.1f} ms, token by token in f64 in one "
-        f"chunk {1e3 * stepped_s:.1f} ms (forward and backward)")
-    log(f"{tag} the doubling scan in f32 against token by token in f64, max|a - b| / max|b| "
+        f"{d_state}, f32, projections' plain chain: the scan kernels ({calls} scan call(s)) "
+        f"{1e3 * scan_s:.1f} ms, token by token in f64 {1e3 * stepped_s:.1f} ms (forward and "
+        f"backward)")
+    log(f"{tag} the scan kernels in f32 against token by token in f64, max|a - b| / max|b| "
         f"(limit {SCAN_RTOL:g}): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f"; the mixer in {cfg.compute_dtype} with kernels {cfg.kernels} (the round's), its "
           f"output against the same: {served_err:.3g} (a reading)")
     if not finite or not max(errs.values()) <= SCAN_RTOL:
-        raise AssertionError(f"{tag} the doubling scan misses the token-by-token recurrence at "
+        raise AssertionError(f"{tag} the scan kernels miss the token-by-token recurrence at "
                              f"B {B}, T {T}: {errs} (limit {SCAN_RTOL}), finite {finite}")
-    return dict(B=B, T=T, chunks=chunks, errs=errs, served_err=served_err, scan_s=scan_s,
+    return dict(B=B, T=T, calls=calls, errs=errs, served_err=served_err, scan_s=scan_s,
                 stepped_s=stepped_s)
 
 
-def scan_call_cost(torch, shape, dtype, reps=5):
-    """One ``ssm.linear_recurrence`` call at ``shape`` (B, T, d_inner, N) in
-    ``dtype`` (the round's chunks: the compute dtype), forward alone and
-    forward with its backward, timed by :func:`call_cost`."""
+def _scan_inputs(torch, cfg, p, B, T, seed):
+    """The arguments of layer 0's ``selective_scan`` call in the round's
+    mixer (``p`` as trained, the compute dtype) over a seeded x of (B, T,
+    d), with a seeded dy of y's shape."""
     from repro_torch.models import ssm
 
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, T, cfg.d_model), generator=gen, device="cuda")
+    args, real = [], ssm.selective_scan
+
+    def record(*a):
+        args[:] = a
+        return real(*a)
+
+    with torch.no_grad(), unittest.mock.patch.object(ssm, "selective_scan", record):
+        ssm.mamba_mix(p, x.to(getattr(torch, cfg.compute_dtype)), cfg)
+    dy = torch.randn(args[0].shape, generator=gen, device="cuda")
+    return [t.contiguous() for t in args[:6]], args[6], dy
+
+
+def scan_kernels_against_plain(torch, cfg, p, B, T, seed, tag="[train-jamba scan]"):
+    """The two scan kernels against their plain versions on the same inputs
+    (:func:`_scan_inputs`: layer 0's scan call in the trained mixer at B x
+    T), in the round's state dtype and in f32: the forward with its
+    checkpoints (y within ``SCAN_Y_RTOL`` of its largest entry, h_T and the
+    checkpoints the same bits), the backward's dδ, dx, dB, dC, dA and dh0
+    (from dy and a seeded dh_T) each within ``SCAN_BWD_RTOL`` of its largest
+    entry, and a second backward call the same bits; then each kernel's
+    device ms (CUDA events), its plain version's and its bound (bytes or
+    operations). Launches
+    made here are not the path's: the counts are put back. Returns the
+    readings by state dtype."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.selective_scan import SCAN_K, selective_scan, selective_scan_bwd
+    from repro_torch.kernels.selective_scan import _launch_forward
+
+    n0 = (selective_scan.launches, selective_scan_bwd.launches)
+    (delta, x, Bp, Cp, A, h0), round_dt, dy = _scan_inputs(torch, cfg, p, B, T, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dhT = torch.randn(h0.shape, generator=gen, device="cuda")
+    ins = (delta, x, Bp, Cp, A, h0)
+    Bn, Tn, D = delta.shape
+    N = Bp.shape[-1]
+    out = {}
+    for dt in (round_dt, torch.float32):
+        name = str(dt).removeprefix("torch.")
+        y, hT, ck = _launch_forward(*ins, dt, True)
+        wy, whT, wck = ref.selective_scan_ref(*ins, dt, every=SCAN_K)
+        y_err = ((y - wy).abs().max() / wy.abs().max()).item()
+        bits = int((hT != whT).sum()) + int((ck != wck).sum())
+        got = selective_scan_bwd(*ins, ck, dy, dhT, dt)
+        again = selective_scan_bwd(*ins, ck, dy, dhT, dt)
+        want = ref.selective_scan_bwd_ref(*ins, dy, dhT, dt)
+        labels = ("ddelta", "dx", "dB", "dC", "dA", "dh0")
+        errs = {k: ((a - b).abs().max() / b.abs().max()).item()
+                for k, a, b in zip(labels, got, want)}
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(t).all()) for t in (y, hT, ck, *got))
+        fwd_ms = _event_ms(torch, lambda i: _launch_forward(*ins, dt, True), 1, 20)
+        bwd_ms = _event_ms(torch, lambda i: selective_scan_bwd(*ins, ck, dy, dhT, dt), 1, 20)
+        fwd_plain = _event_ms(torch, lambda i: ref.selective_scan_ref(*ins, dt, every=SCAN_K),
+                              1, 2)
+        bwd_plain = _event_ms(torch, lambda i: ref.selective_scan_bwd_ref(*ins, dy, dhT, dt),
+                              1, 2)
+        fb = scan_bound_ms(Bn, Tn, D, N, checkpoints=True)
+        bb = scan_bwd_bound_ms(Bn, Tn, D, N)
+        log(f"{tag} the scan kernels against their plain versions at B {Bn}, T {Tn}, D {D}, N "
+            f"{N}, state {name}: y {y_err:.3g} of max (limit {SCAN_Y_RTOL:g}), differing bits "
+            f"of h_T and the {ck.shape[1]} checkpoints {bits}; the backward, of each "
+            f"tensor's max (limit {SCAN_BWD_RTOL:g}): "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f"; a second backward call {'the same bits' if same else 'DIFFERS'}")
+        log(f"{tag} selective_scan (with checkpoints) {fwd_ms:.3f} ms, plain {fwd_plain:.3f} "
+            f"ms, bound {fb[0]:.3f} ms ({fb[1]}: {fb[2] / 1e6:.1f} MB), "
+            f"{100 * fb[0] / fwd_ms:.1f} % of the bound")
+        log(f"{tag} selective_scan_bwd {bwd_ms:.3f} ms, plain {bwd_plain:.3f} ms, bound "
+            f"{bb[0]:.3f} ms ({bb[1]}: {bb[2] / 1e6:.1f} MB), {100 * bb[0] / bwd_ms:.1f} % of "
+            f"the bound")
+        if not (finite and y_err <= SCAN_Y_RTOL and bits == 0 and same
+                and max(errs.values()) <= SCAN_BWD_RTOL):
+            raise AssertionError(f"{tag} {name}: the scan kernels miss their plain versions: y "
+                                 f"{y_err}, state bits {bits}, backward {errs}, repeatable "
+                                 f"{same}, finite {finite}")
+        out[name] = dict(
+            shape=[Bn, Tn, D, N], y_rel_err=y_err, state_bits_differ=bits, bwd_errs=errs,
+            repeatable=same,
+            max_abs_err=max([(y - wy).abs().max().item()]
+                            + [(a - b).abs().max().item() for a, b in zip(got, want)]),
+            forward=dict(ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fb[0], bound_by=fb[1],
+                         library_ms=None),
+            backward=dict(ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bb[0], bound_by=bb[1],
+                          library_ms=None))
+        del y, hT, ck, wy, whT, wck, got, again, want
+    selective_scan.launches, selective_scan_bwd.launches = n0
+    torch.cuda.empty_cache()
+    return out
+
+
+def scan_call_cost(torch, shape, dtype, reps=5):
+    """One ``selective_scan`` call at ``shape`` (B, T, d_inner, N) with the
+    state in ``dtype`` (the round's compute dtype), forward alone and
+    forward with its backward (the two kernels), timed by
+    :func:`call_cost`; the kernels' launch counts put back."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_bwd
+
+    n0 = (selective_scan.launches, selective_scan_bwd.launches)
+    B, T, D, N = shape
     gen = torch.Generator(device="cuda").manual_seed(5)
     dt = getattr(torch, dtype)
-    a = (0.85 + 0.15 * torch.rand(shape, generator=gen, device="cuda")).to(dt)
-    b = (0.1 * torch.randn(shape, generator=gen, device="cuda")).to(dt)
-    h0 = torch.zeros((shape[0],) + shape[2:], dtype=dt, device="cuda")
-    dh = torch.randn(shape, generator=gen, device="cuda").to(dt)
-    ins = [t.requires_grad_(True) for t in (a, b)]
+    delta = torch.nn.functional.softplus(torch.randn((B, T, D), generator=gen, device="cuda") - 4)
+    x, dy = (torch.randn((B, T, D), generator=gen, device="cuda") for _ in range(2))
+    Bp, Cp = (torch.randn((B, T, N), generator=gen, device="cuda") for _ in range(2))
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device="cuda").expand(D, N).contiguous()
+    h0 = torch.zeros((B, D, N), device="cuda")
+    ins = [t.requires_grad_(True) for t in (delta, x, Bp, Cp, A)]
 
     def fwd():
         with torch.no_grad():
-            ssm.linear_recurrence(a, b, h0)
+            selective_scan(*ins, h0, dt)
 
     def fwd_bwd():
-        torch.autograd.grad(ssm.linear_recurrence(*ins, h0), ins, dh)
+        torch.autograd.grad(selective_scan(*ins, h0, dt)[0], ins, dy)
 
-    return call_cost(torch, fwd, fwd_bwd,
-                     f"[train-jamba scan] %s at {'x'.join(map(str, shape))}:", reps)
+    try:
+        return call_cost(torch, fwd, fwd_bwd,
+                         f"[train-jamba scan] %s at {'x'.join(map(str, shape))}:", reps)
+    finally:
+        selective_scan.launches, selective_scan_bwd.launches = n0
 
 
 def phase_train_jamba(torch, counters):
@@ -3830,17 +4020,21 @@ def phase_train_jamba(torch, counters):
     ``JAMBA_TOKENS_PER_CLIENT`` tokens a client, each Mamba projection,
     attention projection, MLP factor, embedding and head one launch on the
     chain and each MoE projection one launch a layer with its 16 experts on
-    the kernels' grid axis at the capacity's 80 rows; the Mamba scan's calls
-    in the round counted. After the main path, on the trained model:
+    the kernels' grid axis at the capacity's 80 rows, and the Mamba scan's
+    kernels held to :func:`scan_launches` (one ``selective_scan`` a mixer
+    call, one ``selective_scan_bwd`` a call that takes a gradient); the
+    scan's calls counted by kind and shape, and ``ssm.linear_recurrence``
+    held to none. After the main path, on the trained model:
     :func:`mamba_scan_against_recurrence` on layer 0 at each of
-    ``SCAN_CHECK_CASES`` (``[train-jamba scan]``), the Mamba dense leaves'
-    move in the round, and one scan call's device busy and host ms at each
-    shape the round ran (:func:`scan_call_cost`), which times its calls a
-    round give its share of the profiled round's busy time and of the
-    round's host time (an estimate: the scan's elementwise kernels carry no
-    name of their own in the trace). Then the kernels-off pair at the same
-    8 layers on ``JAMBA_OFF_CLIENTS`` client and
-    ``JAMBA_OFF_TOKENS_PER_CLIENT`` tokens."""
+    ``SCAN_CHECK_CASES`` and :func:`scan_kernels_against_plain` at the
+    round's shape (``[train-jamba scan]``), the Mamba dense leaves' move in
+    the round, and one scan call's device busy and host ms at each shape the
+    round ran (:func:`scan_call_cost`), which times its calls a round give
+    its share of the profiled round's busy time and of the round's host
+    time (an estimate). Then the kernels-off pair at the same 8 layers on
+    ``JAMBA_OFF_CLIENTS`` client and ``JAMBA_OFF_TOKENS_PER_CLIENT`` tokens:
+    ``kernels`` does not switch the scan, so both rounds of the pair launch
+    the scan kernels, and ``[train-jamba scan]`` is what checks them."""
     from repro_torch.api import ModelSpec, tasks
     from repro_torch.models import ssm
     from repro_torch.models.transformer import _layer
@@ -3849,23 +4043,31 @@ def phase_train_jamba(torch, counters):
                                limit_gib=PEAK_LIMIT_GIB)
     cfg = dataclasses.replace(tasks.lm_model_config(ModelSpec(arch="jamba-1.5-large-398b")),
                               num_layers=JAMBA_LAYERS)
-    calls = {}  # (forward or forward_backward, shape) -> calls in the main path
+    calls = {}  # (forward or forward_backward, shape, dtype) -> calls in the main path
+    doubling = []
 
     @contextlib.contextmanager
     def watch():
-        scan = ssm.linear_recurrence
+        scan, doubling_scan = ssm.selective_scan, ssm.linear_recurrence
 
-        def counted(a, *rest):
-            grad = torch.is_grad_enabled() and (a.requires_grad or rest[0].requires_grad)
-            key = ("forward_backward" if grad else "forward", tuple(a.shape), str(a.dtype)[6:])
+        def counted(delta, x, Bp, Cp, A, h0, scan_dt):
+            grad = torch.is_grad_enabled() and any(
+                t.requires_grad for t in (delta, x, Bp, Cp, A, h0))
+            key = ("forward_backward" if grad else "forward",
+                   tuple(delta.shape) + (Bp.shape[-1],), str(scan_dt)[6:])
             calls[key] = calls.get(key, 0) + 1
-            return scan(a, *rest)
+            return scan(delta, x, Bp, Cp, A, h0, scan_dt)
 
-        with unittest.mock.patch.object(ssm, "linear_recurrence", counted):
+        with unittest.mock.patch.object(ssm, "selective_scan", counted), \
+                unittest.mock.patch.object(ssm, "linear_recurrence",
+                                           lambda *a: doubling.append(1) or doubling_scan(*a)):
             yield
 
     def check(exp, params0):
         tag = "[train-jamba scan]"
+        if doubling:
+            raise AssertionError(f"{tag} the round called ssm.linear_recurrence "
+                                 f"{len(doubling)} times")
         mix, mix0 = (_layer(p["blocks"]["pos0"]["mamba"], 0) for p in (exp.params, params0))
         moved = {k: ((mix[k].float() - mix0[k].float()).abs().max()
                      / mix0[k].float().abs().max()).item()
@@ -3875,6 +4077,8 @@ def phase_train_jamba(torch, counters):
         torch.backends.cuda.matmul.allow_tf32 = False
         cases = [mamba_scan_against_recurrence(torch, cfg, mix, B, T, 7 + i, tag=tag)
                  for i, (B, T) in enumerate(SCAN_CHECK_CASES)]
+        (shape, _), = {(k[1], k[2]) for k in calls if k[0] == "forward_backward"}
+        kernels = scan_kernels_against_plain(torch, cfg, mix, shape[0], shape[1], 11, tag)
         cost = {key: scan_call_cost(torch, *key) for key in {k[1:] for k in calls}}
         per_round = {what: sum(n * cost[key[1:]][key[0]][f"{what}_ms"]
                                for key, n in calls.items()) / JAMBA_ROUNDS / 1e3
@@ -3887,8 +4091,8 @@ def phase_train_jamba(torch, counters):
                         f"({cost[(shape, dt)][kind]['kernels']} kernels)"
                         for (kind, shape, dt), n in sorted(calls.items()))
             + f"; a round {per_round['device']:.3f} s device busy, {per_round['host']:.3f} s "
-              f"host")
-        return dict(cases=cases, dense_moved=moved,
+              f"host; ssm.linear_recurrence called 0 times")
+        return dict(cases=cases, kernels=kernels, dense_moved=moved,
                     scan_cost={f"{'x'.join(map(str, s))} {dt}": v for (s, dt), v in cost.items()},
                     scan_calls={f"{k} {'x'.join(map(str, s))} {dt}": n
                                 for (k, s, dt), n in calls.items()},
@@ -5573,13 +5777,30 @@ def kernel_summary(records, model_records, atb_records, flash_records, counters,
         "unit": "one Qwen2-7B 4096-token causal prefill (bf16)",
     })
     B, T, D, N = scan["shape"]
+    trained = jamba["check"]["kernels"]
+    Bt, Tt, _, _ = trained["bfloat16"]["shape"]
+    train_unit = (f"one call in a Jamba-1.5-Large training round's Mamba mixer: {Bt} x {Tt} "
+                  f"tokens (d_inner {D}, N {N}, bf16 state)")
     out.append({
         "name": "selective_scan", "route": "cuda", "source": SOURCES["selective_scan"],
         "replaces": REPLACES["selective_scan"], **launches("selective_scan"),
-        "max_abs_err": scan["max_abs_err"], "ms": scan["ms"], "plain_ms": scan["plain_ms"],
+        "max_abs_err": max(scan["max_abs_err"],
+                           *(v["max_abs_err"] for v in trained.values())),
+        "ms": scan["ms"], "plain_ms": scan["plain_ms"],
         "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"], "library_ms": None,
         "unit": f"one Jamba-1.5-Large Mamba mixer's state scan over {B} x {T} tokens (d_inner "
                 f"{D}, N {N}, bf16 state)",
+        "train_jamba": {**trained["bfloat16"]["forward"], "unit": train_unit + ", with the "
+                        "checkpoints"},
+    })
+    bwd = trained["bfloat16"]["backward"]
+    out.append({
+        "name": "selective_scan_bwd", "route": "cuda", "source": SOURCES["selective_scan_bwd"],
+        "replaces": REPLACES["selective_scan_bwd"], **launches("selective_scan_bwd"),
+        "max_abs_err": max(v["max_abs_err"] for v in trained.values()),
+        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": None,
+        "unit": train_unit,
     })
     return out
 
@@ -5775,6 +5996,10 @@ def main(argv=None) -> int:
                                               "rwkv6-7b", "[train-rwkv atb]")
     done("train-rwkv")
     train_jamba = phase_train_jamba(torch, counters)
+    if not (counters["train-jamba"]["selective_scan"]
+            and counters["train-jamba"]["selective_scan_bwd"]):
+        raise AssertionError(f"the train-jamba path launched no scan kernel: "
+                             f"{counters['train-jamba']}")
     train_jamba["atb_round"] = atb_round_total(torch, atb_records, train_jamba["round_calls"],
                                                "jamba-1.5-large-398b", "[train-jamba atb]")
     done("train-jamba")

@@ -121,8 +121,14 @@ def load_library() -> ctypes.CDLL:
             i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, i, p,
         ]
         lib.lr_flash_attention.restype = i
-        lib.lr_selective_scan.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, p]
+        lib.lr_selective_scan.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.lr_selective_scan.restype = i
+        lib.lr_selective_scan_bwd_scratch.argtypes = [i, i, i, i]
+        lib.lr_selective_scan_bwd_scratch.restype = ctypes.c_longlong
+        lib.lr_selective_scan_bwd.argtypes = [
+            i, p, p, p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p,
+        ]
+        lib.lr_selective_scan_bwd.restype = i
         lib.lr_error_string.argtypes = [i]
         lib.lr_error_string.restype = ctypes.c_char_p
         _LIB = lib

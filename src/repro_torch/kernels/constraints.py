@@ -24,7 +24,10 @@ sublane multiple. What a call must meet:
 - ``selective_scan``: every operand float32, the state's working dtype
   one of :data:`DTYPE_CODES`, the shapes of Mamba's recurrence with a state
   size of at most :data:`SCAN_N_MAX` and a batch within the grid's y
-  limit (:func:`check_selective_scan`);
+  limit, the checkpoints, where asked for, every K-th state with K at most
+  :data:`SCAN_K_MAX` (:func:`check_selective_scan`); its backward the
+  same operands, the checkpoints, ``dy`` and ``dh_T``
+  (:func:`check_selective_scan_bwd`);
 - the launch grid fits the card's limits, :data:`GRID_X_MAX` ×
   :data:`GRID_YZ_MAX` × :data:`GRID_YZ_MAX` (:func:`grid_fits`), and a
   call's ticket counters fit a slot of :data:`COUNTER_INTS`: the plans
@@ -47,8 +50,11 @@ STACK_DIMS = (2, 3)
 #: CUDA grid limits (x, and y / z)
 GRID_X_MAX = 2**31 - 1
 GRID_YZ_MAX = 65535
-#: ``selective_scan``: a channel's states are lanes of one warp
+#: ``selective_scan``: a channel's states are 8 a lane of at most 4 lanes
 SCAN_N_MAX = 32
+#: ``selective_scan``: the checkpoint interval at most (the backward holds a
+#: segment's states in shared memory)
+SCAN_K_MAX = 16
 #: ticket counters one call may use (a slot of the pool): a stream route
 #: ``xus`` call takes G · (column tiles + 1), a tiled one with K splits one
 #: a tile a pass, an ``atb`` call with M splits one a tile
@@ -127,25 +133,56 @@ def grid_fits(x: int, y: int = 1, z: int = 1) -> bool:
     return x <= GRID_X_MAX and y <= GRID_YZ_MAX and z <= GRID_YZ_MAX
 
 
-def check_selective_scan(delta, x, Bp, Cp, A, h0, dtypes, scan_dt) -> None:
+def check_selective_scan(delta, x, Bp, Cp, A, h0, dtypes, scan_dt, ck=None, K=1) -> None:
     """delta, x: (B, T, D); Bp, Cp: (B, T, N); A: (D, N); h0: (B, D, N)
     (shapes), every operand float32 (``dtypes``), ``scan_dt`` a dtype the
     kernel takes; T ≥ 1, 1 ≤ N ≤ :data:`SCAN_N_MAX`, B within
-    :data:`GRID_YZ_MAX` (the grid's y)."""
+    :data:`GRID_YZ_MAX` (the grid's y); ``ck``, the checkpoints' shape
+    where asked for, (B, ⌈T / K⌉, D, N) with 1 ≤ K ≤ :data:`SCAN_K_MAX`."""
+    _check_scan(delta, x, Bp, Cp, A, h0, dtypes, scan_dt, "selective_scan")
+    _check_checkpoints(delta, Bp, ck, K, "selective_scan")
+
+
+def check_selective_scan_bwd(delta, x, Bp, Cp, A, ck, dy, dhT, dtypes, scan_dt, K) -> None:
+    """The backward's operands: delta, x, Bp, Cp, A as the forward's, the
+    checkpoints ``ck`` (B, ⌈T / K⌉, D, N) it kept (required), ``dy`` (B, T,
+    D) and ``dh_T`` (B, D, N) or None; every operand float32."""
+    if ck is None:
+        raise ValueError("selective_scan_bwd: the forward's checkpoints are required")
+    B, T, D = tuple(delta) if len(tuple(delta)) == 3 else (-1, -1, -1)
+    N = tuple(Bp)[-1]
+    _check_scan(delta, x, Bp, Cp, A, (B, D, N) if dhT is None else dhT, dtypes, scan_dt,
+                "selective_scan_bwd")
+    _check_checkpoints(delta, Bp, ck, K, "selective_scan_bwd")
+    if tuple(dy) != (B, T, D):
+        raise ValueError(f"selective_scan_bwd: dy must be {(B, T, D)}, got {tuple(dy)}")
+
+
+def _check_checkpoints(delta, Bp, ck, K, name) -> None:
+    if ck is None:
+        return
+    B, T, D = tuple(delta)
+    want = (B, -(-T // K), D, tuple(Bp)[-1])
+    if not 1 <= K <= SCAN_K_MAX or tuple(ck) != want:
+        raise ValueError(f"{name}: checkpoints {tuple(ck)} every {K} steps, want {want} with "
+                         f"K in 1..{SCAN_K_MAX}")
+
+
+def _check_scan(delta, x, Bp, Cp, A, h0, dtypes, scan_dt, name) -> None:
     shapes = [tuple(t) for t in (delta, x, Bp, Cp, A, h0)]
     if len(shapes[0]) != 3:
-        raise ValueError(f"selective_scan: delta must be (B, T, D), got {shapes[0]}")
+        raise ValueError(f"{name}: delta must be (B, T, D), got {shapes[0]}")
     B, T, D = shapes[0]
     N = shapes[2][-1] if len(shapes[2]) == 3 else -1
     want = [(B, T, D), (B, T, D), (B, T, N), (B, T, N), (D, N), (B, D, N)]
     if shapes != want:
-        raise ValueError(f"selective_scan shapes disagree: delta, x, Bp, Cp, A, h0 {shapes}")
+        raise ValueError(f"{name} shapes disagree: delta, x, Bp, Cp, A, h0 {shapes}")
     if T < 1 or not 1 <= N <= SCAN_N_MAX or not grid_fits(1, B):
-        raise ValueError(f"selective_scan: T {T}, N {N}, B {B}: T must be at least 1, N in "
+        raise ValueError(f"{name}: T {T}, N {N}, B {B}: T must be at least 1, N in "
                          f"1..{SCAN_N_MAX}, B at most {GRID_YZ_MAX}")
     names = [dtype_name(d) for d in dtypes]
     if any(n != "float32" for n in names):
-        raise TypeError(f"selective_scan: operands must be float32, got {names}")
+        raise TypeError(f"{name}: operands must be float32, got {names}")
     if dtype_name(scan_dt) not in DTYPE_CODES:
-        raise TypeError(f"selective_scan: state dtype {scan_dt} not supported (float32 or "
+        raise TypeError(f"{name}: state dtype {scan_dt} not supported (float32 or "
                         f"bfloat16)")

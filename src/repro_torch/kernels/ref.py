@@ -41,7 +41,20 @@ def atb_ref(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return (A.float().transpose(-1, -2) @ B.float()).to(A.dtype)
 
 
-def selective_scan_ref(delta, x, Bp, Cp, A, h0, scan_dt):
+def _scan_steps(delta, x, Bp, A, h0, scan_dt):
+    """Mamba's states token by token from ``h0``: yields ``(a_t, h_t)``,
+    ``a_t = exp(delta_t A)`` rounded to ``scan_dt`` and ``h_t`` in
+    ``scan_dt`` (``h = b_t + a_t h`` with ``b_t = (delta_t x_t) ⊗ B_t``
+    rounded to ``scan_dt``, from ``h0`` rounded to it)."""
+    h = h0.to(scan_dt)
+    for t in range(delta.shape[1]):
+        a = torch.exp(delta[:, t, :, None] * A).to(scan_dt)
+        b = ((delta[:, t] * x[:, t])[..., None] * Bp[:, t, None, :]).to(scan_dt)
+        h = torch.addcmul(b, a, h)
+        yield a, h
+
+
+def selective_scan_ref(delta, x, Bp, Cp, A, h0, scan_dt, every=None):
     """Mamba's state recurrence from a given state, token by token (the JAX
     package's sequential ``lax.scan`` in ``mamba_mix``'s state branch).
 
@@ -49,16 +62,57 @@ def selective_scan_ref(delta, x, Bp, Cp, A, h0, scan_dt):
     f32; h0: (B, d_inner, N); ``scan_dt`` the state's working dtype. Each
     step rounds ``a_t = exp(delta_t A)`` and ``b_t = (delta_t x_t) ⊗ B_t``
     to ``scan_dt`` and takes ``h = b_t + a_t h`` in ``scan_dt`` (from
-    ``h0`` rounded to it); ``y_t = Σ_n h C_t`` in f32. Returns ``(y: (B, T,
-    d_inner) f32, h_T: (B, d_inner, N) f32)``."""
-    h = h0.to(scan_dt)
-    ys = []
-    for t in range(delta.shape[1]):
-        a = torch.exp(delta[:, t, :, None] * A).to(scan_dt)
-        b = ((delta[:, t] * x[:, t])[..., None] * Bp[:, t, None, :]).to(scan_dt)
-        h = torch.addcmul(b, a, h)
-        ys.append(torch.sum(h.float() * Cp[:, t, None, :], dim=-1))
-    return torch.stack(ys, dim=1), h.float()
+    ``h0`` rounded to it); ``y_t = Σ_n h C_t`` in f32 (in the inputs'
+    float dtype). Returns ``(y: (B, T, d_inner) f32, h_T: (B, d_inner, N)
+    f32)``, and with ``every`` = K the
+    checkpoints too: the state entering every K-th step, (B, ⌈T / K⌉,
+    d_inner, N) f32, as the kernel keeps them for its backward."""
+    f = delta.dtype  # f32; f64 where a check differentiates the loop itself
+    ys, ck = [], [h0.to(scan_dt).to(f)]
+    h = h0
+    for t, (_, h) in enumerate(_scan_steps(delta, x, Bp, A, h0, scan_dt)):
+        ys.append(torch.sum(h.to(f) * Cp[:, t, None, :], dim=-1))
+        if every and (t + 1) % every == 0 and t + 1 < delta.shape[1]:
+            ck.append(h.to(f))
+    out = torch.stack(ys, dim=1), h.to(f)
+    return out + (torch.stack(ck, dim=1),) if every else out
+
+
+def selective_scan_bwd_ref(delta, x, Bp, Cp, A, h0, dy, dhT, scan_dt):
+    """The gradient of :func:`selective_scan_ref`'s ``(y, h_T)`` given
+    ``dy`` (B, T, d_inner) and ``dh_T`` (B, d_inner, N, or None), token by
+    token and accumulated in the inputs' float dtype: the states and ``a_t``
+    recomputed as the forward rounds them, a rounding's gradient passed
+    unchanged, and with ``λ_t = ∂L/∂h_t``
+
+        λ_t = dy_t C_t + a_{t+1} λ_{t+1}   (λ_{T-1} adds dh_T)
+        g_t = λ_t h_{t-1} exp(δ_t A)
+        dδ_t = Σ_n g_t A + x_t Σ_n λ_t B_t;  dx_t = δ_t Σ_n λ_t B_t
+        dB_t = Σ_channels λ_t δ_t x_t;       dC_t = Σ_channels dy_t h_t
+        dA = Σ_(b, t) g_t δ_t;               dh0 = a_0 λ_0
+
+    (the JAX package's ``_linrec_bwd`` chained through ``a`` and ``b``).
+    Returns ``(dδ, dx, dB, dC, dA, dh0)``."""
+    f = delta.dtype
+    hs = [h0.to(scan_dt).to(f)] + [h.to(f) for _, h in _scan_steps(delta, x, Bp, A, h0, scan_dt)]
+    lam = torch.zeros_like(hs[0]) if dhT is None else dhT.to(f)
+    a_next = torch.ones_like(lam)
+    dA = torch.zeros_like(A)
+    dd, dxs, dBs, dCs = [], [], [], []
+    for t in reversed(range(delta.shape[1])):
+        dl, xt, dyt = delta[:, t], x[:, t], dy[:, t]
+        ar = torch.exp(dl[..., None] * A)
+        lam = dyt[..., None] * Cp[:, t, None, :] + a_next * lam
+        g = lam * hs[t] * ar
+        sB = torch.sum(lam * Bp[:, t, None, :], dim=-1)
+        dd.append(torch.sum(g * A, dim=-1) + xt * sB)
+        dxs.append(dl * sB)
+        dBs.append(torch.sum(lam * (dl * xt)[..., None], dim=1))
+        dCs.append(torch.sum(dyt[..., None] * hs[t + 1], dim=1))
+        dA = dA + torch.sum(g * dl[..., None], dim=0)
+        a_next = ar.to(scan_dt).to(f)
+    back = lambda ts: torch.stack(ts[::-1], dim=1)  # noqa: E731
+    return back(dd), back(dxs), back(dBs), back(dCs), dA, a_next * lam
 
 
 def mha_ref(q, k, v, *, q_positions, kv_positions, causal=True, sliding_window=0):

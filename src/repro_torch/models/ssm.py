@@ -10,31 +10,36 @@ the decay LoRA, the bonus u) are small dense tensors.
 The JAX package computes both recurrences in XLA, not in a Pallas kernel.
 The port writes them so:
 
-- Mamba with a state (the serving prefill and every decode step): the
-  reference's sequential ``lax.scan`` from the given state, at any T, as one
-  call of the Hopper selective-scan kernel
-  (:func:`repro_torch.kernels.selective_scan.selective_scan`: token by
-  token, the state in registers, ``y_t = Σ_n h_t C_t`` fused in; its plain
-  version on CPU tensors, its custom op on fake ones), so every step sums
-  in the reference's order: the recurrence over T tokens is the recurrence
-  over the first few and then the rest a token at a time, bit for bit.
-- Mamba without a state (training): the diagonal recurrence
-  ``h_t = a_t ⊙ h_{t-1} + b_t`` from zeros as a log-depth doubling scan in
-  plain PyTorch (:func:`linear_recurrence`, where the JAX package takes
-  ``associative_scan``, also parallel), time-chunked at
-  ``cfg.mamba.scan_chunk``, with the reference's reverse-recurrence
-  backward.
+- Mamba, with a state (the serving prefill and every decode step) or
+  without one (training, from a zero state): the reference's recurrence in
+  its sequential order, at any T, as one call of the Hopper selective-scan
+  kernel (:func:`repro_torch.kernels.selective_scan.selective_scan`: token
+  by token, the state in registers, ``y_t = Σ_n h_t C_t`` fused in; its
+  plain version on CPU tensors, its custom op on fake ones), so every step
+  sums in the reference's serving order: the recurrence over T tokens is
+  the recurrence over the first few and then the rest a token at a time,
+  bit for bit. With a gradient its forward keeps the state every 16 steps
+  and its backward is the Hopper kernel of the reference's reverse
+  recurrence, so no (B, T, d_inner, N) tensor is formed. The JAX package's
+  training branch takes ``associative_scan`` in chunks of
+  ``cfg.mamba.scan_chunk``; the port's scan forms no workspace, so the
+  chunk does not change what it computes.
+- :func:`linear_recurrence`: the diagonal recurrence
+  ``h_t = a_t ⊙ h_{t-1} + b_t`` as a log-depth doubling scan with the
+  reference's reverse-recurrence backward, the counterpart of the JAX
+  package's public ``linear_recurrence``; no model path calls it.
 - RWKV6: chunked linear attention (per-chunk quadratic mixing, a loop over
   the chunk states), in f32 whatever the compute dtype.
 
-The dtypes are the JAX package's: the scan workspace is the compute dtype
+The dtypes are the JAX package's: the scan's state is the compute dtype
 (bf16 at full width), Mamba's returned state ``h``, ``A = -exp(A_log)``
 and the whole wkv are f32.
 
 Under a mesh RWKV's wkv and decay LoRA run on each rank's rows and heads
 (:func:`_sharded_wkv`, :func:`repro_torch.kernels.ops.rowwise_local`), and
-Mamba's scans on each rank's rows and channels (:func:`_sharded_recurrence`,
-:func:`_sharded_selective_scan`).
+Mamba's scan on each rank's rows and channels
+(:func:`_sharded_selective_scan`; :func:`_sharded_recurrence` for
+:func:`linear_recurrence`).
 """
 from __future__ import annotations
 
@@ -133,24 +138,31 @@ def _sharded_selective_scan(delta, x, Bp, Cp, A, h0, scan_dt):
     """:func:`selective_scan` on DTensors, each rank on its shards: the
     batch split (every operand but ``A`` on its rows) and the channel split
     (delta and x on their last dim, ``A`` and ``h0`` on their channels) are
-    kept, with ``Bp`` and ``Cp`` whole on a channel split; a split of T is
-    gathered (the recurrence runs along all of it)."""
+    kept, with ``Bp`` and ``Cp`` whole on a channel split, where their
+    gradients are partial sums over the channels, as ``A``'s is over the
+    rows on a batch split; a split of T is gathered (the recurrence runs
+    along all of it)."""
     mesh = delta.device_mesh
     x, Bp, Cp, A, h0 = (meshctx.as_dtensor(t, mesh) for t in (x, Bp, Cp, A, h0))
     rep = Replicate()
-    pd, pb, pa, ph = [], [], [], []
+    pd, pb, pa, ph, gb, ga = [], [], [], [], [], []
     for i, p in enumerate(delta.placements):
         if mesh.size(i) == 1:
             pd.append(rep), pb.append(rep), pa.append(rep), ph.append(rep)
+            gb.append(None), ga.append(None)
         elif isinstance(p, Shard) and p.dim == 0:  # the batch
             pd.append(p), pb.append(p), pa.append(rep), ph.append(Shard(0))
+            gb.append(None), ga.append(Partial())
         elif isinstance(p, Shard) and p.dim == 2:  # the channels
             pd.append(p), pb.append(rep), pa.append(Shard(0)), ph.append(Shard(1))
+            gb.append(Partial()), ga.append(None)
         else:
             pd.append(rep), pb.append(rep), pa.append(rep), ph.append(rep)
+            gb.append(None), ga.append(None)
     none = [None] * mesh.ndim
-    y, hT = selective_scan(*(_local(t, mesh, pl, none).contiguous() for t, pl in
-                             ((delta, pd), (x, pd), (Bp, pb), (Cp, pb), (A, pa), (h0, ph))),
+    y, hT = selective_scan(*(_local(t, mesh, pl, g).contiguous() for t, pl, g in
+                             ((delta, pd, none), (x, pd, none), (Bp, pb, gb), (Cp, pb, gb),
+                              (A, pa, ga), (h0, ph, none))),
                            scan_dt)
     return (_from_local(y, mesh, pd, tuple(delta.shape)),
             _from_local(hT, mesh, ph, tuple(h0.shape)))
@@ -212,12 +224,12 @@ def mamba_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     ``F.softplus`` returns its input above 20, where ``jax.nn.softplus``
     computes ``log1p(exp(x))``: the two agree to f32 rounding there.
-    With a state the recurrence is one :func:`selective_scan` call from
-    ``state["h"]``, token by token as in the reference, at every T.
-    Without one (training) the doubling scan runs in chunks of
-    ``cfg.mamba.scan_chunk`` steps (zero-padded at the end) from zeros,
-    carrying ``h`` from chunk to chunk, so its (B, chunk, d_inner, N)
-    workspace exists one chunk at a time.
+    The recurrence is one :func:`selective_scan` call, from ``state["h"]``
+    or, without a state (training), from a zero f32 state, token by token
+    as the reference's state branch, at every T. The port's scan forms no
+    (B, chunk, d_inner, N) workspace, so ``cfg.mamba.scan_chunk`` (the
+    reference's training chunk, which the spec hash reads) changes nothing
+    here.
     """
     d_inner, dt_rank, d_state, _ = mamba_dims(cfg)
     dt = x.dtype
@@ -240,35 +252,15 @@ def mamba_mix(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     xc32 = xc.float()
     scan_dt = dt  # the compute dtype: bf16 at full width, f32 reduced
-    B, T = xc.shape[0], xc.shape[1]
+    B = xc.shape[0]
 
-    if state is not None:
-        # the reference's sequential order from the given state, at any T:
-        # one selective-scan call (the decode step's T = 1 included)
-        scan = _sharded_selective_scan if isinstance(delta, DTensor) else selective_scan
-        y, h = scan(delta, xc32, Bp.contiguous(), Cp.contiguous(), A.contiguous(),
-                    state["h"].float(), scan_dt)
-        new_state = {"h": h, "conv": new_tail}
-    else:
-        Lc = min(cfg.mamba.scan_chunk, T)
-        nc = -(-T // Lc)
-        pad = nc * Lc - T
-
-        def chunks(t):  # (B, T, ...) → nc chunks of (B, Lc, ...), zero-padded
-            if pad:
-                t = torch.cat([t, t.new_zeros((B, pad) + t.shape[2:])], dim=1)
-            return t.split(Lc, dim=1)
-
-        h = torch.zeros((B, d_inner, d_state), dtype=scan_dt, device=x.device)
-        ys = []
-        for d_c, dx_c, B_c, C_c in zip(*map(chunks, (delta, delta * xc32, Bp, Cp))):
-            a_c = torch.exp(d_c[..., None] * A).to(scan_dt)
-            b_c = (dx_c[..., None] * B_c[..., None, :]).to(scan_dt)
-            h_c = linear_recurrence(a_c, b_c, h)
-            ys.append(torch.sum(h_c.float() * C_c[..., None, :], dim=-1))
-            h = h_c[:, -1]
-        y = torch.cat(ys, dim=1)[:, :T]
-        new_state = None
+    # the reference's sequential order from the given state (or zeros), at
+    # any T: one selective-scan call (the decode step's T = 1 included)
+    h0 = (state["h"].float() if state is not None else
+          torch.zeros((B, d_inner, d_state), dtype=torch.float32, device=x.device))
+    scan = _sharded_selective_scan if isinstance(delta, DTensor) else selective_scan
+    y, h = scan(delta, xc32, Bp.contiguous(), Cp.contiguous(), A.contiguous(), h0, scan_dt)
+    new_state = {"h": h, "conv": new_tail} if state is not None else None
 
     y = y + p["D"].float() * xc32
     y = y.to(dt) * F.silu(z)

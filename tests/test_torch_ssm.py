@@ -11,14 +11,17 @@ npz in the JAX package's layout. The JAX side runs under ``jit`` on its plain ch
 on CPU tensors.
 
 Tolerances: the recurrence and the mixers within 1e-5 of each output's
-largest entry (f32 sums in another order: the doubling scan against
-``associative_scan``, the wkv's einsums); the loss 1e-5 relative; logits
+largest entry (f32 sums in another order: the port's sequential scan and
+its backward against ``associative_scan`` and its reverse scan, the
+doubling scan of ``linear_recurrence`` against ``associative_scan``, the
+wkv's einsums); the loss 1e-5 relative; logits
 1e-4 absolute with greedy tokens identical; a FeDLRT round's losses 1e-5 /
 1e-4 relative and every factor's ``U S Vᵀ`` 1e-4 of its largest entry,
 ranks equal.
 """
 import dataclasses
 import functools
+import importlib
 import os
 import tempfile
 
@@ -245,6 +248,34 @@ def test_mamba_state_scan_takes_no_step_per_token(monkeypatch):
     assert calls == [1, 37]
 
 
+def test_stateless_mamba_takes_one_scan_call(monkeypatch):
+    """A mixer call without a state (training) makes exactly one
+    ``selective_scan`` call, from a zero f32 state, whatever
+    ``scan_chunk`` (8 here, over 37 tokens), and its gradient one backward
+    call; the doubling scan never runs."""
+    scan_module = importlib.import_module("repro_torch.kernels.selective_scan")
+
+    calls = []
+    real, real_bwd = ssm.selective_scan, scan_module.selective_scan_bwd
+
+    def forward(d, x, Bp, Cp, A, h0, dt):
+        calls.append(("forward", d.shape[1], bool(torch.equal(h0, torch.zeros_like(h0))),
+                      h0.dtype))
+        return real(d, x, Bp, Cp, A, h0, dt)
+
+    monkeypatch.setattr(ssm, "selective_scan", forward)
+    monkeypatch.setattr(scan_module, "selective_scan_bwd",
+                        lambda *a: calls.append(("backward",)) or real_bwd(*a))
+    monkeypatch.setattr(ssm, "linear_recurrence", lambda *a: calls.append("doubling"))
+    _, tcfg, _, tp, x, _ = _mixer_case("mamba", 37, False)
+    assert tcfg.mamba.scan_chunk == 8
+    xg = torch.from_numpy(x).requires_grad_(True)
+    y, new = ssm.mamba_mix(tp, xg, tcfg)
+    assert new is None and y.shape == xg.shape
+    torch.autograd.grad(y.sum(), xg)
+    assert calls == [("forward", 37, True, torch.float32), ("backward",)]
+
+
 @pytest.mark.parametrize("T", [1, 16, 37])
 def test_mamba_state_branch_matches_the_reference_in_f32(T):
     """The state branch in f32 at a decode step (T 1), two whole chunks of
@@ -288,10 +319,11 @@ def test_mamba_state_branch_matches_the_reference_in_bf16():
 @pytest.mark.parametrize("kind", ["mamba", "rwkv"])
 def test_mixer_gradient_matches(kind):
     """The gradient of a random projection of the stateless mixer's output
-    (T = 21: both scans carry across chunks and end on a ragged one) with
-    respect to its input and every parameter leaf, within 1e-5 of each
-    gradient's largest entry: Mamba's reverse recurrence and the wkv's
-    backward through the ±30 clamps, against ``jax.grad``."""
+    (T = 21: the reference's scans carry across chunks and end on a ragged
+    one) with respect to its input and every parameter leaf, within 1e-5 of
+    each gradient's largest entry: Mamba's scan backward (the backward
+    kernel's plain version on these CPU tensors) and the wkv's backward
+    through the ±30 clamps, against ``jax.grad``."""
     jcfg, tcfg, jp, tp = _mixer_params(kind)
     jmix, tmix = (jssm.mamba_mix, ssm.mamba_mix) if kind == "mamba" else (jssm.rwkv_mix,
                                                                            ssm.rwkv_mix)

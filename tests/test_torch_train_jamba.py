@@ -10,21 +10,24 @@ parameters and compute (f32 U and V, bf16 S and dense leaves, f32
 bf16 round's kernel calls against ``chip_smoke.round_calls`` (Mamba's
 in / z / x / out projections, attention, the MLPs, the (layers,
 experts) stacks at G 4 and the capacity's rows, the embedding, the head);
-(d) ``ssm.linear_recurrence`` in f32 against the recurrence run token by
+(d) ``ssm.linear_recurrence`` (no model path calls it since the training
+mixer took the selective scan) in f32 against the recurrence run token by
 token in f64, forward and gradient, within 1e-5 of each tensor's largest
-entry, and the mixer at ``scan_chunk`` 8 over T 37 (five chunks: the
-carry, and a ragged last chunk zero-padded by 3); (e)
-``chip_smoke.mamba_scan_against_recurrence`` (the card's ``[train-jamba
-scan]``) on the reduced layer 0, in one chunk and in three.
+entry; (e) ``chip_smoke.mamba_scan_against_recurrence`` (the card's
+``[train-jamba scan]``) on the reduced layer 0: the mixer's scan (here the
+scan kernels' plain versions, forward and backward) against the same scan
+token by token in f64, at ``scan_chunk`` 8, the config's and 16, which
+change nothing: one scan call a mixer call.
 
 (b) runs in f32, at the training tests' tolerances (loss 1e-5 / 1e-4,
 ``U S Vᵀ`` 1e-4 of its largest entry). In bf16 the two packages' Mamba
-mixers differ by ~1 % of their output's largest entry: the scan's
-workspace is bf16 in both (the reference's design), each adds its chunk in
-another order (the doubling scan against ``associative_scan``) with a
-rounding to bf16 at each step, and the reference's own jitted mixer
-differs from its op-by-op run by 6.1e-3 of max on the same input, the port
-from the jitted one by 9.5e-3 (on the CPU). Over a round that reaches the
+mixers differ by ~1 % of their output's largest entry: the scan's state
+is bf16 in both (the reference's design), each rounds it to bf16 at each
+step in its own order (the port's sequential scan, and before it the
+doubling scan, against ``associative_scan``'s tree), and the reference's
+own jitted mixer differs from its op-by-op run by 6.1e-3 of max on the
+same input, the port's doubling scan from the jitted one by 9.5e-3 (on the
+CPU). Over a round that reaches the
 losses and the factors: at this τ a bf16 round read loss_before 1.58e-3
 and loss_after 2.28e-3 relative (the limit 2⁻⁹ = 1.95e-3), ``U S Vᵀ`` up
 to 5.42e-3 of max (2⁻⁸ = 3.91e-3) and expert stacks 0.22-0.38 of their
@@ -49,6 +52,7 @@ left x_proj unchanged at the two layers where it moves past the floor
 the two packages' f32 rounding, and no limit can.
 """
 import dataclasses
+import importlib
 
 import jax
 import numpy as np
@@ -218,11 +222,30 @@ def test_bf16_round_kernel_calls_by_dtype(monkeypatch, smoke):
     G, M): Mamba's in / z / x / out projections (x_proj at its own r_max;
     dt_proj is dense at this width, a factor with its bias outside the
     chain at full width), attention, the MLPs, the expert stacks at G 4
-    and the capacity's rows, the embedding and the head."""
+    and the capacity's rows, the embedding and the head; and
+    ``chip_smoke.scan_launches`` equals the round's calls of the scan's
+    forward (one a Mamba mixer call) and of its backward (one a call that
+    takes a gradient), the launches the card's round is held to."""
+    scan_module = importlib.import_module("repro_torch.kernels.selective_scan")
+
     one_period(monkeypatch, "bfloat16")
     _, tspec = spec_pair(ARCH)
+    scans, built = {"selective_scan": 0, "selective_scan_bwd": 0}, []
+    real_fwd, real_bwd, real_build = (scan_module._forward, scan_module.selective_scan_bwd,
+                                      api.build)
+
+    def count(name, fn):
+        return lambda *a: scans.__setitem__(name, scans[name] + 1) or fn(*a)
+
+    monkeypatch.setattr(scan_module, "_forward", count("selective_scan", real_fwd))
+    monkeypatch.setattr(scan_module, "selective_scan_bwd", count("selective_scan_bwd", real_bwd))
+    monkeypatch.setattr(api, "build", lambda *a, **k: built.append(real_build(*a, **k))
+                        or built[-1])
     calls, want = round_calls_of(smoke, tspec)
     assert calls == want
+    assert scans == smoke.scan_launches(built[0].engine.cfg, tasks.lm_model_config(tspec.model))
+    fed = built[0].engine.cfg
+    assert scans["selective_scan_bwd"] == fed.num_clients * 7 * (1 + fed.s_star)
     cfg = tasks.lm_model_config(tspec.model)
     M = tspec.data.batch * tspec.data.seq
     assert {k[4] for k in calls if k[0] == "xus" and k[4]} == {"bfloat16", "float32"}
@@ -270,20 +293,21 @@ def test_linear_recurrence_matches_the_token_recurrence(smoke):
         assert err <= SCAN_RTOL, f"{what}: {err}"
 
 
-@pytest.mark.parametrize("B, T, chunk, chunks", [(2, 37, 8, 5), (2, 40, None, 1),
-                                                 (2, 40, 16, 3)])
-def test_mixer_scan_check_holds_the_reduced_layer(smoke, B, T, chunk, chunks):
-    """(d) at ``scan_chunk`` 8 over T 37 (five chunks, the last zero-padded
-    by 3) and (e) ``chip_smoke.mamba_scan_against_recurrence`` (the card's
-    ``[train-jamba scan]``) on the reduced layer 0 in one chunk and in
-    three: the mixer's output and the gradients with respect to x,
-    ``A_log``, ``D``, ``dt_bias``, ``conv_w`` and ``in_x``'s S within 1e-5
-    of their largest entries, against the mixer in one chunk with the
-    recurrence token by token in f64."""
+@pytest.mark.parametrize("B, T, chunk", [(2, 37, 8), (2, 40, None), (2, 40, 16)])
+def test_mixer_scan_check_holds_the_reduced_layer(smoke, B, T, chunk):
+    """(e) ``chip_smoke.mamba_scan_against_recurrence`` (the card's
+    ``[train-jamba scan]``) on the reduced layer 0 at T 37 and 40 (two and
+    three of the backward's 16-step segments, the last one short), with
+    ``scan_chunk`` 8, the config's and 16: one scan call a mixer call; the
+    mixer's output and the gradients with respect to x, ``A_log``, ``D``,
+    ``dt_bias``, ``conv_w``, ``in_x``'s and ``x_proj``'s S and dt_proj's
+    weight (dense at this width) within 1e-5 of their largest entries,
+    against the mixer with the scan token by token in f64."""
     cfg, p = _reduced_layer(chunk)
     got = smoke.mamba_scan_against_recurrence(torch, cfg, p, B, T, 7, device="cpu")
-    assert got["chunks"] == chunks
+    assert got["calls"] == 1
     assert set(got["errs"]) == {"out", "grad x", "grad A_log", "grad D", "grad dt_bias",
-                                "grad conv_w", "grad in_x S"}
+                                "grad conv_w", "grad in_x S", "grad x_proj S",
+                                "grad dt_proj W"}
     assert max(got["errs"].values()) <= SCAN_RTOL, got["errs"]
     assert np.isfinite(got["served_err"])
